@@ -1,0 +1,380 @@
+"""Building blocks of the U-Net family, inference (eval mode) only.
+
+Counterpart of ``biapy_tpu/models/blocks.py`` (Conv, ConvTranspose,
+get_activation, Norm, ConvBlock, ResConvBlock, UpLayer, UpBlock, max_pool),
+with the options the ``unet`` and ``resunet`` variants use.
+Activations are contiguous channels-last ``(N, D, H, W, C)`` tensors and
+weights keep the Flax layouts (conv kernels ``k... + (Cin, Cout)``), so the
+z-folded ``(N*D, H, W, C)`` form the pool and zd2s kernels take is a free
+``view``.
+
+Children are named as Flax auto-names them (``Conv_0``, ``Norm_1``,
+``ConvBlock_0``, ...; one counter per class, in creation order), and
+parameters and statistics carry Flax's leaf names (``kernel``, ``bias``,
+``scale``, ``mean``, ``var``). A module's ``state_dict`` key with ``.``
+read as ``/`` is therefore the Flax path of the same leaf, which is all
+the weight bridge (``models/flax_import.py``) needs.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from biapy_tpu_torch.ops.conv3d import conv_same
+from biapy_tpu_torch.ops.kernels.shuffle import pool_max_folded, zd2s
+
+IntOrTuple = Union[int, Sequence[int]]
+
+
+def _expand(val: IntOrTuple, ndim: int) -> Tuple[int, ...]:
+    if isinstance(val, int):
+        return (val,) * ndim
+    return tuple(val)
+
+
+def aniso_kernel(k: int, ndim: int, isotropic: bool) -> Tuple[int, ...]:
+    """(k,k) in 2D; (k,k,k) or (1,k,k) in 3D depending on level isotropy."""
+    if ndim == 2:
+        return (k, k)
+    return (k, k, k) if isotropic else (1, k, k)
+
+
+def xavier_uniform_(t: torch.Tensor, gen: Optional[torch.Generator]) -> torch.Tensor:
+    """Flax's ``xavier_uniform`` on a ``k... + (in, out)`` kernel: fans are
+    the last two axes times the receptive field."""
+    receptive = math.prod(t.shape[:-2]) if t.dim() > 2 else 1
+    fan_in, fan_out = t.shape[-2] * receptive, t.shape[-1] * receptive
+    limit = math.sqrt(6.0 / (fan_in + fan_out))
+    with torch.no_grad():
+        t.uniform_(-limit, limit, generator=gen)
+    return t
+
+
+class FlaxNamed(nn.Module):
+    """A container whose children get Flax's auto-names."""
+
+    def __init__(self):
+        super().__init__()
+        self._flax_counts: Dict[str, int] = {}
+        # role -> child, kept out of nn.Module's registry so each child has
+        # exactly one (Flax) name in the state dict
+        self.parts: Dict[str, Optional[nn.Module]] = {}
+
+    def child(self, kind: str, module: nn.Module) -> nn.Module:
+        i = self._flax_counts.get(kind, 0)
+        self._flax_counts[kind] = i + 1
+        self.add_module(f"{kind}_{i}", module)
+        return module
+
+
+class Conv(nn.Module):
+    """Flax ``Conv`` counterpart, stride 1 and SAME padding (every conv of
+    the U-Net family): ``kernel`` ``ks + (Cin, Cout)``, ``bias`` ``(Cout,)``;
+    the conv itself is routed by ``ops/conv3d.py``."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        ks = tuple(kernel_size)
+        self.kernel = nn.Parameter(xavier_uniform_(torch.empty(ks + (in_features, features)), gen))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return conv_same(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class ConvTranspose(nn.Module):
+    """Flax ``ConvTranspose`` counterpart for kernel == stride (every
+    upsampling site of the zoo), in the folded formulation of the JAX
+    package (``models/blocks.py:220-238``): one matmul gives every
+    (z, y, x) tap of every voxel, the y/x depth-to-space is a reshape and
+    permute, the tiled bias is added, and the z depth-to-space is the
+    ``zd2s`` kernel on the folded rows. Stride == kernel is the only form
+    the U-Net family uses.
+
+    ``lax.conv_transpose`` mirrors the kernel, so output phase (a, i, j)
+    takes kernel tap (sz-1-a, sy-1-i, sx-1-j)."""
+
+    def __init__(self, in_features: int, features: int, scale: Sequence[int],
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.ks = tuple(scale)
+        if len(self.ks) != 3:
+            raise NotImplementedError(f"ConvTranspose: the port takes 3D scales, got {self.ks}")
+        self.features = features
+        self.kernel = nn.Parameter(xavier_uniform_(torch.empty(self.ks + (in_features, features)),
+                                                   gen))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        sz, sy, sx = self.ks
+        n, d, h, w, cin = x.shape
+        co = self.features
+        kf = self.kernel.to(x.dtype).flip(0, 1, 2)
+        # columns ordered (i, j, a, co): after the y/x shuffle the channel
+        # axis holds the z taps stacked, as zd2s takes them
+        wmat = kf.permute(3, 1, 2, 0, 4).reshape(cin, sy * sx * sz * co)
+        y = torch.matmul(x.reshape(n * d, h, w, cin), wmat)
+        y = y + self.bias.to(y.dtype).repeat(sy * sx * sz)
+        y = y.reshape(n * d, h, w, sy, sx, sz * co).permute(0, 1, 3, 2, 4, 5)
+        y = y.reshape(n * d, h * sy, w * sx, sz * co)
+        if sz > 1:
+            y = zd2s(y.contiguous(), sz)
+        return y.reshape(n, d * sz, h * sy, w * sx, co)
+
+
+def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor]:
+    """BiaPy activation name -> function (same table as the JAX package)."""
+    if not name or name.lower() in ("none", "linear"):
+        return lambda x: x
+    name = name.lower()
+    table = {
+        "relu": F.relu,
+        "elu": F.elu,
+        "gelu": lambda x: F.gelu(x, approximate="tanh"),  # flax nn.gelu default
+        "silu": F.silu,
+        "swish": F.silu,
+        "leaky_relu": lambda x: F.leaky_relu(x, negative_slope=0.01),
+        "prelu": lambda x: F.leaky_relu(x, negative_slope=0.25),
+        "tanh": torch.tanh,
+        "sigmoid": torch.sigmoid,
+        "softmax": lambda x: torch.softmax(x, dim=-1),
+        "mish": lambda x: x * torch.tanh(F.softplus(x)),
+        "relu6": lambda x: torch.clamp(F.relu(x), max=6.0),
+        "hardswish": lambda x: x * torch.clamp(x + 3.0, 0.0, 6.0) / 6.0,
+    }
+    if name not in table:
+        raise ValueError(f"Unknown activation: {name}")
+    return table[name]
+
+
+class BatchNorm(nn.Module):
+    """Flax ``BatchNorm`` with running statistics (eval): eps 1e-5, every
+    step in the activation's dtype, in Flax's order of operations."""
+
+    def __init__(self, features: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+        self.register_buffer("mean", torch.zeros(features))
+        self.register_buffer("var", torch.ones(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        dt = x.dtype
+        y = x - self.mean.to(dt)
+        mul = torch.rsqrt(self.var.to(dt) + self.eps) * self.scale.to(dt)
+        return y * mul + self.bias.to(dt)
+
+
+class GroupNorm(nn.Module):
+    """Flax ``GroupNorm``: per-sample statistics over the spatial axes and
+    each group's channels, computed in float32 (E[x^2] - E[x]^2, clipped at
+    0), applied in float32, cast back to the activation's dtype."""
+
+    def __init__(self, features: int, num_groups: int, eps: float = 1e-5):
+        super().__init__()
+        self.groups = num_groups
+        self.eps = eps
+        self.scale = nn.Parameter(torch.ones(features))
+        self.bias = nn.Parameter(torch.zeros(features))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[0], x.shape[-1]
+        xf = x.float()
+        g = xf.reshape(n, -1, self.groups, c // self.groups)
+        axes = (1, 3)
+        mu = g.mean(dim=axes, keepdim=True)
+        var = torch.clamp((g * g).mean(dim=axes, keepdim=True) - mu * mu, min=0.0)
+        shape = (n,) + (1,) * (x.dim() - 2) + (c,)
+        mu = mu.expand(n, 1, self.groups, c // self.groups).reshape(shape)
+        var = var.expand(n, 1, self.groups, c // self.groups).reshape(shape)
+        mul = torch.rsqrt(var + self.eps) * self.scale.float()
+        return ((xf - mu) * mul + self.bias.float()).to(x.dtype)
+
+
+class Norm(FlaxNamed):
+    """Normalization by name: 'bn', 'sync_bn' (BatchNorm at inference),
+    'in' (one group per channel), 'gn' (min(8, C) groups, lowered until they
+    divide C) or 'none'."""
+
+    def __init__(self, kind: str, features: int):
+        super().__init__()
+        self.kind = kind
+        if kind in ("bn", "sync_bn"):
+            self.child("BatchNorm", BatchNorm(features))
+        elif kind == "gn":
+            groups = min(8, features)
+            while features % groups != 0:
+                groups -= 1
+            self.child("GroupNorm", GroupNorm(features, groups))
+        elif kind == "in":
+            self.child("GroupNorm", GroupNorm(features, features))
+        elif kind != "none":
+            raise ValueError(f"Unknown normalization: {kind}")
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.kind == "none":
+            return x
+        mod = self.BatchNorm_0 if self.kind in ("bn", "sync_bn") else self.GroupNorm_0
+        return mod(x)
+
+
+class ConvBlock(FlaxNamed):
+    """``nconvs`` stacked (conv, norm, act) units, order ``conv_norm_act``
+    or ``norm_act_conv`` (dropout is the identity at inference)."""
+
+    def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
+                 act: Optional[str] = None, norm: str = "none", nconvs: int = 1,
+                 order: str = "conv_norm_act", ndim: int = 3,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = get_activation(act)
+        self.order = order
+        k = _expand(k_size, ndim)
+        self.units = []
+        c = in_features
+        for _ in range(nconvs):
+            conv = self.child("Conv", Conv(c, features, k, gen=gen))
+            nrm = self.child("Norm", Norm(norm, c if order == "norm_act_conv" else features))
+            self.units.append((conv, nrm))
+            c = features
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        for conv, nrm in self.units:
+            if self.order == "norm_act_conv":
+                x = conv(self.act(nrm(x)))
+            else:
+                x = self.act(nrm(conv(x)))
+        return x
+
+
+class ResConvBlock(FlaxNamed):
+    """Residual block, in the JAX package's structure (``models/blocks.py
+    ResConvBlock``, without the SE and extra-conv options of
+    ``resunet_se``): post-activation by default ([norm, act] prelude unless
+    first, ``nconvs`` ConvBlocks whose last conv is bare), or full
+    pre-activation with ``order='norm_act_conv'``; 1x1x1 projection
+    shortcut."""
+
+    def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
+                 act: Optional[str] = None, norm: str = "none", first_block: bool = False,
+                 nconvs: int = 2, order: str = "conv_norm_act", ndim: int = 3,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.act = get_activation(act)
+        k = _expand(k_size, ndim)
+        kw = dict(act=act, norm=norm, ndim=ndim, gen=gen)
+        self.parts["prelude"] = None
+        self.main = []
+        if order == "norm_act_conv":
+            c = in_features
+            for _ in range(nconvs):
+                self.main.append(self.child("ConvBlock", ConvBlock(
+                    c, features, k, order="norm_act_conv", **kw)))
+                c = features
+        else:
+            if not first_block:
+                self.parts["prelude"] = self.child("Norm", Norm(norm, in_features))
+            self.main.append(self.child("ConvBlock", ConvBlock(in_features, features, k, **kw)))
+            for _ in range(max(0, nconvs - 2)):
+                self.main.append(self.child("ConvBlock", ConvBlock(features, features, k, **kw)))
+            if nconvs >= 2:
+                self.main.append(self.child("ConvBlock", ConvBlock(
+                    features, features, k, ndim=ndim, gen=gen)))
+        self.parts["shortcut"] = self.child("Conv", Conv(in_features, features, (1,) * ndim,
+                                                         gen=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        h = x
+        if self.parts["prelude"] is not None:
+            h = self.act(self.parts["prelude"](h))
+        for blk in self.main:
+            h = blk(h)
+        return h + self.parts["shortcut"](x)
+
+
+def upsample_linear(x: torch.Tensor, scale: Sequence[int]) -> torch.Tensor:
+    """Tri/bilinear upsampling by integer factors with half-pixel centres,
+    as ``jax.image.resize(method='linear')`` upsamples."""
+    nd = x.dim() - 2
+    mode = "trilinear" if nd == 3 else "bilinear"
+    size = tuple(s * f for s, f in zip(x.shape[1:-1], scale))
+    y = F.interpolate(x.movedim(-1, 1).float(), size=size, mode=mode, align_corners=False)
+    return y.to(x.dtype).movedim(1, -1).contiguous()
+
+
+class UpLayer(FlaxNamed):
+    """Upsampling step: transposed conv, or linear upsampling and a 1-wide
+    conv, then norm and activation."""
+
+    def __init__(self, in_features: int, features: int, scale: Tuple[int, ...],
+                 up_mode: str = "convtranspose", norm: str = "none",
+                 act: Optional[str] = None, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale = tuple(scale)
+        self.up_mode = up_mode
+        if up_mode == "convtranspose":
+            self.parts["up"] = self.child("ConvTranspose", ConvTranspose(
+                in_features, features, self.scale, gen=gen))
+        else:
+            self.parts["up"] = self.child("Conv", Conv(
+                in_features, features, (1,) * len(self.scale), gen=gen))
+        self.parts["norm"] = self.child("Norm", Norm(norm, features))
+        self.act = get_activation(act)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.up_mode != "convtranspose":
+            x = upsample_linear(x, self.scale)
+        return self.act(self.parts["norm"](self.parts["up"](x)))
+
+
+class UpBlock(FlaxNamed):
+    """Decoder stage: upsample, concat the skip, refine (ConvBlock, or
+    ResConvBlock after a channel-preserving upsample when ``residual``)."""
+
+    def __init__(self, in_features: int, skip_features: int, features: int,
+                 scale: Tuple[int, ...], k_size: IntOrTuple = 3,
+                 up_mode: str = "convtranspose", act: Optional[str] = None,
+                 norm: str = "none", residual: bool = False, nconvs: int = 2,
+                 order: str = "conv_norm_act", ndim: int = 3,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.scale = tuple(scale)
+        kw = dict(act=act, norm=norm, nconvs=nconvs, order=order, ndim=ndim, gen=gen)
+        if residual:
+            self.parts["up"] = (self.child("ConvTranspose", ConvTranspose(
+                in_features, in_features, self.scale, gen=gen))
+                if up_mode == "convtranspose" else None)
+            self.parts["refine"] = self.child("ResConvBlock", ResConvBlock(
+                in_features + skip_features, features, k_size, **kw))
+        else:
+            self.parts["up"] = self.child("UpLayer", UpLayer(
+                in_features, features, self.scale, up_mode, norm=norm, act=act, gen=gen))
+            self.parts["refine"] = self.child("ConvBlock", ConvBlock(
+                features + skip_features, features, k_size, **kw))
+
+    def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
+        up_fn = self.parts["up"]
+        up = upsample_linear(x, self.scale) if up_fn is None else up_fn(x)
+        return self.parts["refine"](torch.cat([up, skip], dim=-1))
+
+
+def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
+    """Max pooling with stride == window on (N, D, H, W, C). A divisible
+    window runs the pool kernel on the folded (N*D, H, W, C) view; any
+    other shape floors like XLA's VALID ``reduce_window``."""
+    w = tuple(int(v) for v in window)
+    if x.dim() != 5 or len(w) != 3:
+        raise NotImplementedError("max_pool: the port takes 3D (N, D, H, W, C) volumes")
+    n, d, h, wd, c = x.shape
+    if d % w[0] == 0 and h % w[1] == 0 and wd % w[2] == 0:
+        y = pool_max_folded(x.contiguous().view(n * d, h, wd, c), w)
+        return y.view(n, d // w[0], h // w[1], wd // w[2], c)
+    y = F.max_pool3d(x.movedim(-1, 1), w, stride=w)
+    return y.movedim(1, -1).contiguous()

@@ -1,0 +1,115 @@
+"""The U-Net family as one configurable module, inference only.
+
+Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` for the
+variants ``unet`` and ``resunet`` in 3D. ``seunet``, ``resunet_se`` and
+``attention_unet`` need SqExBlock and AttentionGate, which are not ported
+yet (ROADMAP queue 1).
+
+Contract (as the JAX module's, for semantic segmentation): input
+channels-last ``(B, z, y, x, C)``, output the heads concatenated
+channel-wise; activations are applied by the engine, not here. Per-head
+separated decoders, class heads and super-resolution upsampling serve
+workflows that are not ported yet. Children carry Flax's auto-names (see
+blocks.py). Dropout is the identity at inference, so ``drop_values`` is
+not taken.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import torch
+
+from biapy_tpu_torch.models.blocks import (
+    Conv,
+    ConvBlock,
+    FlaxNamed,
+    ResConvBlock,
+    UpBlock,
+    aniso_kernel,
+    max_pool,
+)
+
+PORTED_VARIANTS = ("unet", "resunet")
+
+
+class UNetFamily(FlaxNamed):
+    """3D U-Net / ResUNet: optional LARGER_IO stem, ``len(feature_maps) - 1``
+    encoder levels with max-pooling, a bottleneck, the decoder, one 1x1x1
+    head per output (concatenated)."""
+
+    def __init__(self, variant: str = "unet", ndim: int = 3, in_channels: int = 1,
+                 activation: str = "elu", feature_maps: Sequence[int] = (32, 64, 128, 256),
+                 normalization: str = "none", k_size: int = 3,
+                 upsample_layer: str = "convtranspose",
+                 yx_down: Sequence[int] = (2, 2, 2, 2), z_down: Sequence[int] = (2, 2, 2, 2),
+                 output_channels: Sequence[int] = (1,), isotropy: Sequence[bool] = (True,),
+                 larger_io: bool = True, conv_layers: Sequence[int] = (2, 2, 2, 2, 2),
+                 contrast: bool = False, conv_block_order: str = "conv_norm_act",
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        if variant not in PORTED_VARIANTS:
+            raise NotImplementedError(
+                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 8: "
+                "SqExBlock / AttentionGate); ported: " + ", ".join(PORTED_VARIANTS))
+        if ndim != 3:
+            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 8)")
+        if contrast:
+            raise NotImplementedError("the contrastive head is not ported yet "
+                                      "(ROADMAP queue 1 item 3, training)")
+        fm = list(feature_maps)
+        depth = len(fm) - 1
+        iso = list(isotropy)
+        if len(iso) == 1:
+            iso = iso * len(fm)
+        residual = variant == "resunet"
+        self.windows = [(z_down[i], yx_down[i], yx_down[i]) for i in range(depth)]
+        kw = dict(act=activation, norm=normalization, order=conv_block_order, ndim=ndim, gen=gen)
+
+        def io_block(cin, feats):
+            return self.child("ConvBlock", ConvBlock(
+                cin, feats, aniso_kernel(k_size + 2, ndim, iso[0]), **kw))
+
+        def enc_block(cin, feats, level, first):
+            k = aniso_kernel(k_size, ndim, iso[level])
+            if residual:
+                return self.child("ResConvBlock", ResConvBlock(
+                    cin, feats, k, first_block=first, nconvs=conv_layers[level], **kw))
+            return self.child("ConvBlock", ConvBlock(cin, feats, k, nconvs=conv_layers[level],
+                                                     **kw))
+
+        c = in_channels
+        self.parts["stem"] = None
+        if larger_io:
+            self.parts["stem"] = io_block(c, fm[0])
+            c = fm[0]
+        self.encoder = []
+        for i in range(depth):
+            self.encoder.append(enc_block(c, fm[i], i, i == 0))
+            c = fm[i]
+        self.parts["bottleneck"] = enc_block(c, fm[-1], len(fm) - 1, False)
+        self.decoder = []
+        c = fm[-1]
+        for i in range(depth - 1, -1, -1):
+            self.decoder.append(self.child("UpBlock", UpBlock(
+                c, fm[i], fm[i], self.windows[i], aniso_kernel(k_size, ndim, iso[i]),
+                up_mode=upsample_layer, residual=residual, nconvs=conv_layers[i], **kw)))
+            c = fm[i]
+        self.parts["out_block"] = io_block(fm[0], fm[0]) if larger_io else None
+        self.heads = [self.child("Conv", Conv(fm[0], oc, (1,) * ndim, gen=gen))
+                      for oc in output_channels]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parts["stem"] is not None:
+            x = self.parts["stem"](x)
+        skips = []
+        for blk, win in zip(self.encoder, self.windows):
+            x = blk(x)
+            skips.append(x)
+            x = max_pool(x, win)
+        h = self.parts["bottleneck"](x)
+        for stage, skip in zip(self.decoder, reversed(skips)):
+            h = stage(h, skip)
+        if self.parts["out_block"] is not None:
+            h = self.parts["out_block"](h)
+        return torch.cat([head(h) for head in self.heads], dim=-1)

@@ -1,0 +1,151 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+The sources in ``biapy_tpu_torch/csrc/*.cu`` expose a plain C interface.
+At first use they are compiled with ``nvcc`` for ``sm_90a`` (one ``nvcc``
+per source, all started together, then one link) into a shared library
+under ``biapy_tpu_torch/_build/<hash of the sources and flags>/``, and
+loaded with ``ctypes``. A changed source gets a new directory, so a stale
+library is never loaded. A failed build raises.
+
+Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
+nothing else), so a run can show that its path went through the kernels.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import time
+from pathlib import Path
+from typing import Dict, Optional
+
+import torch
+
+PKG_DIR = Path(__file__).resolve().parents[2]
+CSRC_DIR = PKG_DIR / "csrc"
+BUILD_DIR = PKG_DIR / "_build"
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+
+# kernel name -> launches since the last reset
+LAUNCHES: Dict[str, int] = {"conv3d": 0, "pool_max_folded": 0, "zd2s": 0}
+
+_lib: Optional[ctypes.CDLL] = None
+BUILD_INFO: Dict[str, object] = {}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cand = Path(os.environ.get("CUDA_HOME", "/usr/local/cuda")) / "bin" / "nvcc"
+    if cand.exists():
+        return str(cand)
+    raise RuntimeError("nvcc not found (PATH, $CUDA_HOME/bin, /usr/local/cuda/bin): "
+                       "the port's CUDA kernels cannot be built")
+
+
+def _sources():
+    srcs = sorted(CSRC_DIR.glob("*.cu"))
+    if not srcs:
+        raise RuntimeError(f"no CUDA sources under {CSRC_DIR}")
+    return srcs
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for s in srcs:
+        h.update(s.name.encode())
+        h.update(s.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels (if this source set has no library yet) and
+    return the library's path."""
+    srcs = _sources()
+    out_dir = BUILD_DIR / _digest(srcs)
+    lib_path = out_dir / "libbiapy_kernels.so"
+    if lib_path.exists():
+        BUILD_INFO.setdefault("seconds", 0.0)
+        BUILD_INFO.setdefault("cached", True)
+        return lib_path
+    nvcc = _nvcc()
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        procs = []
+        for s in srcs:
+            obj = Path(tmp) / (s.stem + ".o")
+            cmd = [nvcc, *NVCC_FLAGS, "-c", str(s), "-o", str(obj)]
+            procs.append((s, obj, subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                                   stderr=subprocess.STDOUT, text=True)))
+        logs = []
+        failed = []
+        for s, _, p in procs:
+            out, _ = p.communicate()
+            logs.append(f"== {s.name}\n{out}")
+            if p.returncode != 0:
+                failed.append(s.name)
+        if failed:
+            raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n" + "\n".join(logs))
+        tmp_lib = Path(tmp) / lib_path.name
+        link = subprocess.run([nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o",
+                               str(tmp_lib)],
+                              stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        if link.returncode != 0:
+            raise RuntimeError(f"nvcc link failed:\n{link.stdout}")
+        out_dir.mkdir(parents=True, exist_ok=True)
+        os.replace(tmp_lib, lib_path)
+        (out_dir / "build.log").write_text("\n".join(logs))
+    BUILD_INFO.update(seconds=time.perf_counter() - t0, cached=False, log="\n".join(logs))
+    return lib_path
+
+
+def lib() -> ctypes.CDLL:
+    """The loaded kernel library, built on first use."""
+    global _lib
+    if _lib is None:
+        handle = ctypes.CDLL(str(build()))
+        p, i = ctypes.c_void_p, ctypes.c_int
+        handle.biapy_conv3d_k3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        handle.biapy_pool_max_folded.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
+        handle.biapy_zd2s.argtypes = [p, p, i, i, i, i, i, i, p]
+        for fn in (handle.biapy_conv3d_k3, handle.biapy_pool_max_folded, handle.biapy_zd2s):
+            fn.restype = ctypes.c_int
+        _lib = handle
+    return _lib
+
+
+def dtype_code(t: torch.Tensor) -> int:
+    if t.dtype == torch.float32:
+        return 0
+    if t.dtype == torch.bfloat16:
+        return 1
+    raise TypeError(f"kernel takes float32 or bfloat16, got {t.dtype}")
+
+
+def stream_ptr(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def check_rc(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+
+
+def check_cuda(t: torch.Tensor, name: str) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(f"{name}: tensor on {t.device}; the kernel takes CUDA tensors "
+                         "(CPU tensors take the plain version)")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: tensor must be contiguous")

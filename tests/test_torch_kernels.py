@@ -1,0 +1,149 @@
+"""The PyTorch port's kernel modules against the JAX package's functions.
+
+On the CPU every wrapper of ``biapy_tpu_torch.ops.kernels`` takes its plain
+PyTorch version (the CUDA kernels are held against those versions on the
+card by ``chip_smoke.py`` and by ``tests/test_torch_cuda.py``). Here the
+plain versions are held against the JAX package exactly as its own tests
+run it on the CPU: ``conv3d`` falls to its XLA reference ``_conv3d_xla``,
+and the Pallas shuffle kernels run in interpret mode.
+
+Also here: the isolation check that the port imports nothing of JAX.
+"""
+
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from biapy_tpu.ops.pallas import conv3d as jax_conv3d
+from biapy_tpu.ops.pallas import shuffle as jax_shuffle
+from biapy_tpu_torch.ops.kernels import build
+from biapy_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
+from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_plain,
+                                                 zd2s, zd2s_plain)
+
+torch.set_num_threads(2)
+
+REPO = Path(__file__).resolve().parents[1]
+
+
+def _bf16_exact(a: np.ndarray) -> np.ndarray:
+    """float32 values that bfloat16 holds exactly, so both frameworks start
+    from the same bf16 tensor."""
+    return torch.from_numpy(a).to(torch.bfloat16).float().numpy()
+
+
+@pytest.mark.parametrize("shape,cout", [
+    ((1, 5, 7, 9, 1), 4),     # the stem's Cin = 1, odd D/H/W
+    ((2, 3, 6, 5, 8), 8),     # batch 2: no z bleed across images
+    ((1, 4, 5, 3, 24), 12),   # Cin = 24, odd
+])
+def test_conv3d_matches_jax(shape, cout):
+    rng = np.random.default_rng(0)
+    cin = shape[-1]
+    x = rng.standard_normal(shape).astype(np.float32)
+    w = (rng.standard_normal((3, 3, 3, cin, cout)) / np.sqrt(27 * cin)).astype(np.float32)
+    ref = np.asarray(jax_conv3d.conv3d(jnp.asarray(x), jnp.asarray(w)))
+    got = conv3d(torch.from_numpy(x), torch.from_numpy(w)).numpy()
+    # float32 sums of 27*Cin products in another order: |y| ~ 1, so the
+    # rounding difference stays near 1e-6
+    np.testing.assert_allclose(got, ref, rtol=0, atol=1e-5)
+
+
+def test_conv3d_bf16_keeps_dtype_and_rounds_once():
+    rng = np.random.default_rng(1)
+    x = torch.from_numpy(rng.standard_normal((1, 4, 5, 6, 8)).astype(np.float32))
+    w = torch.from_numpy(rng.standard_normal((3, 3, 3, 8, 8)).astype(np.float32) * 0.1)
+    xb, wb = x.to(torch.bfloat16), w.to(torch.bfloat16)
+    got = conv3d(xb, wb)
+    assert got.dtype == torch.bfloat16
+    # f32 accumulation of the bf16 operands, one rounding at the end
+    want = conv3d_plain(xb.float(), wb.float()).to(torch.bfloat16)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape,win", [
+    ((4, 6, 8, 3), (2, 2, 2)),
+    ((6, 4, 6, 5), (3, 2, 1)),
+    ((2, 8, 4, 16), (1, 2, 2)),
+])
+def test_pool_max_folded_matches_pallas(shape, win, dtype):
+    rng = np.random.default_rng(2)
+    x = rng.standard_normal(shape).astype(np.float32)
+    x[0, 0, 0, 0] = np.nan  # jnp.max propagates NaN; the port must too
+    if dtype == "bfloat16":
+        x = _bf16_exact(x)
+        xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    else:
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    ref = np.asarray(jax_shuffle.pool_max_folded(xj, win)).astype(np.float32)
+    got = pool_max_folded(xt, win).float().numpy()
+    np.testing.assert_array_equal(got, ref)  # a max is exact
+
+
+@pytest.mark.parametrize("dtype", [np.float32, "bfloat16"])
+@pytest.mark.parametrize("shape,sz", [((3, 4, 5, 6), 2), ((2, 3, 4, 9), 3), ((5, 2, 2, 4), 1)])
+def test_zd2s_matches_pallas(shape, sz, dtype):
+    rng = np.random.default_rng(3)
+    x = rng.standard_normal(shape).astype(np.float32)
+    if dtype == "bfloat16":
+        x = _bf16_exact(x)
+        xj, xt = jnp.asarray(x, jnp.bfloat16), torch.from_numpy(x).to(torch.bfloat16)
+    else:
+        xj, xt = jnp.asarray(x), torch.from_numpy(x)
+    ref = np.asarray(jax_shuffle.zd2s(xj, sz)).astype(np.float32)
+    got = zd2s(xt, sz).float().numpy()
+    np.testing.assert_array_equal(got, ref)  # a copy is exact
+
+
+def test_cpu_tensors_take_plain_path_and_count_no_launch():
+    build.reset_launches()
+    x = torch.randn(2, 4, 4, 4, 3)
+    w = torch.randn(3, 3, 3, 3, 5)
+    assert torch.equal(conv3d(x, w), conv3d_plain(x, w))
+    x4 = x.reshape(8, 4, 4, 3)
+    assert torch.equal(pool_max_folded(x4, (2, 2, 2)), pool_max_folded_plain(x4, (2, 2, 2)))
+    x6 = torch.randn(2, 3, 3, 6)
+    assert torch.equal(zd2s(x6, 2), zd2s_plain(x6, 2))
+    assert build.LAUNCHES == {"conv3d": 0, "pool_max_folded": 0, "zd2s": 0}
+
+
+def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
+    x = torch.empty(1, 3, 3, 3, 2, device="meta")
+    w = torch.empty(3, 3, 3, 2, 2, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        conv3d(x, w)
+    with pytest.raises(ValueError, match="CUDA"):
+        pool_max_folded(x.reshape(3, 3, 3, 2)[:2, :2, :2], (2, 2, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        zd2s(x.reshape(3, 3, 3, 2), 2)
+
+
+_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu")
+
+
+def _imports(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for a in node.names:
+                yield a.name
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+            yield node.module
+
+
+def test_port_imports_nothing_of_jax():
+    files = sorted((REPO / "biapy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
+    assert len(files) > 10
+    bad = []
+    for f in files:
+        for mod in _imports(f):
+            top = mod.split(".")[0]
+            if top in _FORBIDDEN:
+                bad.append(f"{f.relative_to(REPO)}: {mod}")
+    assert not bad, "the port must not import JAX or the JAX package:\n" + "\n".join(bad)
