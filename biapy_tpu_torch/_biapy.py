@@ -1,9 +1,11 @@
 """Top-level BiaPy job API of the PyTorch port.
 
-Counterpart of ``biapy_tpu/_biapy.py::BiaPy`` for the serving slice:
-config load/migrate/merge/check, the workflow build (SEMANTIC_SEG) and the
-in-memory ``predict``. Training, disk-driven testing, checkpoints and BMZ
-are not ported yet (ROADMAP queue 1).
+Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config
+load/migrate/merge/check, the workflow build (SEMANTIC_SEG), whose
+``prepare_model()`` gives the train state that
+``engine/train_engine.py::make_train_step`` advances, and the in-memory
+``predict``. The epoch loop of ``train()``, disk-driven testing,
+checkpoints and BMZ are not ported yet (ROADMAP queue 1).
 
 Device rule: ``device=None`` means the CUDA card ``cuda:<gpu>`` (``gpu``
 defaults to 0) and raises when PyTorch sees no CUDA device; the CPU is used
@@ -91,7 +93,7 @@ class BiaPy:
         self.cfg.merge_from_dict(raw)
         if str(raw.get("MODEL", {}).get("SOURCE", "")).lower() == "bmz":
             raise NotImplementedError("MODEL.SOURCE 'bmz' is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 9, BMZ)")
+                                      "(ROADMAP queue 1 item 10, BMZ)")
         update_dependencies(self.cfg, self.job_dir, self.job_identifier)
         check_configuration(self.cfg, self.job_identifier, check_data_paths=check_data_paths)
 
@@ -122,7 +124,7 @@ class BiaPy:
                     return yaml.safe_load(f) or {}
             if config.endswith(".ckpt"):
                 raise NotImplementedError("reading a .ckpt is not ported to biapy_tpu_torch "
-                                          "yet (ROADMAP queue 1 item 2, checkpoint reader)")
+                                          "yet (ROADMAP queue 1 item 4, checkpoint reader)")
             raise ValueError(f"Config file must be .yaml/.yml/.ckpt: {config}")
         raise ValueError(f"Unsupported config type: {type(config)}")
 
@@ -132,7 +134,7 @@ class BiaPy:
         wf = self.cfg.PROBLEM.TYPE
         if wf not in _WORKFLOW_MODULES:
             raise NotImplementedError(f"workflow {wf} is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 7, other workflows)")
+                                      "(ROADMAP queue 1 item 8, other workflows)")
         mod_name, cls_name = _WORKFLOW_MODULES[wf]
         cls = getattr(importlib.import_module(mod_name), cls_name)
         self.cfg.freeze()
@@ -140,8 +142,8 @@ class BiaPy:
                             device=self.device)
 
     def train(self):
-        raise NotImplementedError("training is not ported to biapy_tpu_torch yet "
-                                  "(ROADMAP queue 1 item 3, train step)")
+        self._build_workflow()
+        self.workflow.train()
 
     def test(self):
         self._build_workflow()

@@ -1,12 +1,14 @@
-"""Base workflow, inference subset.
+"""Base workflow: the model and train-state build, and inference.
 
 Counterpart of ``biapy_tpu/engine/base_workflow.py``: ``apply_activations``,
-the model build, ``predict_block_on_device`` (whole-volume sliding-window
-inference on the card, normalisation of the raw volume included),
-``process_test_sample`` on the device path and ``test`` on the in-memory
-branch. Training, checkpoints, test-time augmentation, the host crop/merge
-path, ROI masks and reading test data from disk are not ported yet
-(ROADMAP queue 1) and raise ``NotImplementedError``.
+``prepare_model`` (model, optimizer and ``TrainState``, which
+``engine/train_engine.py::make_train_step`` advances),
+``predict_block_on_device`` (whole-volume sliding-window inference on the
+card, normalisation of the raw volume included), ``process_test_sample`` on
+the device path and ``test`` on the in-memory branch. The epoch loop of
+``train()``, checkpoints, test-time augmentation, the host crop/merge path,
+ROI masks and reading test data from disk are not ported yet (ROADMAP
+queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -22,6 +24,9 @@ import torch
 
 from biapy_tpu_torch.data.data_manipulation import prepare_in_memory_test_data
 from biapy_tpu_torch.data.norm import build_norm_dict, compute_norm_stats, stats_to_affine
+from biapy_tpu_torch.engine.schedulers import (PlateauController, build_multihead_optimizer,
+                                                build_optimizer)
+from biapy_tpu_torch.engine.train_engine import TrainState
 from biapy_tpu_torch.models import build_model
 from biapy_tpu_torch.ops.stitch import sliding_window_inference
 
@@ -60,8 +65,8 @@ def _not_ported(what: str, item: str = LEFT_OUT) -> NotImplementedError:
 
 
 class Base_Workflow(metaclass=ABCMeta):
-    """Shared inference machinery; subclasses define channels/activations,
-    metrics and post-processing hooks."""
+    """Shared train-state and inference machinery; subclasses define
+    channels/activations, losses, metrics and post-processing hooks."""
 
     def __init__(self, cfg, job_identifier: str = "job", verbose: bool = True,
                  device: Optional[torch.device] = None):
@@ -80,8 +85,13 @@ class Base_Workflow(metaclass=ABCMeta):
         self.output_channels: List[int] = []
         self.output_channel_info: List[str] = []
         self.define_activations_and_channels()
+        self.loss = None
+        self.train_metrics: Dict[str, Any] = {}
+        self.define_metrics()
 
         self.model: Optional[torch.nn.Module] = None
+        self.state: Optional[TrainState] = None
+        self.plateau: Optional[PlateauController] = None
         self.model_build_kwargs: Dict = {}
         self._predictions: List[Dict[str, Any]] = []
         self.save_to_disk = True
@@ -91,6 +101,10 @@ class Base_Workflow(metaclass=ABCMeta):
     @abstractmethod
     def define_activations_and_channels(self):
         """Set self.activations / output_channels / output_channel_info."""
+
+    @abstractmethod
+    def define_metrics(self):
+        """Set self.loss (callable) and self.train_metrics dict."""
 
     def metric_calculation(self, pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
         return {}
@@ -104,12 +118,14 @@ class Base_Workflow(metaclass=ABCMeta):
     # ------------------------------------------------------------- model
     def prepare_model(self):
         """Build the model on the workflow's device, initialised from a
-        ``torch.Generator`` seeded with SYSTEM.SEED."""
+        ``torch.Generator`` seeded with SYSTEM.SEED, and the train state
+        (step 0, the optimizer over the model's parameters, the plateau
+        controller if the schedule has one)."""
         if self.model is not None:
             return
         if self.cfg.MODEL.LOAD_CHECKPOINT:
             raise _not_ported("MODEL.LOAD_CHECKPOINT (the checkpoint reader)",
-                              "queue 1 item 2, checkpoint reader")
+                              "queue 1 item 4, checkpoint reader")
         gen = torch.Generator().manual_seed(int(self.cfg.SYSTEM.SEED))
         model, self.model_build_kwargs = build_model(
             self.cfg, self.output_channels, self.output_channel_info, self.activations, gen=gen)
@@ -117,6 +133,20 @@ class Base_Workflow(metaclass=ABCMeta):
         if self.verbose:
             n = sum(p.numel() for p in self.model.parameters())
             print(f"Model: {self.cfg.MODEL.ARCHITECTURE} — {n:,} parameters")
+        steps_per_epoch = max(1, getattr(self, "_steps_per_epoch", 100))
+        n_declared = max(len(self.cfg.TRAIN.OPTIMIZER), len(self.cfg.TRAIN.LR))
+        if n_declared > 1 and len(self.output_channels) > 1:
+            build_multihead_optimizer()
+        optimizer, self.plateau = build_optimizer(self.cfg, steps_per_epoch,
+                                                  self.model.named_parameters())
+        self.state = TrainState(step=0, model=self.model, optimizer=optimizer,
+                                plateau=self.plateau)
+
+    def train(self):
+        raise _not_ported("the epoch loop of Base_Workflow.train() (data generators, "
+                          "augmentors, checkpoints, loggers; the train step itself is "
+                          "engine/train_engine.py::make_train_step)",
+                          "queue 1 item 3, training loop")
 
     def _ensure_model_for_test(self):
         if self.model is None:
@@ -125,7 +155,7 @@ class Base_Workflow(metaclass=ABCMeta):
                 str(self.cfg.PATHS.CHECKPOINT), f"{self.job_identifier}-checkpoint-*.ckpt"))
             if ck:
                 raise _not_ported(f"loading the job's checkpoint ({ck})",
-                                  "queue 1 item 2, checkpoint reader")
+                                  "queue 1 item 4, checkpoint reader")
 
     # ------------------------------------------------------------- inference
     def predict_block_on_device(self, block_n: np.ndarray,
@@ -148,6 +178,9 @@ class Base_Workflow(metaclass=ABCMeta):
         cfg = self.cfg
         chans = self.output_channels
         reduce_mem = bool(cfg.TEST.REDUCE_MEMORY)
+        # eval mode: running statistics, no dropout, no buffer is written
+        # (a train step leaves the model in training mode)
+        self.model.eval()
         model = copy.deepcopy(self.model).to(torch.bfloat16) if reduce_mem else self.model
         acts = self.activations
 
@@ -213,7 +246,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self._ensure_model_for_test()
         if image is None:
             raise _not_ported("reading test data from disk (TEST with DATA.TEST.PATH)",
-                              "queue 1 items 1 and 4")
+                              "queue 1 items 1 and 5")
         if self.save_to_disk:
             raise _not_ported("writing test results to disk")
         ds = prepare_in_memory_test_data(image, gt, self.is_3d)

@@ -1,12 +1,13 @@
-"""Semantic segmentation workflow, inference subset.
+"""Semantic segmentation workflow.
 
 Counterpart of ``biapy_tpu/engine/semantic_seg.py``: one head, sigmoid
-(binary) or softmax (multi-class), foreground IoU per image at test time.
-The training losses come with the training slice.
+(binary) or softmax (multi-class); CE / Dice / CE+Dice losses (LOSS.TYPE)
+and the IoU train metric; foreground IoU per image at test time.
 """
 
 from __future__ import annotations
 
+from functools import partial
 from typing import Dict, Optional
 
 import numpy as np
@@ -26,6 +27,35 @@ class Semantic_Segmentation_Workflow(Base_Workflow):
             self.output_channels = [1]
             self.activations = ["ce_sigmoid"]
         self.output_channel_info = ["semantic mask"]
+
+    def define_metrics(self):
+        cfg = self.cfg
+        # Empty LOSS.TYPE selects the workflow default: CE for semantic seg
+        ltype = (cfg.LOSS.TYPE or "CE").upper()
+        rebalance = cfg.LOSS.CLASS_REBALANCE
+        cweights = list(cfg.LOSS.CLASS_WEIGHTS) if cfg.LOSS.CLASS_WEIGHTS else None
+        ignore = int(cfg.LOSS.IGNORE_INDEX) if cfg.LOSS.IGNORE_INDEX != -1 else None
+        n_classes = max(int(cfg.DATA.N_CLASSES), 2)
+        if ltype == "CE":
+            self.loss = partial(M.cross_entropy_loss, num_classes=n_classes,
+                                class_rebalance=rebalance, class_weights=cweights,
+                                ignore_index=ignore)
+        elif ltype == "DICE":
+            self.loss = lambda out, y: M.dice_loss(out["pred"] if isinstance(out, dict) else out,
+                                                   y)
+        elif ltype in ("W_CE_DICE", "DICE_CE", "CE_DICE"):
+            w = list(cfg.LOSS.WEIGHTS) if cfg.LOSS.WEIGHTS else [0.5, 0.5]
+            self.loss = partial(M.dice_ce_loss, num_classes=n_classes, w_ce=w[0], w_dice=w[1],
+                                class_rebalance=rebalance, class_weights=cweights,
+                                ignore_index=ignore)
+        else:
+            raise ValueError(f"Unsupported LOSS.TYPE for semantic seg: {cfg.LOSS.TYPE}")
+        if cfg.LOSS.CONTRAST.ENABLE:
+            raise _not_ported("LOSS.CONTRAST (pixel-contrastive co-training)",
+                              "queue 1 item 8, other workflows")
+        self.train_metrics = {
+            "iou": partial(M.jaccard_index, num_classes=n_classes, ignore_index=ignore),
+        }
 
     def metric_calculation(self, pred: np.ndarray, gt: Optional[np.ndarray]) -> Dict[str, float]:
         if gt is None:

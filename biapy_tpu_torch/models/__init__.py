@@ -24,10 +24,10 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
     if str(cfg.MODEL.SOURCE).lower() != "biapy":
         raise NotImplementedError(
             f"MODEL.SOURCE '{cfg.MODEL.SOURCE}' is not ported yet (ROADMAP queue 1 "
-            "items 8-9, rest of the zoo / BMZ)")
+            "items 9-10, rest of the zoo / BMZ)")
     if arch not in UNET_FAMILY or arch == "resunet++":
         raise NotImplementedError(
-            f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 8, rest of the zoo); "
+            f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 9, rest of the zoo); "
             "the port builds the U-Net family")
     iso = cfg.MODEL.ISOTROPY
     if isinstance(iso, bool):
@@ -38,6 +38,7 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         in_channels=int(cfg.DATA.PATCH_SIZE[-1]),
         activation=str(cfg.MODEL.ACTIVATION).lower(),
         feature_maps=tuple(cfg.MODEL.FEATURE_MAPS),
+        drop_values=tuple(cfg.MODEL.DROPOUT_VALUES),
         normalization=cfg.MODEL.NORMALIZATION,
         k_size=int(cfg.MODEL.KERNEL_SIZE),
         upsample_layer=cfg.MODEL.UPSAMPLE_LAYER,

@@ -1,8 +1,12 @@
-"""Building blocks of the U-Net family, inference (eval mode) only.
+"""Building blocks of the U-Net family.
 
 Counterpart of ``biapy_tpu/models/blocks.py`` (Conv, ConvTranspose,
 get_activation, Norm, ConvBlock, ResConvBlock, UpLayer, UpBlock, max_pool),
 with the options the ``unet`` and ``resunet`` variants use.
+``nn.Module.train()`` / ``eval()`` select what Flax's ``train`` flag
+selects: batch statistics and their running update in BatchNorm, and
+dropout. Every op is differentiable (the kernels through their
+``torch.autograd.Function``s).
 Activations are contiguous channels-last ``(N, D, H, W, C)`` tensors and
 weights keep the Flax layouts (conv kernels ``k... + (Cin, Cout)``), so the
 z-folded ``(N*D, H, W, C)`` form the pool and zd2s kernels take is a free
@@ -18,8 +22,9 @@ the weight bridge (``models/flax_import.py``) needs.
 
 from __future__ import annotations
 
+import contextlib
 import math
-from typing import Callable, Dict, Optional, Sequence, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -153,13 +158,54 @@ def get_activation(name: Optional[str]) -> Callable[[torch.Tensor], torch.Tensor
     return table[name]
 
 
-class BatchNorm(nn.Module):
-    """Flax ``BatchNorm`` with running statistics (eval): eps 1e-5, every
-    step in the activation's dtype, in Flax's order of operations."""
+_dropout_generator: Optional[torch.Generator] = None
 
-    def __init__(self, features: int, eps: float = 1e-5):
+
+@contextlib.contextmanager
+def dropout_generator(gen: Optional[torch.Generator]) -> Iterator[None]:
+    """Every ``Dropout`` forward inside the block draws from ``gen`` (a
+    generator on the activations' device; None: the device's default)."""
+    global _dropout_generator
+    prev, _dropout_generator = _dropout_generator, gen
+    try:
+        yield
+    finally:
+        _dropout_generator = prev
+
+
+class Dropout(nn.Module):
+    """Flax ``Dropout``: in training each element is kept with probability
+    ``1 - rate`` and scaled by ``1 / (1 - rate)``; the identity in eval."""
+
+    def __init__(self, rate: float):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        if self.rate >= 1.0:
+            return torch.zeros_like(x)
+        keep = 1.0 - self.rate
+        mask = torch.rand(x.shape, device=x.device, generator=_dropout_generator) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class BatchNorm(nn.Module):
+    """Flax ``BatchNorm``, eps 1e-5, momentum 0.9, in Flax's order of
+    operations.
+
+    Eval: the running statistics, every step in the activation's dtype.
+    Training: batch statistics in float32 from E[x^2] - E[x]^2 (clipped at
+    0), the normalisation in float32 with scale and bias as the activation's
+    dtype holds them, the output in the activation's dtype; the running mean
+    and the running BIASED variance move by ``0.9 * old + 0.1 * batch`` in
+    their float32 buffers."""
+
+    def __init__(self, features: int, eps: float = 1e-5, momentum: float = 0.9):
         super().__init__()
         self.eps = eps
+        self.momentum = momentum
         self.scale = nn.Parameter(torch.ones(features))
         self.bias = nn.Parameter(torch.zeros(features))
         self.register_buffer("mean", torch.zeros(features))
@@ -167,9 +213,19 @@ class BatchNorm(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = x.dtype
-        y = x - self.mean.to(dt)
-        mul = torch.rsqrt(self.var.to(dt) + self.eps) * self.scale.to(dt)
-        return y * mul + self.bias.to(dt)
+        if not self.training:
+            y = x - self.mean.to(dt)
+            mul = torch.rsqrt(self.var.to(dt) + self.eps) * self.scale.to(dt)
+            return y * mul + self.bias.to(dt)
+        xf = x.float()
+        dims = tuple(range(x.dim() - 1))
+        mean = xf.mean(dim=dims)
+        var = torch.clamp((xf * xf).mean(dim=dims) - mean * mean, min=0.0)
+        with torch.no_grad():
+            self.mean.mul_(self.momentum).add_(mean, alpha=1.0 - self.momentum)
+            self.var.mul_(self.momentum).add_(var, alpha=1.0 - self.momentum)
+        mul = torch.rsqrt(var + self.eps) * self.scale.to(dt).float()
+        return ((xf - mean) * mul + self.bias.to(dt).float()).to(dt)
 
 
 class GroupNorm(nn.Module):
@@ -199,7 +255,7 @@ class GroupNorm(nn.Module):
 
 
 class Norm(FlaxNamed):
-    """Normalization by name: 'bn', 'sync_bn' (BatchNorm at inference),
+    """Normalization by name: 'bn', 'sync_bn' (BatchNorm; one card, so the same),
     'in' (one group per channel), 'gn' (min(8, C) groups, lowered until they
     divide C) or 'none'."""
 
@@ -226,16 +282,17 @@ class Norm(FlaxNamed):
 
 
 class ConvBlock(FlaxNamed):
-    """``nconvs`` stacked (conv, norm, act) units, order ``conv_norm_act``
-    or ``norm_act_conv`` (dropout is the identity at inference)."""
+    """``nconvs`` stacked (conv, norm, act, dropout) units, order
+    ``conv_norm_act`` or ``norm_act_conv``."""
 
     def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
-                 act: Optional[str] = None, norm: str = "none", nconvs: int = 1,
-                 order: str = "conv_norm_act", ndim: int = 3,
+                 act: Optional[str] = None, norm: str = "none", dropout: float = 0.0,
+                 nconvs: int = 1, order: str = "conv_norm_act", ndim: int = 3,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.act = get_activation(act)
         self.order = order
+        self.drop = Dropout(dropout) if dropout > 0 else None
         k = _expand(k_size, ndim)
         self.units = []
         c = in_features
@@ -251,6 +308,8 @@ class ConvBlock(FlaxNamed):
                 x = conv(self.act(nrm(x)))
             else:
                 x = self.act(nrm(conv(x)))
+            if self.drop is not None:
+                x = self.drop(x)
         return x
 
 
@@ -263,13 +322,13 @@ class ResConvBlock(FlaxNamed):
     shortcut."""
 
     def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
-                 act: Optional[str] = None, norm: str = "none", first_block: bool = False,
-                 nconvs: int = 2, order: str = "conv_norm_act", ndim: int = 3,
-                 gen: Optional[torch.Generator] = None):
+                 act: Optional[str] = None, norm: str = "none", dropout: float = 0.0,
+                 first_block: bool = False, nconvs: int = 2, order: str = "conv_norm_act",
+                 ndim: int = 3, gen: Optional[torch.Generator] = None):
         super().__init__()
         self.act = get_activation(act)
         k = _expand(k_size, ndim)
-        kw = dict(act=act, norm=norm, ndim=ndim, gen=gen)
+        kw = dict(act=act, norm=norm, dropout=dropout, ndim=ndim, gen=gen)
         self.parts["prelude"] = None
         self.main = []
         if order == "norm_act_conv":
@@ -341,12 +400,13 @@ class UpBlock(FlaxNamed):
     def __init__(self, in_features: int, skip_features: int, features: int,
                  scale: Tuple[int, ...], k_size: IntOrTuple = 3,
                  up_mode: str = "convtranspose", act: Optional[str] = None,
-                 norm: str = "none", residual: bool = False, nconvs: int = 2,
-                 order: str = "conv_norm_act", ndim: int = 3,
+                 norm: str = "none", dropout: float = 0.0, residual: bool = False,
+                 nconvs: int = 2, order: str = "conv_norm_act", ndim: int = 3,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.scale = tuple(scale)
-        kw = dict(act=act, norm=norm, nconvs=nconvs, order=order, ndim=ndim, gen=gen)
+        kw = dict(act=act, norm=norm, dropout=dropout, nconvs=nconvs, order=order, ndim=ndim,
+                  gen=gen)
         if residual:
             self.parts["up"] = (self.child("ConvTranspose", ConvTranspose(
                 in_features, in_features, self.scale, gen=gen))

@@ -4,13 +4,13 @@ The port's modules carry Flax's names (see ``blocks.py``), so a parameter
 ``UpBlock_0.ConvTranspose_0.kernel`` is the Flax leaf
 ``params/UpBlock_0/ConvTranspose_0/kernel``, and a buffer ``...mean`` /
 ``...var`` is the same path under ``batch_stats``. Layouts are the same on
-both sides, so the bridge is a name match and a copy. It imports no JAX:
-the caller hands it nested dicts of numpy arrays.
+both sides, so the bridge is a name match and a copy, in either direction.
+It imports no JAX: nested dicts of numpy arrays go in and come out.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Mapping, Optional
+from typing import Any, Dict, Iterable, Mapping, Optional, Tuple
 
 import numpy as np
 import torch
@@ -51,3 +51,20 @@ def load_flax_variables(model: torch.nn.Module, params: Mapping[str, Any],
           flatten(params), "params")
     _copy({n.replace(".", "/"): b for n, b in model.named_buffers()},
           flatten(batch_stats), "batch_stats")
+
+
+def _nest(named: Iterable[Tuple[str, torch.Tensor]]) -> Dict[str, Any]:
+    tree: Dict[str, Any] = {}
+    for name, t in named:
+        *path, leaf = name.split(".")
+        node = tree
+        for k in path:
+            node = node.setdefault(k, {})
+        node[leaf] = t.detach().float().cpu().numpy().copy()
+    return tree
+
+
+def export_flax_variables(model: torch.nn.Module) -> Tuple[Dict[str, Any], Dict[str, Any]]:
+    """``(params, batch_stats)`` of ``model`` as nested dicts of float32
+    numpy arrays under Flax's names: the inverse of ``load_flax_variables``."""
+    return _nest(model.named_parameters()), _nest(model.named_buffers())

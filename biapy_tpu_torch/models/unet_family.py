@@ -1,4 +1,4 @@
-"""The U-Net family as one configurable module, inference only.
+"""The U-Net family as one configurable module.
 
 Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` for the
 variants ``unet`` and ``resunet`` in 3D. ``seunet``, ``resunet_se`` and
@@ -10,8 +10,8 @@ channels-last ``(B, z, y, x, C)``, output the heads concatenated
 channel-wise; activations are applied by the engine, not here. Per-head
 separated decoders, class heads and super-resolution upsampling serve
 workflows that are not ported yet. Children carry Flax's auto-names (see
-blocks.py). Dropout is the identity at inference, so ``drop_values`` is
-not taken.
+blocks.py). ``train()`` / ``eval()`` select the mode of BatchNorm and of
+the per-level dropout (``drop_values``).
 """
 
 from __future__ import annotations
@@ -40,7 +40,7 @@ class UNetFamily(FlaxNamed):
 
     def __init__(self, variant: str = "unet", ndim: int = 3, in_channels: int = 1,
                  activation: str = "elu", feature_maps: Sequence[int] = (32, 64, 128, 256),
-                 normalization: str = "none", k_size: int = 3,
+                 drop_values: Optional[Sequence[float]] = None, normalization: str = "none", k_size: int = 3,
                  upsample_layer: str = "convtranspose",
                  yx_down: Sequence[int] = (2, 2, 2, 2), z_down: Sequence[int] = (2, 2, 2, 2),
                  output_channels: Sequence[int] = (1,), isotropy: Sequence[bool] = (True,),
@@ -50,19 +50,20 @@ class UNetFamily(FlaxNamed):
         super().__init__()
         if variant not in PORTED_VARIANTS:
             raise NotImplementedError(
-                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 8: "
+                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 9: "
                 "SqExBlock / AttentionGate); ported: " + ", ".join(PORTED_VARIANTS))
         if ndim != 3:
-            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 8)")
+            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 9)")
         if contrast:
             raise NotImplementedError("the contrastive head is not ported yet "
-                                      "(ROADMAP queue 1 item 3, training)")
+                                      "(ROADMAP queue 1 item 8, other workflows)")
         fm = list(feature_maps)
         depth = len(fm) - 1
         iso = list(isotropy)
         if len(iso) == 1:
             iso = iso * len(fm)
         residual = variant == "resunet"
+        drops = [0.0] * len(fm) if drop_values is None else [float(v) for v in drop_values]
         self.windows = [(z_down[i], yx_down[i], yx_down[i]) for i in range(depth)]
         kw = dict(act=activation, norm=normalization, order=conv_block_order, ndim=ndim, gen=gen)
 
@@ -70,13 +71,14 @@ class UNetFamily(FlaxNamed):
             return self.child("ConvBlock", ConvBlock(
                 cin, feats, aniso_kernel(k_size + 2, ndim, iso[0]), **kw))
 
-        def enc_block(cin, feats, level, first):
+        def enc_block(cin, feats, level, first, drop):
             k = aniso_kernel(k_size, ndim, iso[level])
             if residual:
                 return self.child("ResConvBlock", ResConvBlock(
-                    cin, feats, k, first_block=first, nconvs=conv_layers[level], **kw))
-            return self.child("ConvBlock", ConvBlock(cin, feats, k, nconvs=conv_layers[level],
-                                                     **kw))
+                    cin, feats, k, dropout=drop, first_block=first,
+                    nconvs=conv_layers[level], **kw))
+            return self.child("ConvBlock", ConvBlock(cin, feats, k, dropout=drop,
+                                                     nconvs=conv_layers[level], **kw))
 
         c = in_channels
         self.parts["stem"] = None
@@ -85,15 +87,16 @@ class UNetFamily(FlaxNamed):
             c = fm[0]
         self.encoder = []
         for i in range(depth):
-            self.encoder.append(enc_block(c, fm[i], i, i == 0))
+            self.encoder.append(enc_block(c, fm[i], i, i == 0, drops[i]))
             c = fm[i]
-        self.parts["bottleneck"] = enc_block(c, fm[-1], len(fm) - 1, False)
+        self.parts["bottleneck"] = enc_block(c, fm[-1], len(fm) - 1, False, drops[-1])
         self.decoder = []
         c = fm[-1]
         for i in range(depth - 1, -1, -1):
             self.decoder.append(self.child("UpBlock", UpBlock(
                 c, fm[i], fm[i], self.windows[i], aniso_kernel(k_size, ndim, iso[i]),
-                up_mode=upsample_layer, residual=residual, nconvs=conv_layers[i], **kw)))
+                up_mode=upsample_layer, dropout=drops[i], residual=residual,
+                nconvs=conv_layers[i], **kw)))
             c = fm[i]
         self.parts["out_block"] = io_block(fm[0], fm[0]) if larger_io else None
         self.heads = [self.child("Conv", Conv(fm[0], oc, (1,) * ndim, gen=gen))

@@ -32,7 +32,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset
-LAUNCHES: Dict[str, int] = {"conv3d": 0, "pool_max_folded": 0, "zd2s": 0}
+LAUNCHES: Dict[str, int] = {"conv3d": 0, "pool_max_folded": 0, "pool_max_folded_bwd": 0,
+                            "zd2s": 0, "zs2d": 0, "zcat": 0, "zcat_bwd": 0}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -119,8 +120,14 @@ def lib() -> ctypes.CDLL:
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.biapy_conv3d_k3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         handle.biapy_pool_max_folded.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
+        handle.biapy_pool_max_folded_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         handle.biapy_zd2s.argtypes = [p, p, i, i, i, i, i, i, p]
-        for fn in (handle.biapy_conv3d_k3, handle.biapy_pool_max_folded, handle.biapy_zd2s):
+        handle.biapy_zs2d.argtypes = [p, p, i, i, i, i, i, i, p]
+        handle.biapy_zcat.argtypes = [p, p, i, i, i, i, i, i, i, p]
+        handle.biapy_zcat_bwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
+        for fn in (handle.biapy_conv3d_k3, handle.biapy_pool_max_folded,
+                   handle.biapy_pool_max_folded_bwd, handle.biapy_zd2s, handle.biapy_zs2d,
+                   handle.biapy_zcat, handle.biapy_zcat_bwd):
             fn.restype = ctypes.c_int
         _lib = handle
     return _lib

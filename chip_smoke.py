@@ -9,16 +9,28 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    no CUDA device, or no ``biapy_tpu_torch`` beside this script, exits 2;
 2. build: the hand-written kernels from ``biapy_tpu_torch/csrc`` (nvcc,
    sm_90a), with the build seconds;
-3. kernels vs plain: every kernel at every main-path shape (bf16 and f32
-   for conv3d, plus one odd shape) against its plain PyTorch version, with
-   kernel, plain and library times (CUDA events, median) and the bound;
-4. main path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
+3. kernels vs plain: each of the seven kernels at every shape the serving
+   and training paths give it (bf16 and f32, plus odd shapes: ragged sizes,
+   c = 1, kz = 5, two images, tied pool windows with a NaN) against its
+   plain PyTorch version, with kernel, plain and library times (CUDA
+   events, median) and the bound;
+4. serving path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
    32/64/128, BatchNorm, ELU, 128^3 patches, halo 10, bf16, uint8 drain) on
    a seeded 216^3 uint8 volume, three calls, with the launch counters
    checked at 10 conv3d, 2 pool and 2 zd2s per patch;
 5. whole path vs plain path: the same model at reduced width on the card
    and on the CPU (plain versions), probabilities compared;
-6. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+6. training path: ``prepare_model()`` and ``make_train_step`` on the same
+   model at 128^3 under bf16 mixed precision, batch 1 then 2 (two steps to
+   settle, at least six timed), with the launch counters checked per step
+   (19 conv3d, 10 zcat, 2 each of pool, pool backward, zd2s, zs2d), a
+   falling finite loss, changed weights and statistics, patches/s, peak
+   memory and one profiled step;
+7. the same with ``MODEL.LARGER_IO`` (two steps): the 5x5x5 convs take the
+   cat2d path, so zcat (kz = 5) and zcat_bwd are counted too;
+8. gradients on the card vs the plain path: one step at reduced width on
+   the card and on the CPU, loss, gradients and updated weights compared;
+9. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
@@ -33,18 +45,36 @@ import time
 from pathlib import Path
 
 REPO = Path(__file__).resolve().parent
+DEVICE = "cuda:0"
 OUT_DIR = REPO / "chiprun_out"
 
 # (spatial size, Cin, Cout) of the 3x3x3 convs of one 128^3 patch through
 # resunet 32/64/128, in network order: 10 launches
 MAIN_CONVS = [(128, 1, 32), (128, 32, 32), (64, 32, 64), (64, 64, 64), (32, 64, 128),
               (32, 128, 128), (64, 192, 64), (64, 64, 64), (128, 96, 32), (128, 32, 32)]
+# the input gradients of the same convs in one training step: the same
+# kernel with Cin and Cout swapped; the stem's input needs none: 9 launches
+DX_CONVS = [(s, cout, cin) for s, cin, cout in MAIN_CONVS[1:]]
 MAIN_POOLS = [((128, 128, 128, 32), (2, 2, 2)), ((64, 64, 64, 64), (2, 2, 2))]
 MAIN_ZD2S = [((32, 64, 64, 256), 2), ((64, 128, 128, 128), 2)]
+# the LARGER_IO model's two 5x5x5 convs (stem, out block) at batch 1: zcat's
+# input and kz; the out block's input needs a gradient, the stem's does not
+LARGER_IO_ZCATS = [((128, 128, 128, 1), 5), ((128, 128, 128, 32), 5)]
+ZCAT_BWD_MAIN = LARGER_IO_ZCATS[1]
+# launches per training step at batch 1 (the LARGER_IO model adds two kz = 5
+# zcat forwards and one zcat backward)
+TRAIN_LAUNCHES = {"conv3d": 19, "zcat": 10, "pool_max_folded": 2, "pool_max_folded_bwd": 2,
+                  "zd2s": 2, "zs2d": 2, "zcat_bwd": 0}
+LARGER_IO_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d=20, zcat=12, zcat_bwd=1)
+_SHUFFLE = "biapy_tpu_torch/csrc/shuffle.cu"
 KERNEL_META = {
     "conv3d": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
-    "pool_max_folded": ("biapy_tpu_torch/csrc/shuffle.cu", "biapy_tpu/ops/pallas/shuffle.py:232"),
-    "zd2s": ("biapy_tpu_torch/csrc/shuffle.cu", "biapy_tpu/ops/pallas/shuffle.py:294"),
+    "pool_max_folded": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:232"),
+    "zd2s": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:294"),
+    "zcat": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:109"),
+    "zcat_bwd": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:152"),
+    "pool_max_folded_bwd": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:252"),
+    "zs2d": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:317"),
 }
 
 
@@ -124,109 +154,164 @@ def _check(got, ref, tol):
     return err, err / scale, ok
 
 
+def _dt_name(dt):
+    return str(dt).split(".")[-1]
+
+
+class _Rows:
+    """Collects one row per (kernel, dtype, shape): the check against the
+    plain version and the four times."""
+
+    def __init__(self, card):
+        self.card = card
+        self.rows = []
+        self.failures = []
+
+    def add(self, kernel, dt, shape, got, ref, tol, fn, plain_fn, lib_fn, lib_name, nbytes,
+            flops=0, **extra):
+        import torch
+
+        torch.cuda.synchronize()
+        if tol == 0.0:
+            # bit-equal, NaN == NaN
+            ok = bool(torch.equal(got.isnan(), ref.isnan())
+                      and torch.equal(got.nan_to_num(), ref.nan_to_num()))
+            err = (got.float().nan_to_num() - ref.float().nan_to_num()).abs().max().item()
+            rel = err
+        else:
+            err, rel, ok = _check(got, ref, tol)
+        ms = time_ms(fn)
+        plain_ms = time_ms(plain_fn)
+        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+        b_ms, b_by = bound(flops, nbytes, _dt_name(dt), self.card)
+        row = dict(kernel=kernel, dtype=_dt_name(dt), shape=list(shape), max_abs_err=err,
+                   max_rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
+                   bound_ms=b_ms, bound_by=b_by, gbps=nbytes / ms / 1e6, **extra)
+        if flops:
+            row["tflops"] = flops / ms / 1e9
+        self.rows.append(row)
+        rate = f"{row['tflops']:.1f} TFLOP/s" if flops else f"{row['gbps']:.0f} GB/s"
+        lib = f"{lib_name} {lib_ms:.3f} ms" if lib_ms is not None else "no library call"
+        tag = " ".join(f"{k}={v}" for k, v in extra.items())
+        print(f"[kernels] {kernel} {row['dtype']:8s} {tuple(shape)} {tag}: err {err:.3g} "
+              f"(tol {tol}) {'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms ({rate}), plain "
+              f"{plain_ms:.3f} ms, {lib}, bound {b_ms:.3f} ms ({b_by})")
+        if not ok:
+            self.failures.append(row)
+
+
 def phase_kernels(card):
-    """Each kernel against its plain version at the main path's shapes."""
+    """Each kernel against its plain version at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
-    from biapy_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
-    from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_plain,
-                                                     zd2s, zd2s_plain)
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_fwd, conv3d_plain
+    from biapy_tpu_torch.ops.kernels.shuffle import (
+        pool_max_folded_bwd, pool_max_folded_bwd_plain, pool_max_folded_fwd,
+        pool_max_folded_plain, zcat_bwd, zcat_bwd_plain, zcat_fwd, zcat_plain, zd2s_fwd,
+        zd2s_plain, zs2d, zs2d_plain)
 
-    dev = torch.device("cuda:0")
+    dev = torch.device(DEVICE)
     g = torch.Generator(device="cpu").manual_seed(0)
-    rows = []
-    failures = []
+    out = _Rows(card)
+
+    def rand(shape, dt):
+        return torch.randn(shape, generator=g).to(dev, dt)
+
     # float32: both sides sum the same products in float32 in other orders;
     # bfloat16: both sum bf16 products in float32 and round once, so they
     # differ by at most about one bf16 ulp of the output (2^-8 relative)
     tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-
-    conv_shapes = sorted(set(MAIN_CONVS)) + [(None, 24, 40)]
+    conv_shapes = sorted(set(MAIN_CONVS + DX_CONVS)) + [(None, 24, 40)]
     for dt in (torch.bfloat16, torch.float32):
         for s, cin, cout in conv_shapes:
             shape = (1, s, s, s, cin) if s else (2, 13, 7, 9, cin)
-            x = torch.randn(shape, generator=g).to(dev, dt)
+            x = rand(shape, dt)
             w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dt)
-            got = conv3d(x, w)
-            ref = conv3d_plain(x, w)
-            torch.cuda.synchronize()
-            err, rel, ok = _check(got, ref, tols[dt])
-            ms = time_ms(lambda: conv3d(x, w))
-            plain_ms = time_ms(lambda: conv3d_plain(x, w))
             xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view in channels_last_3d strides
             wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-            lib_ms = time_ms(lambda: F.conv3d(xc, wc, padding=1))
             m = x.numel() // cin
-            item = x.element_size()
-            flops = 2 * 27 * cin * cout * m
-            nbytes = (x.numel() + w.numel() + m * cout) * item
-            b_ms, b_by = bound(flops, nbytes, str(dt).split(".")[-1], card)
-            row = dict(kernel="conv3d", dtype=str(dt).split(".")[-1], shape=list(shape),
-                       cout=cout, max_abs_err=err, max_rel_err=rel, tol=tols[dt], ok=ok,
-                       ms=ms, plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms,
-                       bound_by=b_by, tflops=flops / ms / 1e9)
-            rows.append(row)
-            print(f"[kernels] conv3d {row['dtype']:8s} x{tuple(shape)} ->{cout}: "
-                  f"err {err:.3g} (rel {rel:.3g}, tol {tols[dt]}) {'ok' if ok else 'FAIL'} | "
-                  f"kernel {ms:.3f} ms ({row['tflops']:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
-                  f"F.conv3d {lib_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
-            if not ok:
-                failures.append(row)
-            del x, w, got, ref
+            out.add("conv3d", dt, shape, conv3d_fwd(x, w), conv3d_plain(x, w), tols[dt],
+                    lambda: conv3d_fwd(x, w), lambda: conv3d_plain(x, w),
+                    lambda: F.conv3d(xc, wc, padding=1), "F.conv3d",
+                    nbytes=(x.numel() + w.numel() + m * cout) * x.element_size(),
+                    flops=2 * 27 * cin * cout * m, cout=cout)
+            del x, w, xc, wc
 
+    pools = MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1))]  # odd: ragged, c = 5, window 3x2x1
     for dt in (torch.bfloat16, torch.float32):
-        for shape, win in MAIN_POOLS:
-            x = torch.randn(shape, generator=g).to(dev, dt)
-            got = pool_max_folded(x, win)
-            ref = pool_max_folded_plain(x, win)
-            torch.cuda.synchronize()
-            ok = torch.equal(got, ref)
-            err = (got.float() - ref.float()).abs().max().item()
-            ms = time_ms(lambda: pool_max_folded(x, win))
-            plain_ms = time_ms(lambda: pool_max_folded_plain(x, win))
+        item = torch.empty((), dtype=dt).element_size()
+        for shape, win in pools:
+            x = rand(shape, dt)
+            if shape[0] == 6:
+                # few distinct values: tied windows, a NaN and a -0 among them
+                x = (x * 2).round() / 2
+                x.view(-1)[7] = float("nan")
+                x.view(-1)[11] = -0.0
+            y = pool_max_folded_plain(x, win)
             x5 = x.view(1, *shape).permute(0, 4, 1, 2, 3)
-            lib_ms = time_ms(lambda: F.max_pool3d(x5, win, stride=win))
-            nbytes = (x.numel() + got.numel()) * x.element_size()
-            b_ms, b_by = bound(0, nbytes, str(dt).split(".")[-1], card)
-            row = dict(kernel="pool_max_folded", dtype=str(dt).split(".")[-1], shape=list(shape),
-                       max_abs_err=err, tol=0.0, ok=ok, ms=ms, plain_ms=plain_ms,
-                       library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                       gbps=nbytes / ms / 1e6)
-            rows.append(row)
-            print(f"[kernels] pool_max_folded {row['dtype']:8s} {tuple(shape)}: exact "
-                  f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms ({row['gbps']:.0f} GB/s), "
-                  f"plain {plain_ms:.3f} ms, F.max_pool3d {lib_ms:.3f} ms, bound {b_ms:.3f} ms")
-            if not ok:
-                failures.append(row)
-        for shape, sz in MAIN_ZD2S:
-            x = torch.randn(shape, generator=g).to(dev, dt)
-            got = zd2s(x, sz)
-            ref = zd2s_plain(x, sz)
-            torch.cuda.synchronize()
-            ok = torch.equal(got, ref)
-            ms = time_ms(lambda: zd2s(x, sz))
-            plain_ms = time_ms(lambda: zd2s_plain(x, sz))
+            out.add("pool_max_folded", dt, shape, pool_max_folded_fwd(x, win), y, 0.0,
+                    lambda: pool_max_folded_fwd(x, win), lambda: pool_max_folded_plain(x, win),
+                    lambda: F.max_pool3d(x5, win, stride=win), "F.max_pool3d",
+                    nbytes=(x.numel() + y.numel()) * item, win=win)
+            gy = rand(y.shape, dt)
+            g5 = gy.view(1, *gy.shape).permute(0, 4, 1, 2, 3)
+            _, idx = F.max_pool3d(x5, win, stride=win, return_indices=True)
+            out.add("pool_max_folded_bwd", dt, shape, pool_max_folded_bwd(x, y, gy, win),
+                    pool_max_folded_bwd_plain(x, y, gy, win), 0.0,
+                    lambda: pool_max_folded_bwd(x, y, gy, win),
+                    lambda: pool_max_folded_bwd_plain(x, y, gy, win),
+                    # one argmax per window instead of every tied slot: the same
+                    # function only where no window ties
+                    lambda: torch.ops.aten.max_pool3d_with_indices_backward(
+                        g5, x5, win, win, (0, 0, 0), (1, 1, 1), False, idx),
+                    "max_pool3d backward", nbytes=2 * (x.numel() + y.numel()) * item, win=win)
+            del x, y, gy, x5, g5, idx
+
+        for shape, sz in MAIN_ZD2S + [((3, 5, 7, 9), 3)]:  # odd: ragged, c = 3, sz = 3
+            x = rand(shape, dt)
             r, h, w, szc = shape
-            lib_ms = time_ms(lambda: x.reshape(r, h, w, sz, szc // sz).permute(0, 3, 1, 2, 4)
-                             .contiguous())
-            nbytes = 2 * x.numel() * x.element_size()
-            b_ms, b_by = bound(0, nbytes, str(dt).split(".")[-1], card)
-            row = dict(kernel="zd2s", dtype=str(dt).split(".")[-1], shape=list(shape),
-                       max_abs_err=0.0 if ok else float("nan"), tol=0.0, ok=ok, ms=ms,
-                       plain_ms=plain_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
-                       gbps=nbytes / ms / 1e6)
-            rows.append(row)
-            print(f"[kernels] zd2s {row['dtype']:8s} {tuple(shape)} sz={sz}: exact "
-                  f"{'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms ({row['gbps']:.0f} GB/s), "
-                  f"plain {plain_ms:.3f} ms, permute().contiguous() {lib_ms:.3f} ms, "
-                  f"bound {b_ms:.3f} ms")
-            if not ok:
-                failures.append(row)
+            out.add("zd2s", dt, shape, zd2s_fwd(x, sz), zd2s_plain(x, sz), 0.0,
+                    lambda: zd2s_fwd(x, sz), lambda: zd2s_plain(x, sz),
+                    lambda: x.reshape(r, h, w, sz, szc // sz).permute(0, 3, 1, 2, 4).contiguous(),
+                    "permute().contiguous()", nbytes=2 * x.numel() * item, sz=sz)
+            gy = zd2s_plain(x, sz)  # zs2d's input has zd2s's output shape
+            out.add("zs2d", dt, gy.shape, zs2d(gy, sz), zs2d_plain(gy, sz), 0.0,
+                    lambda: zs2d(gy, sz), lambda: zs2d_plain(gy, sz),
+                    lambda: gy.reshape(r, sz, h, w, szc // sz).permute(0, 2, 3, 1, 4).contiguous(),
+                    "permute().contiguous()", nbytes=2 * x.numel() * item, sz=sz)
+            del x, gy
+
+        # zcat: the dw operand of every 3x3x3 conv (kz = 3), the LARGER_IO
+        # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), and an odd shape
+        zcats = ([((s, s, s, cin), 3, None) for s, cin in sorted({(s, c) for s, c, _ in MAIN_CONVS})]
+                 + [(shape, kz, None) for shape, kz in LARGER_IO_ZCATS]
+                 + [((128, 64, 64, 64), 3, 64), ((6, 5, 7, 1), 5, 3)])
+        for shape, kz, depth in zcats:
+            x = rand(shape, dt)
+            hz = kz // 2
+            xp = F.pad(x, (0, 0, 0, 0, 0, 0, hz, hz))
+            taps = [xp[t:t + shape[0]] for t in range(kz)]
+            out.add("zcat", dt, shape, zcat_fwd(x, kz, depth), zcat_plain(x, kz, depth), 0.0,
+                    lambda: zcat_fwd(x, kz, depth), lambda: zcat_plain(x, kz, depth),
+                    # the concatenation alone, of views of an already padded copy
+                    (lambda: torch.cat(taps, dim=-1)) if depth is None else None, "torch.cat",
+                    nbytes=(1 + kz) * x.numel() * item, kz=kz, depth=depth)
+            del x, xp, taps
+        # zcat backward: the LARGER_IO out-block conv's input gradient, and
+        # the odd shapes; float32 sums of up to kz terms in tap order
+        for shape, kz, depth in [ZCAT_BWD_MAIN + (None,), ((128, 64, 64, 64), 3, 64),
+                                 ((6, 5, 7, 1), 5, 3), ((6, 5, 7, 24), 3, None)]:
+            gy = rand(shape[:3] + (kz * shape[3],), dt)
+            out.add("zcat_bwd", dt, shape, zcat_bwd(gy, kz, depth), zcat_bwd_plain(gy, kz, depth),
+                    1e-6 if dt == torch.float32 else 2 ** -8,
+                    lambda: zcat_bwd(gy, kz, depth), lambda: zcat_bwd_plain(gy, kz, depth),
+                    None, "", nbytes=(1 + kz) * gy.numel() // kz * item, kz=kz, depth=depth)
+            del gy
     torch.cuda.empty_cache()
-    if failures:
-        raise AssertionError(f"{len(failures)} kernel checks failed: {failures}")
-    return rows
+    if out.failures:
+        raise AssertionError(f"{len(out.failures)} kernel checks failed: {out.failures}")
+    return out.rows
 
 
 def _main_cfg():
@@ -305,26 +390,7 @@ def phase_main_path():
 
     # where the time goes: one more call under the profiler (not in the
     # numbers above), device time summed by kernel name
-    from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        job.predict(vol)
-        prof_wall = time.perf_counter() - t0
-    table = []
-    for ev in prof.key_averages():
-        # device-side events only (kernels, copies): a host op's device time
-        # repeats that of the kernels it launched
-        if ev.device_type != DeviceType.CUDA:
-            continue
-        dev_us = getattr(ev, "self_device_time_total", None)
-        if dev_us is None:
-            dev_us = getattr(ev, "self_cuda_time_total", 0)
-        if dev_us > 0:
-            table.append((ev.key, dev_us / 1e3, ev.count))
-    table.sort(key=lambda r: -r[1])
-    dev_total = sum(r[1] for r in table)
+    prof_wall, dev_total, table, _ = _profile_device(lambda: job.predict(vol))
     print(f"[profile] one call: wall {prof_wall:.3f} s, device busy {dev_total / 1e3:.3f} s "
           f"({100 * dev_total / 1e3 / prof_wall:.1f}% of wall)")
     for key, ms, cnt in table[:12]:
@@ -333,6 +399,255 @@ def phase_main_path():
                 peak_bytes=peak, launches=launches, n_params=n_params,
                 profile=dict(wall_s=prof_wall, device_ms=dev_total,
                              top=[dict(name=k, ms=m, count=c) for k, m, c in table[:40]]))
+
+
+def _profile_device(fn):
+    """Run ``fn`` (which ends synchronised) under torch.profiler. Returns the
+    wall seconds, the device-busy ms, ``[(kernel name, ms, count)]`` sorted by
+    time, and the device-side events ``[(start us, name, ms)]`` in launch
+    order. Device-side events only (kernels, copies): a host op's device time
+    repeats that of the kernels it launched."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        wall = time.perf_counter() - t0
+    events = []
+    for ev in prof.events():
+        if ev.device_type != DeviceType.CUDA:
+            continue
+        dev_us = getattr(ev, "self_device_time_total", None)
+        if dev_us is None:
+            dev_us = getattr(ev, "self_cuda_time_total", 0)
+        if dev_us > 0:
+            events.append((ev.time_range.start, ev.name, dev_us / 1e3))
+    events.sort()
+    by_name = {}
+    for _, name, ms in events:
+        tot, cnt = by_name.get(name, (0.0, 0))
+        by_name[name] = (tot + ms, cnt + 1)
+    table = sorted(((k, v[0], v[1]) for k, v in by_name.items()), key=lambda r: -r[1])
+    return wall, sum(r[1] for r in table), table, events
+
+
+def _snapshot(model):
+    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+
+
+def _train_job(name, larger_io=False):
+    from biapy_tpu_torch import BiaPy
+
+    cfg = _main_cfg()
+    cfg["MODEL"]["LARGER_IO"] = larger_io
+    job = BiaPy(cfg, result_dir=str(OUT_DIR), name=name, silent=True, check_data_paths=False)
+    job._build_workflow()
+    job.workflow.prepare_model()  # model + optimizer state, on the card
+    return job
+
+
+def _train_batch(b, dev):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(1)
+    x = rng.random((b, 128, 128, 128, 1), np.float32)
+    y = (rng.random((b, 128, 128, 128, 1), np.float32) > 0.5).astype(np.float32)
+    return {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
+
+
+def _check_launches(got, per_step, steps, what):
+    for k, n in per_step.items():
+        if got[k] != n * steps:
+            raise AssertionError(f"{what}: {k} launched {got[k]} times in {steps} steps, want "
+                                 f"{n} per step")
+
+
+def phase_train():
+    """The bench's training step at full width: resunet 32/64/128 at 128^3,
+    forward, loss, backward and the optimizer update under bf16 mixed
+    precision, batch 1 then batch 2: two steps to settle, then at least six
+    timed, ended by a host read of the loss."""
+    import torch
+
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    res = {"by_batch": {}}
+    for b in (1, 2):
+        job = _train_job(f"chip_smoke_train_b{b}")
+        wf = job.workflow
+        cfg = wf.cfg.TRAIN
+        mixed = resolve_mixed_precision("auto", wf.device)
+        step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=mixed)
+        batch = _train_batch(b, wf.device)
+        gen = torch.Generator(device=wf.device).manual_seed(0)
+        before = _snapshot(wf.model)
+        state = wf.state
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        losses = []
+        for _ in range(2):  # settle (allocator warm-up, cuDNN's algorithm choice)
+            state, m = step(state, batch, gen)
+            losses.append(m["loss"])
+        float(m["loss"])
+        n_steps = max(6, 10 // b)
+        t0 = time.perf_counter()
+        for _ in range(n_steps):
+            state, m = step(state, batch, gen)
+            losses.append(m["loss"])
+        float(m["loss"])  # the host read ends the timed window
+        secs = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        losses = [float(v) for v in losses]
+        _check_launches(launches, TRAIN_LAUNCHES, n_steps + 2, f"train b={b}")
+        if not all(v == v and abs(v) != float("inf") for v in losses):
+            raise AssertionError(f"train b={b}: non-finite loss in {losses}")
+        if not losses[-1] < losses[0]:
+            raise AssertionError(f"train b={b}: the loss did not fall: {losses}")
+        if state.step != n_steps + 2 or float(state.optimizer.state["count"]) != n_steps + 2:
+            raise AssertionError(f"train b={b}: step count {state.step}")
+        after = _snapshot(wf.model)
+        moved = {k: (after[k] - before[k]).abs().max().item() for k in before}
+        # a conv bias that feeds a BatchNorm has a zero gradient (and, from a
+        # zero start, no decay): it may stay
+        stuck = [k for k, v in moved.items() if not v > 0 and not k.endswith("Conv_0.bias")]
+        if stuck:
+            raise AssertionError(f"train b={b}: unchanged weights or statistics: {stuck}")
+        pps = n_steps * b / secs
+        print(f"[train] b={b}: {cfg.OPTIMIZER[0]} lr {cfg.LR[0]} wd {cfg.W_DECAY}, mixed "
+              f"precision {mixed}; {n_steps} steps in {secs:.3f} s: {secs / n_steps:.4f} s/step, "
+              f"{pps:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB")
+        print(f"[train] b={b}: loss {losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} "
+              f"steps; launches {launches}")
+        res["by_batch"][b] = dict(steps=n_steps, seconds=secs, s_per_step=secs / n_steps,
+                                  patches_per_s=pps, peak_bytes=peak, losses=losses,
+                                  launches=launches, optimizer=cfg.OPTIMIZER[0],
+                                  mixed_precision=mixed)
+        if b == 1:
+            res["launches"] = launches
+            res["profile"] = _profile_train_step(lambda: float(step(state, batch, gen)[1]["loss"]))
+        del job, wf, state, batch, before, after
+        torch.cuda.empty_cache()
+    return res
+
+
+def _profile_train_step(run):
+    """One more step under the profiler: device time by kernel family. The
+    first ten launches of the hand conv kernel in a step are the forward,
+    the next nine the input gradients."""
+    wall, dev_total, table, events = _profile_device(run)
+    fam = {"hand conv forward": 0.0, "hand conv dx": 0.0, "library dw (cuDNN wgrad)": 0.0,
+           "zcat": 0.0, "pool fwd+bwd, zd2s, zs2d": 0.0, "library matmul (1x1x1, up-conv)": 0.0,
+           "the rest (elementwise, reductions, copies)": 0.0}
+    n_conv = 0
+    for _, name, ms in events:
+        low = name.lower()
+        if "conv3d_k3_kernel" in name:
+            fam["hand conv forward" if n_conv < len(MAIN_CONVS) else "hand conv dx"] += ms
+            n_conv += 1
+        elif "zcat_kernel" in name:
+            fam["zcat"] += ms
+        elif any(k in name for k in ("pool_max_kernel", "pool_bwd_kernel", "zd2s_kernel",
+                                     "zs2d_kernel")):
+            fam["pool fwd+bwd, zd2s, zs2d"] += ms
+        elif "wgrad" in low or "cudnn" in low:
+            fam["library dw (cuDNN wgrad)"] += ms
+        elif "gemm" in low or "cutlass" in low or "cublas" in low:
+            fam["library matmul (1x1x1, up-conv)"] += ms
+        else:
+            fam["the rest (elementwise, reductions, copies)"] += ms
+    if n_conv != TRAIN_LAUNCHES["conv3d"]:
+        raise AssertionError(f"profiled step: {n_conv} conv3d kernel events, want 19")
+    print(f"[train-profile] one step, b=1: wall {wall:.3f} s, device busy {dev_total / 1e3:.3f} s "
+          f"({100 * dev_total / 1e3 / wall:.1f}% of wall)")
+    for k, ms in fam.items():
+        print(f"[train-profile] {ms:10.2f} ms  {100 * ms / dev_total:5.1f}%  {k}")
+    for key, ms, cnt in table[:14]:
+        print(f"[train-profile]   {ms:10.2f} ms  {cnt:5d}x  {key[:90]}")
+    return dict(wall_s=wall, device_ms=dev_total, families=fam,
+                top=[dict(name=k, ms=m, count=c) for k, m, c in table[:40]])
+
+
+def phase_train_larger_io():
+    """The same model with MODEL.LARGER_IO: the 5x5x5 stem and out-block
+    convs take the cat2d path (zcat with kz = 5 forward, zcat_bwd backward)."""
+    import torch
+
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    job = _train_job("chip_smoke_train_larger_io", larger_io=True)
+    wf = job.workflow
+    step = make_train_step(wf.loss, wf.train_metrics,
+                           mixed_precision=resolve_mixed_precision("auto", wf.device))
+    batch = _train_batch(1, wf.device)
+    torch.cuda.reset_peak_memory_stats()
+    build.reset_launches()
+    state, losses = wf.state, []
+    t0 = time.perf_counter()
+    for _ in range(2):
+        state, m = step(state, batch)
+        losses.append(float(m["loss"]))
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    _check_launches(launches, LARGER_IO_LAUNCHES, 2, "train LARGER_IO")
+    if not all(v == v and abs(v) != float("inf") for v in losses):
+        raise AssertionError(f"train LARGER_IO: non-finite loss in {losses}")
+    peak = torch.cuda.max_memory_allocated()
+    print(f"[train-larger-io] 2 steps (first included) in {secs:.3f} s, losses {losses}, peak "
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+    del job, wf, state, batch
+    torch.cuda.empty_cache()
+    return dict(seconds=secs, losses=losses, peak_bytes=peak, launches=launches)
+
+
+def phase_grads_vs_plain():
+    """One training step at reduced width (fm 8/16/32, patch 32^3, float32,
+    LARGER_IO on) on the card (kernels) and on the CPU (plain versions) from
+    the same weights and batch: loss, every gradient, every updated weight."""
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.engine.train_engine import loss_and_grads, make_train_step
+
+    cfg = _main_cfg()
+    cfg["MODEL"].update(FEATURE_MAPS=[8, 16, 32], LARGER_IO=True)
+    cfg["DATA"]["PATCH_SIZE"] = [32, 32, 32, 1]
+    cfg["TRAIN"].update(BATCH_SIZE=2, LR=[0.05])  # a rate at which one update shows
+    rng = np.random.default_rng(2)
+    x = rng.random((2, 32, 32, 32, 1), np.float32)
+    y = (rng.random((2, 32, 32, 32, 1), np.float32) > 0.5).astype(np.float32)
+    sides = []
+    for dev in ("cuda:0", "cpu"):
+        job = BiaPy(cfg, result_dir=str(OUT_DIR), name=f"chip_smoke_grads_{dev[:3]}",
+                    silent=True, check_data_paths=False, device=dev)
+        job._build_workflow()
+        wf = job.workflow
+        wf.prepare_model()  # seeded init: the same weights on both devices
+        xt, yt = torch.from_numpy(x).to(dev), torch.from_numpy(y).to(dev)
+        loss, _, grads = loss_and_grads(wf.model, wf.loss, xt, yt)
+        make_train_step(wf.loss, wf.train_metrics)(wf.state, {"x": xt, "y": yt})
+        sides.append((float(loss), {k: v.cpu() for k, v in grads.items()},
+                      {k: v.detach().cpu() for k, v in wf.model.named_parameters()}))
+    tol = 1e-4  # float32 sums in other orders on the two devices, of each tensor's scale
+    worst = {"loss": abs(sides[0][0] - sides[1][0])}
+    for what, i in (("grad", 1), ("weight", 2)):
+        worst[what] = 0.0
+        for k, ref in sides[1][i].items():
+            rel = ((sides[0][i][k] - ref).abs().max() / max(1.0, ref.abs().max().item())).item()
+            worst[what] = max(worst[what], rel)
+            if not rel <= tol:
+                raise AssertionError(f"{what} {k}: card and CPU differ by {rel} of its scale")
+    if not worst["loss"] <= tol:
+        raise AssertionError(f"loss: card {sides[0][0]} vs CPU {sides[1][0]}")
+    print(f"[grads-vs-plain] fm 8/16/32, patch 32^3, b=2, f32, LARGER_IO: loss {sides[0][0]:.6f}, "
+          f"max scaled differences {worst} (tol {tol})")
+    return worst
 
 
 def phase_whole_vs_plain():
@@ -366,53 +681,87 @@ def phase_whole_vs_plain():
     return diff
 
 
-def summarise(rows, main):
-    """One entry per kernel: per-patch sums over its main-path launches, in
-    the main path's dtype (bf16)."""
-    kernels = []
-    per_patch_shapes = {
-        "conv3d": [dict(shape=[1, s, s, s, cin], cout=cout) for s, cin, cout in MAIN_CONVS],
-        "pool_max_folded": [dict(shape=list(s)) for s, _ in MAIN_POOLS],
-        "zd2s": [dict(shape=list(s)) for s, _ in MAIN_ZD2S],
-    }
-    for name, shapes in per_patch_shapes.items():
+def summarise(rows, serve, train, larger_io):
+    """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
+    bound_ms and library_ms are sums over the kernel's launches in one unit
+    of its path's work: one 128^3 serving patch for the three forward
+    kernels (conv3d also carries the sums over one training step, forward +
+    dx, under ``train_step_*``), one training step at batch 1 for the four
+    backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
+    up the runs of the paths, each counted from zero."""
+    def pick(name, wants):
         picked = []
-        for want in shapes:
+        for want in wants:
             for r in rows:
                 if (r["kernel"] == name and r["dtype"] == "bfloat16"
-                        and r["shape"] == want["shape"] and r.get("cout") == want.get("cout")):
+                        and all(r.get(k) == v for k, v in want.items())):
                     picked.append(r)
                     break
-        assert len(picked) == len(shapes), name
+        assert len(picked) == len(wants), name
+        return picked
+
+    def sums(picked, prefix=""):
         ops_ms = sum(r["bound_ms"] for r in picked if r["bound_by"] == "operations")
         byte_ms = sum(r["bound_ms"] for r in picked if r["bound_by"] == "bytes")
+        libs = [r["library_ms"] for r in picked]
+        return {prefix + "ms": sum(r["ms"] for r in picked),
+                prefix + "plain_ms": sum(r["plain_ms"] for r in picked),
+                prefix + "bound_ms": sum(r["bound_ms"] for r in picked),
+                prefix + "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
+                prefix + "library_ms": None if any(v is None for v in libs) else sum(libs)}
+
+    def conv(shapes):
+        return [dict(shape=[1, s, s, s, cin], cout=cout) for s, cin, cout in shapes]
+
+    per_unit = {
+        "conv3d": conv(MAIN_CONVS),
+        "pool_max_folded": [dict(shape=list(s)) for s, _ in MAIN_POOLS],
+        "zd2s": [dict(shape=list(s)) for s, _ in MAIN_ZD2S],
+        "zcat": [dict(shape=[s, s, s, cin], kz=3, depth=None) for s, cin, _ in MAIN_CONVS],
+        "zcat_bwd": [dict(shape=list(ZCAT_BWD_MAIN[0]), kz=ZCAT_BWD_MAIN[1], depth=None)],
+        "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in MAIN_POOLS],
+        "zs2d": [dict(shape=[r * sz, h, w, c // sz]) for (r, h, w, c), sz in MAIN_ZD2S],
+    }
+    kernels = []
+    for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
-        kernels.append(dict(
-            name=name, route="cuda", source=src, replaces=replaces,
-            launches=main["launches"][name],
-            max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-            ms=sum(r["ms"] for r in picked), plain_ms=sum(r["plain_ms"] for r in picked),
-            bound_ms=sum(r["bound_ms"] for r in picked),
-            bound_by="operations" if ops_ms >= byte_ms else "bytes",
-            library_ms=sum(r["library_ms"] for r in picked)))
+        by_path = {"serve": serve["launches"].get(name, 0), "train": train["launches"][name],
+                   "train_larger_io": larger_io["launches"][name]}
+        entry = dict(name=name, route="cuda", source=src, replaces=replaces,
+                     launches=sum(by_path.values()), launches_by_path=by_path,
+                     max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
+                     **sums(pick(name, wants)))
+        if name == "conv3d":
+            entry.update(sums(pick(name, conv(MAIN_CONVS + DX_CONVS)), "train_step_"))
+        if entry["launches"] == 0:
+            raise AssertionError(f"{name}: no main path launched it")
+        kernels.append(entry)
     return kernels
 
 
 def main():
     smi, name = phase_environment()
+    t_start = time.perf_counter()
     build_s = phase_build()
     rows = phase_kernels(smi)
-    main_res = phase_main_path()
+    serve = phase_main_path()
     diff = phase_whole_vs_plain()
-    kernels = summarise(rows, main_res)
+    train = phase_train()
+    larger_io = phase_train_larger_io()
+    grads = phase_grads_vs_plain()
+    kernels = summarise(rows, serve, train, larger_io)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, build_seconds=build_s, kernel_rows=rows, main=main_res,
-        whole_vs_plain_max_abs=diff, kernels=kernels), indent=1))
+        card=smi, build_seconds=build_s, kernel_rows=rows, main=serve, train=train,
+        train_larger_io=larger_io, whole_vs_plain_max_abs=diff, grads_vs_plain=grads,
+        kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
 
-    print("(kernels: ms, plain_ms, bound_ms and library_ms are per-patch sums over each "
-          "kernel's main-path launches, bf16; launches are the 3 main-path calls')")
+    print(f"[done] all phases in {time.perf_counter() - t_start:.0f} s")
+    print(smi)
+    print("(kernels: ms, plain_ms, bound_ms and library_ms are sums over each kernel's launches "
+          "in one serving patch (conv3d, pool_max_folded, zd2s) or one training step at batch 1 "
+          "(the others; conv3d's train_step_* too), bf16; launches add up the main paths' runs)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -23,8 +23,11 @@ from biapy_tpu.ops.pallas import conv3d as jax_conv3d
 from biapy_tpu.ops.pallas import shuffle as jax_shuffle
 from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
-from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_plain,
-                                                 zd2s, zd2s_plain)
+from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_bwd,
+                                                 pool_max_folded_bwd_plain,
+                                                 pool_max_folded_plain, zcat, zcat_bwd,
+                                                 zcat_bwd_plain, zcat_plain, zd2s, zd2s_plain,
+                                                 zs2d, zs2d_plain)
 
 torch.set_num_threads(2)
 
@@ -108,9 +111,18 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     assert torch.equal(conv3d(x, w), conv3d_plain(x, w))
     x4 = x.reshape(8, 4, 4, 3)
     assert torch.equal(pool_max_folded(x4, (2, 2, 2)), pool_max_folded_plain(x4, (2, 2, 2)))
+    y4 = pool_max_folded_plain(x4, (2, 2, 2))
+    assert torch.equal(pool_max_folded_bwd(x4, y4, y4, (2, 2, 2)),
+                       pool_max_folded_bwd_plain(x4, y4, y4, (2, 2, 2)))
     x6 = torch.randn(2, 3, 3, 6)
     assert torch.equal(zd2s(x6, 2), zd2s_plain(x6, 2))
-    assert build.LAUNCHES == {"conv3d": 0, "pool_max_folded": 0, "zd2s": 0}
+    assert torch.equal(zs2d(x6, 2), zs2d_plain(x6, 2))
+    assert torch.equal(zs2d(zd2s(x6, 3), 3), x6)  # inverse of each other
+    assert torch.equal(zcat(x6, 3), zcat_plain(x6, 3))
+    assert torch.equal(zcat_bwd(x6, 3), zcat_bwd_plain(x6, 3))
+    assert set(build.LAUNCHES) == {"conv3d", "pool_max_folded", "pool_max_folded_bwd", "zd2s",
+                                   "zs2d", "zcat", "zcat_bwd"}
+    assert all(n == 0 for n in build.LAUNCHES.values())
 
 
 def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
@@ -122,6 +134,28 @@ def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
         pool_max_folded(x.reshape(3, 3, 3, 2)[:2, :2, :2], (2, 2, 2))
     with pytest.raises(ValueError, match="CUDA"):
         zd2s(x.reshape(3, 3, 3, 2), 2)
+    x4 = torch.empty(4, 2, 2, 6, device="meta")
+    y4 = torch.empty(2, 1, 1, 6, device="meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        pool_max_folded_bwd(x4, y4, y4, (2, 2, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        zs2d(x4, 2)
+    with pytest.raises(ValueError, match="CUDA"):
+        zcat(x4, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        zcat_bwd(x4, 3)
+
+
+@pytest.mark.parametrize("call", [
+    lambda x: zcat(x, 2),                # even kz
+    lambda x: zcat(x, 3, depth=3),       # depth does not divide rows
+    lambda x: zcat_bwd(x, 5),            # channels not a multiple of kz
+    lambda x: zs2d(x, 3),                # rows not a multiple of sz
+    lambda x: pool_max_folded(x, (3, 2, 2)),
+], ids=["even-kz", "bad-depth", "bad-channels", "bad-rows", "bad-window"])
+def test_shuffle_wrappers_reject_shapes_they_do_not_take(call):
+    with pytest.raises(ValueError):
+        call(torch.zeros(4, 2, 2, 6))
 
 
 _FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu")
@@ -140,6 +174,9 @@ def _imports(path: Path):
 def test_port_imports_nothing_of_jax():
     files = sorted((REPO / "biapy_tpu_torch").rglob("*.py")) + [REPO / "chip_smoke.py"]
     assert len(files) > 10
+    names = {str(f.relative_to(REPO)) for f in files}
+    assert {"biapy_tpu_torch/engine/train_engine.py", "biapy_tpu_torch/engine/schedulers.py",
+            "biapy_tpu_torch/engine/metrics.py"} <= names
     bad = []
     for f in files:
         for mod in _imports(f):
