@@ -8,7 +8,8 @@ loaded with ``ctypes``. A changed source gets a new directory, so a stale
 library is never loaded. A failed build raises.
 
 Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
-nothing else), so a run can show that its path went through the kernels.
+nothing else), so a run can show that its path went through the kernels;
+``CONV3D_ROUTES`` splits conv3d's count by the kernel that ran.
 """
 
 from __future__ import annotations
@@ -35,13 +36,18 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 LAUNCHES: Dict[str, int] = {"conv3d": 0, "pool_max_folded": 0, "pool_max_folded_bwd": 0,
                             "zd2s": 0, "zs2d": 0, "zcat": 0, "zcat_bwd": 0}
 
+# conv3d's launches by route: "wgmma" (tensor cores) or "fma" (CUDA cores);
+# the two add up to LAUNCHES["conv3d"]
+CONV3D_ROUTES: Dict[str, int] = {"wgmma": 0, "fma": 0}
+
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
 
 
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    for counts in (LAUNCHES, CONV3D_ROUTES):
+        for k in counts:
+            counts[k] = 0
 
 
 def _nvcc() -> str:
@@ -100,7 +106,8 @@ def build() -> Path:
         if failed:
             raise RuntimeError("nvcc failed on " + ", ".join(failed) + ":\n" + "\n".join(logs))
         tmp_lib = Path(tmp) / lib_path.name
-        link = subprocess.run([nvcc, "-shared", *[str(o) for _, o, _ in procs], "-o",
+        # -ldl: conv3d.cu looks cuTensorMapEncodeTiled up in libcuda with dlsym
+        link = subprocess.run([nvcc, "-shared", *[str(o) for _, o, _ in procs], "-ldl", "-o",
                                str(tmp_lib)],
                               stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
         if link.returncode != 0:
@@ -119,13 +126,15 @@ def lib() -> ctypes.CDLL:
         handle = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
         handle.biapy_conv3d_k3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        handle.biapy_conv3d_k3_wgmma.argtypes = [p, p, p, i, i, i, i, i, i, p]
         handle.biapy_pool_max_folded.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
         handle.biapy_pool_max_folded_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
         handle.biapy_zd2s.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zs2d.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zcat.argtypes = [p, p, i, i, i, i, i, i, i, p]
         handle.biapy_zcat_bwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
-        for fn in (handle.biapy_conv3d_k3, handle.biapy_pool_max_folded,
+        for fn in (handle.biapy_conv3d_k3, handle.biapy_conv3d_k3_wgmma,
+                   handle.biapy_pool_max_folded,
                    handle.biapy_pool_max_folded_bwd, handle.biapy_zd2s, handle.biapy_zs2d,
                    handle.biapy_zcat, handle.biapy_zcat_bwd):
             fn.restype = ctypes.c_int
@@ -146,8 +155,10 @@ def stream_ptr(t: torch.Tensor) -> int:
 
 
 def check_rc(rc: int, name: str) -> None:
+    """Raises unless the launcher returned 0 (a positive code is a
+    cudaError, a negative one the launcher's own: see its source)."""
     if rc != 0:
-        raise RuntimeError(f"{name} kernel launch failed: cudaError {rc}")
+        raise RuntimeError(f"{name} kernel launch failed: error {rc}")
 
 
 def check_cuda(t: torch.Tensor, name: str) -> None:

@@ -1,5 +1,5 @@
-"""3x3x3 stride-1 SAME convolution, channels-last: the hand-written Hopper
-kernel (``csrc/conv3d.cu``), its plain PyTorch version and the
+"""3x3x3 stride-1 SAME convolution, channels-last: the two hand-written
+Hopper kernels (``csrc/conv3d.cu``), the plain PyTorch version and the
 differentiable entry point.
 
 Counterpart of ``biapy_tpu/ops/pallas/conv3d.py::conv3d`` and its
@@ -7,11 +7,32 @@ Counterpart of ``biapy_tpu/ops/pallas/conv3d.py::conv3d`` and its
 w is DHWIO ``(3, 3, 3, Cin, Cout)``, the sum is kept in float32 and the
 output has the input's dtype. No bias.
 
-The backward, as there: dx is the same kernel on the spatially flipped,
-IO-swapped weights; dw is the weight gradient of the cat2d form (one 2D
-3x3 conv over z-concatenated channels), whose operand the ``zcat`` kernel
-builds and whose contraction stays a library product, as the JAX package
-leaves it to XLA.
+Both kernels replace ``biapy_tpu/ops/pallas/conv3d.py::_kernel``; the
+function is bound by operations at every width but the 1-channel stem's.
+Which one a CUDA launch takes is a rule on dtype and widths alone
+(``conv3d_route``), never a ``try`` and never a setting:
+
+- ``"wgmma"``, the tensor-core kernel: bfloat16, ``Cin % 16 == 0`` (the
+  depth of one ``wgmma``) and ``Cout % 8 == 0`` (its width step, and the
+  16-byte rows that TMA and the vector stores want). bf16 tiles staged by
+  TMA, whose out-of-bounds zero fill is the SAME padding; float32
+  accumulators in registers; a ring of stages. It walks channels in chunks
+  of 32 (64 where 64 divides Cin and Cout <= 64): the tail of a Cin that 32
+  does not divide (16, 48, 80) arrives as zeros on both operands, so it
+  costs a half-empty chunk and changes nothing. It reads the weights
+  packed K-major, ``(27, Cout, Cin)`` (``pack_weights``, repacked at every
+  launch: no cache to go stale).
+- ``"fma"``, the CUDA-core kernel: everything else, i.e. float32 (which
+  must stay full float32; the tensor cores would round to TF32), the
+  1-channel stem (K = 27, bound by bytes) and widths the rule above
+  leaves out. An implicit GEMM with masked edges on float32 FMAs.
+
+The backward, as in the JAX package: dx is the same kernel on the spatially
+flipped, IO-swapped weights, whose packed form is ``w.flip(0, 1, 2)`` in
+its own layout (a flip and no transpose); dw is the weight gradient of the
+cat2d form (one 2D 3x3 conv over z-concatenated channels), whose operand
+the ``zcat`` kernel builds and whose contraction stays a library product,
+as the JAX package leaves it to XLA.
 """
 
 from __future__ import annotations
@@ -42,32 +63,87 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
-def conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """The forward alone: the CUDA kernel for a CUDA tensor, the plain
-    version for a CPU tensor."""
-    if x.device.type == "cpu":
-        return conv3d_plain(x, w)
-    name = "conv3d"
+def conv3d_route(dtype: torch.dtype, cin: int, cout: int) -> str:
+    """The kernel a CUDA launch takes: ``"wgmma"`` for bfloat16 with
+    ``cin % 16 == 0`` and ``cout % 8 == 0``, else ``"fma"``."""
+    if dtype == torch.bfloat16 and cin > 0 and cin % 16 == 0 and cout > 0 and cout % 8 == 0:
+        return "wgmma"
+    return "fma"
+
+
+def pack_weights(w: torch.Tensor) -> torch.Tensor:
+    """DHWIO ``(3, 3, 3, Cin, Cout)`` -> ``(27, Cout, Cin)`` contiguous, the
+    K-major B operand of the tensor-core kernel:
+    ``pack(w)[t, co, ci] == w.reshape(27, Cin, Cout)[t, ci, co]``."""
+    cin, cout = w.shape[3], w.shape[4]
+    return w.reshape(27, cin, cout).transpose(1, 2).contiguous()
+
+
+def pack_weights_dx(w: torch.Tensor) -> torch.Tensor:
+    """The packed weights of the dx conv (w flipped in space, I and O
+    swapped) without a transpose: ``pack_weights(w.flip(0, 1, 2)
+    .transpose(3, 4)) == w.flip(0, 1, 2).reshape(27, Cin, Cout)``, because
+    the rows of the flipped w are already the dx conv's output channels with
+    its reduction dimension contiguous."""
+    return w.flip(0, 1, 2).reshape(27, w.shape[3], w.shape[4])
+
+
+def _check_operands(x: torch.Tensor, w: torch.Tensor, cin_axis: int, name: str) -> None:
     build.check_cuda(x, name)
     build.check_cuda(w, name)
     if x.dim() != 5 or w.dim() != 5 or tuple(w.shape[:3]) != (3, 3, 3):
-        raise ValueError(f"{name}: want x (N,D,H,W,Cin) and w (3,3,3,Cin,Cout), "
+        raise ValueError(f"{name}: want x (N,D,H,W,C) and w (3,3,3,Cin,Cout), "
                          f"got {tuple(x.shape)} and {tuple(w.shape)}")
-    if w.shape[3] != x.shape[4] or w.dtype != x.dtype or w.device != x.device:
+    if w.shape[cin_axis] != x.shape[4] or w.dtype != x.dtype or w.device != x.device:
         raise ValueError(f"{name}: weight {tuple(w.shape)} {w.dtype} does not match "
                          f"input {tuple(x.shape)} {x.dtype}")
+
+
+def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool) -> torch.Tensor:
+    """One kernel launch on the route of ``(x.dtype, C of x, C of y)``, with
+    the weights in the form that route's kernel reads: the forward conv of x
+    with w, or (``dx``) the conv of x with w flipped and IO-swapped."""
+    name = "conv3d"
     n, d, h, wd, cin = x.shape
-    cout = w.shape[4]
-    code = build.dtype_code(x)
+    cout = w.shape[3] if dx else w.shape[4]
+    route = conv3d_route(x.dtype, cin, cout)
     y = torch.empty((n, d, h, wd, cout), dtype=x.dtype, device=x.device)
     if y.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        rc = build.lib().biapy_conv3d_k3(x.data_ptr(), w.data_ptr(), y.data_ptr(), code,
-                                         n, d, h, wd, cin, cout, build.stream_ptr(x))
-    build.check_rc(rc, name)
+        if route == "wgmma":
+            wp = pack_weights_dx(w) if dx else pack_weights(w)
+            if x.data_ptr() % 16 or wp.data_ptr() % 16 or y.data_ptr() % 16:
+                raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned tensors")
+            rc = build.lib().biapy_conv3d_k3_wgmma(x.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                                                   n, d, h, wd, cin, cout, build.stream_ptr(x))
+        else:
+            wk = w.flip(0, 1, 2).transpose(3, 4).contiguous() if dx else w
+            rc = build.lib().biapy_conv3d_k3(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                                             build.dtype_code(x), n, d, h, wd, cin, cout,
+                                             build.stream_ptr(x))
+    build.check_rc(rc, f"{name} ({route})")
     build.LAUNCHES[name] += 1
+    build.CONV3D_ROUTES[route] += 1
     return y
+
+
+def conv3d_fwd(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The forward alone: a CUDA kernel (``conv3d_route`` says which) for a
+    CUDA tensor, the plain version for a CPU tensor."""
+    if x.device.type == "cpu":
+        return conv3d_plain(x, w)
+    _check_operands(x, w, 3, "conv3d")
+    return _launch(x, w, dx=False)
+
+
+def conv3d_dx(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """The input gradient: the same conv of ``gy (N, D, H, W, Cout)`` with the
+    spatially flipped, IO-swapped weights, ``(N, D, H, W, Cin)``."""
+    if gy.device.type == "cpu":
+        return conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous())
+    _check_operands(gy, w, 4, "conv3d")
+    return _launch(gy, w, dx=True)
 
 
 def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
@@ -107,7 +183,7 @@ class Conv3dK3(torch.autograd.Function):
         gy = gy.to(x.dtype).contiguous()
         dx = dw = None
         if ctx.needs_input_grad[0]:
-            dx = conv3d_fwd(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous())
+            dx = conv3d_dx(gy, w)
         if ctx.needs_input_grad[1]:
             dw = conv3d_wgrad(x, gy).to(w.dtype)
         return dx, dw

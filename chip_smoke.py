@@ -11,19 +11,25 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    sm_90a), with the build seconds;
 3. kernels vs plain: each of the seven kernels at every shape the serving
    and training paths give it (bf16 and f32, plus odd shapes: ragged sizes,
-   c = 1, kz = 5, two images, tied pool windows with a NaN) against its
-   plain PyTorch version, with kernel, plain and library times (CUDA
-   events, median) and the bound;
+   c = 1, kz = 5, two images, tied pool windows with a NaN; for conv3d also
+   odd shapes on the tensor-core route: overhanging bricks, a channel tail,
+   an output-tile loop) against its plain PyTorch version, with kernel,
+   plain and library times (CUDA events, median), the bound and, for
+   conv3d, the route; fails unless a main-path bf16 conv3d row runs above
+   the CUDA cores' 67 TFLOP/s;
 4. serving path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
    32/64/128, BatchNorm, ELU, 128^3 patches, halo 10, bf16, uint8 drain) on
    a seeded 216^3 uint8 volume, three calls, with the launch counters
-   checked at 10 conv3d, 2 pool and 2 zd2s per patch;
+   checked at 10 conv3d (9 on the tensor-core route), 2 pool and 2 zd2s
+   per patch;
 5. whole path vs plain path: the same model at reduced width on the card
-   and on the CPU (plain versions), probabilities compared;
+   and on the CPU (plain versions), probabilities compared, in float32
+   (CUDA-core conv) and in bf16 at widths that take the tensor-core conv;
 6. training path: ``prepare_model()`` and ``make_train_step`` on the same
    model at 128^3 under bf16 mixed precision, batch 1 then 2 (two steps to
    settle, at least six timed), with the launch counters checked per step
-   (19 conv3d, 10 zcat, 2 each of pool, pool backward, zd2s, zs2d), a
+   (19 conv3d, 18 of them on the tensor-core route, 10 zcat, 2 each of
+   pool, pool backward, zd2s, zs2d), a
    falling finite loss, changed weights and statistics, patches/s, peak
    memory and one profiled step;
 7. the same with ``MODEL.LARGER_IO`` (two steps): the 5x5x5 convs take the
@@ -32,12 +38,17 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    the card and on the CPU, loss, gradients and updated weights compared;
 9. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
+``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
+phase 3 (the quick check of a change to the conv kernels) and prints no
+result line.
+
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
 
 from __future__ import annotations
 
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -66,6 +77,13 @@ ZCAT_BWD_MAIN = LARGER_IO_ZCATS[1]
 TRAIN_LAUNCHES = {"conv3d": 19, "zcat": 10, "pool_max_folded": 2, "pool_max_folded_bwd": 2,
                   "zd2s": 2, "zs2d": 2, "zcat_bwd": 0}
 LARGER_IO_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d=20, zcat=12, zcat_bwd=1)
+# conv3d's launches by route (biapy_tpu_torch/ops/kernels/conv3d.py::conv3d_route):
+# in bf16 only the 1-channel stem's forward stays on the CUDA cores; with
+# LARGER_IO the stem is a 5x5x5 conv (cat2d path), so every 3x3x3 conv has
+# Cin = 32 or more
+SERVE_ROUTES = {"wgmma": 9, "fma": 1}
+TRAIN_ROUTES = {"wgmma": 18, "fma": 1}
+LARGER_IO_ROUTES = {"wgmma": 20, "fma": 0}
 _SHUFFLE = "biapy_tpu_torch/csrc/shuffle.cu"
 KERNEL_META = {
     "conv3d": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
@@ -141,10 +159,25 @@ def phase_build():
     build.lib()
     secs = time.perf_counter() - t0
     print(f"[build] kernels ready in {secs:.1f} s (cached: {build.BUILD_INFO.get('cached')})")
-    for line in str(build.BUILD_INFO.get("log", "")).splitlines():
-        if "registers" in line or "spill" in line or line.startswith("=="):
-            print("[build] " + line.strip())
-    return secs
+    # ptxas -v: registers and spills of every kernel go to the JSON; the
+    # console gets the tensor-core conv's instances and any kernel that spills
+    ptxas = []
+    for ln in str(build.BUILD_INFO.get("log", "")).splitlines():
+        if "Compiling entry" in ln:
+            fn = ln.split("'")[1]
+            tc = re.search(r"wgmma_kernelILi(\d+)ELi(\d+)ELi(\d+)ELi(\d+)E", fn)
+            fn = ("conv3d_k3_wgmma_kernel<BN={}, KC={}, MINB={}, NWG={}>".format(*tc.groups())
+                  if tc else fn)
+            ptxas.append(dict(kernel=fn, spill_bytes=0, registers=None))
+        elif ptxas and "spill stores" in ln:
+            ptxas[-1]["spill_bytes"] = sum(int(v) for v in re.findall(r"(\d+) bytes spill", ln))
+        elif ptxas and "registers" in ln:
+            ptxas[-1]["registers"] = int(re.search(r"Used (\d+) registers", ln).group(1))
+    for k in ptxas:
+        if "wgmma" in k["kernel"] or k["spill_bytes"]:
+            print(f"[build] {k['kernel'][:100]}: {k['registers']} registers, "
+                  f"{k['spill_bytes']} bytes of spills")
+    return secs, ptxas
 
 
 def _check(got, ref, tol):
@@ -200,12 +233,62 @@ class _Rows:
             self.failures.append(row)
 
 
-def phase_kernels(card):
+# odd conv3d shapes, (N, D, H, W), Cin, Cout. The first stays on the CUDA
+# cores in both dtypes; the others take the tensor cores in bf16: bricks that
+# overhang the volume, two images (the seam), a channel tail (Cin 16, 48), an
+# output tile wider than Cout (8, 40), a loop over output tiles (264), and a
+# ragged volume with bricks enough for the kernel's taller (16 x 16) brick
+ODD_CONVS = [((2, 13, 7, 9), 24, 40), ((2, 13, 7, 9), 32, 40), ((2, 13, 7, 9), 48, 32),
+             ((2, 13, 7, 9), 64, 264), ((2, 3, 19, 35), 16, 8), ((2, 40, 30, 35), 48, 40)]
+# the CUDA cores' float32 peak: no FMA kernel can pass it
+TENSOR_CORE_PROOF_TFLOPS = 67.0
+
+
+def conv_rows(out, rand, g, dev):
+    """conv3d against its plain version: every main-path forward and dx shape
+    and the odd shapes, in both dtypes, each row with the route it took."""
+    import torch
+    import torch.nn.functional as F
+
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_fwd, conv3d_plain, conv3d_route
+
+    # float32: both sides sum the same products in float32 in other orders;
+    # bfloat16: both sum bf16 products in float32 and round once, so they
+    # differ by at most about one bf16 ulp of the output (2^-8 relative)
+    tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
+    shapes = [((1, s, s, s), cin, cout) for s, cin, cout in sorted(set(MAIN_CONVS + DX_CONVS))]
+    for dt in (torch.bfloat16, torch.float32):
+        for vol, cin, cout in shapes + ODD_CONVS:
+            shape = vol + (cin,)
+            x = rand(shape, dt)
+            w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dt)
+            xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view in channels_last_3d strides
+            wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
+            m = x.numel() // cin
+            out.add("conv3d", dt, shape, conv3d_fwd(x, w), conv3d_plain(x, w), tols[dt],
+                    lambda: conv3d_fwd(x, w), lambda: conv3d_plain(x, w),
+                    lambda: F.conv3d(xc, wc, padding=1), "F.conv3d",
+                    nbytes=(x.numel() + w.numel() + m * cout) * x.element_size(),
+                    flops=2 * 27 * cin * cout * m, cout=cout, route=conv3d_route(dt, cin, cout))
+            del x, w, xc, wc
+    if out.failures:
+        return
+    main = [r for r in out.rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
+            and r["shape"][0] == 1]
+    best = max(main, key=lambda r: r["tflops"])
+    print(f"[kernels] conv3d fastest main-path bf16 row: {tuple(best['shape'])} -> {best['cout']} "
+          f"at {best['tflops']:.1f} TFLOP/s (route {best['route']}); above "
+          f"{TENSOR_CORE_PROOF_TFLOPS} only the tensor cores can have done it")
+    if not best["tflops"] > TENSOR_CORE_PROOF_TFLOPS or best["route"] != "wgmma":
+        raise AssertionError(f"no main-path bf16 conv3d row above {TENSOR_CORE_PROOF_TFLOPS} "
+                             f"TFLOP/s: best {best}")
+
+
+def phase_kernels(card, conv3d_only=False):
     """Each kernel against its plain version at the main paths' shapes."""
     import torch
     import torch.nn.functional as F
 
-    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_fwd, conv3d_plain
     from biapy_tpu_torch.ops.kernels.shuffle import (
         pool_max_folded_bwd, pool_max_folded_bwd_plain, pool_max_folded_fwd,
         pool_max_folded_plain, zcat_bwd, zcat_bwd_plain, zcat_fwd, zcat_plain, zd2s_fwd,
@@ -218,25 +301,11 @@ def phase_kernels(card):
     def rand(shape, dt):
         return torch.randn(shape, generator=g).to(dev, dt)
 
-    # float32: both sides sum the same products in float32 in other orders;
-    # bfloat16: both sum bf16 products in float32 and round once, so they
-    # differ by at most about one bf16 ulp of the output (2^-8 relative)
-    tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
-    conv_shapes = sorted(set(MAIN_CONVS + DX_CONVS)) + [(None, 24, 40)]
-    for dt in (torch.bfloat16, torch.float32):
-        for s, cin, cout in conv_shapes:
-            shape = (1, s, s, s, cin) if s else (2, 13, 7, 9, cin)
-            x = rand(shape, dt)
-            w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dt)
-            xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view in channels_last_3d strides
-            wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
-            m = x.numel() // cin
-            out.add("conv3d", dt, shape, conv3d_fwd(x, w), conv3d_plain(x, w), tols[dt],
-                    lambda: conv3d_fwd(x, w), lambda: conv3d_plain(x, w),
-                    lambda: F.conv3d(xc, wc, padding=1), "F.conv3d",
-                    nbytes=(x.numel() + w.numel() + m * cout) * x.element_size(),
-                    flops=2 * 27 * cin * cout * m, cout=cout)
-            del x, w, xc, wc
+    conv_rows(out, rand, g, dev)
+    if out.failures:
+        raise AssertionError(f"{len(out.failures)} conv3d checks failed: {out.failures}")
+    if conv3d_only:
+        return out.rows
 
     pools = MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1))]  # odd: ragged, c = 5, window 3x2x1
     for dt in (torch.bfloat16, torch.float32):
@@ -367,12 +436,14 @@ def phase_main_path():
         out = job.predict(vol)[0]["pred"]  # returns host numpy: synchronised
         secs.append(time.perf_counter() - t0)
     launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
     peak = torch.cuda.max_memory_allocated()
     want = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2}
     for k, per_patch in want.items():
         if launches[k] != 3 * n_patches * per_patch:
             raise AssertionError(f"{k}: {launches[k]} launches in 3 predict calls, want "
                                  f"{3 * n_patches * per_patch} ({per_patch} per patch)")
+    _check_launches(routes, SERVE_ROUTES, 3 * n_patches, "serving, conv3d routes", "patches")
     if out.shape != (216, 216, 216, 1):
         raise AssertionError(f"prediction shape {out.shape}")
     if not np.all(np.isfinite(out)) or not np.array_equal(out, np.round(out)):
@@ -386,7 +457,8 @@ def phase_main_path():
           f"per call, bf16 + uint8 drain: call seconds {[round(s, 4) for s in secs]}")
     print(f"[main] calls 2-3: {[round(m, 3) for m in mvox]} Mvox/s, "
           f"{[round(s / n_patches, 4) for s in steady]} s/patch, peak memory "
-          f"{peak / 2**30:.2f} GiB; launches {launches}; p mean {p.mean():.4f}")
+          f"{peak / 2**30:.2f} GiB; launches {launches}; conv3d routes {routes}; "
+          f"p mean {p.mean():.4f}")
 
     # where the time goes: one more call under the profiler (not in the
     # numbers above), device time summed by kernel name
@@ -396,7 +468,7 @@ def phase_main_path():
     for key, ms, cnt in table[:12]:
         print(f"[profile] {ms:10.2f} ms  {cnt:5d}x  {key[:90]}")
     return dict(call_seconds=secs, mvox_per_s=mvox, s_per_patch=[s / n_patches for s in steady],
-                peak_bytes=peak, launches=launches, n_params=n_params,
+                peak_bytes=peak, launches=launches, conv3d_routes=routes, n_params=n_params,
                 profile=dict(wall_s=prof_wall, device_ms=dev_total,
                              top=[dict(name=k, ms=m, count=c) for k, m, c in table[:40]]))
 
@@ -457,11 +529,11 @@ def _train_batch(b, dev):
     return {"x": torch.from_numpy(x).to(dev), "y": torch.from_numpy(y).to(dev)}
 
 
-def _check_launches(got, per_step, steps, what):
+def _check_launches(got, per_step, steps, what, unit="steps"):
     for k, n in per_step.items():
         if got[k] != n * steps:
-            raise AssertionError(f"{what}: {k} launched {got[k]} times in {steps} steps, want "
-                                 f"{n} per step")
+            raise AssertionError(f"{what}: {k} launched {got[k]} times in {steps} {unit}, want "
+                                 f"{n} each")
 
 
 def phase_train():
@@ -501,9 +573,11 @@ def phase_train():
         float(m["loss"])  # the host read ends the timed window
         secs = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
+        routes = dict(build.CONV3D_ROUTES)
         peak = torch.cuda.max_memory_allocated()
         losses = [float(v) for v in losses]
         _check_launches(launches, TRAIN_LAUNCHES, n_steps + 2, f"train b={b}")
+        _check_launches(routes, TRAIN_ROUTES, n_steps + 2, f"train b={b}, conv3d routes")
         if not all(v == v and abs(v) != float("inf") for v in losses):
             raise AssertionError(f"train b={b}: non-finite loss in {losses}")
         if not losses[-1] < losses[0]:
@@ -522,10 +596,11 @@ def phase_train():
               f"precision {mixed}; {n_steps} steps in {secs:.3f} s: {secs / n_steps:.4f} s/step, "
               f"{pps:.3f} patches/s, peak memory {peak / 2**30:.2f} GiB")
         print(f"[train] b={b}: loss {losses[0]:.6f} -> {losses[-1]:.6f} over {len(losses)} "
-              f"steps; launches {launches}")
+              f"steps; launches {launches}; conv3d routes {routes}")
         res["by_batch"][b] = dict(steps=n_steps, seconds=secs, s_per_step=secs / n_steps,
                                   patches_per_s=pps, peak_bytes=peak, losses=losses,
-                                  launches=launches, optimizer=cfg.OPTIMIZER[0],
+                                  launches=launches, conv3d_routes=routes,
+                                  optimizer=cfg.OPTIMIZER[0],
                                   mixed_precision=mixed)
         if b == 1:
             res["launches"] = launches
@@ -546,7 +621,7 @@ def _profile_train_step(run):
     n_conv = 0
     for _, name, ms in events:
         low = name.lower()
-        if "conv3d_k3_kernel" in name:
+        if "conv3d_k3_" in name:  # either route's kernel
             fam["hand conv forward" if n_conv < len(MAIN_CONVS) else "hand conv dx"] += ms
             n_conv += 1
         elif "zcat_kernel" in name:
@@ -594,15 +669,18 @@ def phase_train_larger_io():
         losses.append(float(m["loss"]))
     secs = time.perf_counter() - t0
     launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
     _check_launches(launches, LARGER_IO_LAUNCHES, 2, "train LARGER_IO")
+    _check_launches(routes, LARGER_IO_ROUTES, 2, "train LARGER_IO, conv3d routes")
     if not all(v == v and abs(v) != float("inf") for v in losses):
         raise AssertionError(f"train LARGER_IO: non-finite loss in {losses}")
     peak = torch.cuda.max_memory_allocated()
     print(f"[train-larger-io] 2 steps (first included) in {secs:.3f} s, losses {losses}, peak "
-          f"memory {peak / 2**30:.2f} GiB; launches {launches}")
+          f"memory {peak / 2**30:.2f} GiB; launches {launches}; conv3d routes {routes}")
     del job, wf, state, batch
     torch.cuda.empty_cache()
-    return dict(seconds=secs, losses=losses, peak_bytes=peak, launches=launches)
+    return dict(seconds=secs, losses=losses, peak_bytes=peak, launches=launches,
+                conv3d_routes=routes)
 
 
 def phase_grads_vs_plain():
@@ -681,6 +759,51 @@ def phase_whole_vs_plain():
     return diff
 
 
+def phase_whole_vs_plain_bf16():
+    """The same comparison in the main path's dtype, so that the whole path
+    through the tensor-core conv is held too: bf16 weights and activations
+    (TEST.REDUCE_MEMORY) at feature maps 16/32/64 (every 3x3x3 conv but the
+    stem has Cin a multiple of 16: 16, 32, 48, 64, 96), probabilities not
+    quantised."""
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.ops.kernels import build
+
+    cfg = _main_cfg()
+    cfg["MODEL"]["FEATURE_MAPS"] = [16, 32, 64]
+    cfg["DATA"]["PATCH_SIZE"] = [32, 32, 32, 1]
+    cfg["DATA"]["TEST"] = {"PADDING": [4, 4, 4], "OVERLAP": [0.25, 0.25, 0.25]}
+    cfg["TEST"] = {"ENABLE": True, "REDUCE_MEMORY": True, "OUTPUT_QUANT_UINT8": False}
+    vol = np.random.default_rng(1).integers(0, 256, (40, 37, 45), dtype=np.uint8)
+    preds = []
+    build.reset_launches()
+    for dev in ("cuda:0", "cpu"):
+        job = BiaPy(cfg, result_dir=str(OUT_DIR), name=f"chip_smoke_small_bf16_{dev[:3]}",
+                    silent=True, check_data_paths=False, device=dev)
+        job._build_workflow()
+        job.workflow.prepare_model()  # seeded init: the same weights on both devices
+        _random_bn_stats(job.workflow.model, seed=1)
+        preds.append(np.asarray(job.predict(vol)[0]["pred"], dtype=np.float32))
+    routes = dict(build.CONV3D_ROUTES)
+    if routes["fma"] * 9 != routes["wgmma"] or not routes["wgmma"]:
+        raise AssertionError(f"bf16 small path: conv3d routes {routes}, want 9 wgmma per fma")
+    diff = np.abs(preds[0] - preds[1])
+    worst, mean = float(diff.max()), float(diff.mean())
+    # every layer rounds its activations to bf16 (2^-8 relative) and the two
+    # devices break those roundings differently (float32 sums in other orders,
+    # other exp and rsqrt), so errors of a few bf16 ulps of the pre-sigmoid
+    # logits add up over the 10 convs; a wrong tap, seam or channel moves the
+    # probabilities by tenths. Worst voxel within 5e-2, mean within 5e-3.
+    tol_max, tol_mean = 5e-2, 5e-3
+    print(f"[whole-vs-plain-bf16] fm 16/32/64, patch 32^3, volume (40, 37, 45), bf16: "
+          f"max |p_card - p_cpu| = {worst:.3g} (tol {tol_max}), mean {mean:.3g} (tol {tol_mean}); "
+          f"conv3d routes on the card {routes}")
+    if not (worst <= tol_max and mean <= tol_mean):
+        raise AssertionError(f"bf16 card and CPU paths differ by max {worst}, mean {mean}")
+    return dict(max_abs=worst, mean_abs=mean, conv3d_routes=routes)
+
+
 def summarise(rows, serve, train, larger_io):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms are sums over the kernel's launches in one unit
@@ -740,20 +863,33 @@ def summarise(rows, serve, train, larger_io):
 
 
 def main():
+    conv3d_only = sys.argv[1:] == ["--conv3d-only"]
+    if sys.argv[1:] and not conv3d_only:
+        sys.exit("usage: chip_smoke.py [--conv3d-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
-    build_s = phase_build()
+    build_s, ptxas = phase_build()
+    if conv3d_only:
+        # phases 1-2 and the conv3d rows of phase 3 alone: the quick check of
+        # a change to the conv kernels; prints no result line
+        rows = phase_kernels(smi, conv3d_only=True)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_conv3d.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows), indent=1))
+        return
     rows = phase_kernels(smi)
     serve = phase_main_path()
     diff = phase_whole_vs_plain()
+    diff_bf16 = phase_whole_vs_plain_bf16()
     train = phase_train()
     larger_io = phase_train_larger_io()
     grads = phase_grads_vs_plain()
     kernels = summarise(rows, serve, train, larger_io)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
-        card=smi, build_seconds=build_s, kernel_rows=rows, main=serve, train=train,
-        train_larger_io=larger_io, whole_vs_plain_max_abs=diff, grads_vs_plain=grads,
+        card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
+        train_larger_io=larger_io, whole_vs_plain_max_abs=diff,
+        whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
 

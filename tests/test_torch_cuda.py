@@ -13,7 +13,8 @@ import pytest
 import torch
 
 from biapy_tpu_torch.ops.kernels import build
-from biapy_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
+from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_fwd, conv3d_plain,
+                                                conv3d_route)
 from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_bwd,
                                                  pool_max_folded_bwd_plain,
                                                  pool_max_folded_plain, zcat, zcat_bwd,
@@ -128,3 +129,62 @@ def test_cuda_functions_backward_match_plain_on_the_card():
     # conv3d: forward + dx; zcat: the conv's dw operand + zcat's own forward
     assert build.LAUNCHES == {"conv3d": 2, "pool_max_folded": 1, "pool_max_folded_bwd": 1,
                               "zd2s": 1, "zs2d": 1, "zcat": 2, "zcat_bwd": 1}
+
+
+def test_cuda_conv3d_tensor_core_route_matches_plain_on_the_card():
+    """The tensor-core conv at small odd shapes in bf16: bricks that overhang
+    the volume, two images, a channel tail (Cin 16, 48, and 272 for dx), an
+    output tile wider than Cout (8, 40), a loop over output tiles (264,
+    272) and a ragged volume with bricks enough for the taller 16 x 16
+    brick; forward, and dx through ``Conv3dK3``; the route counters."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(4)
+    dt = torch.bfloat16
+    build.reset_launches()
+    want = {"wgmma": 0, "fma": 0}
+    for shape, cout in (((2, 5, 7, 9, 16), 8), ((2, 3, 19, 35, 48), 40), ((1, 4, 9, 17, 64), 264),
+                        ((2, 13, 7, 9, 48), 32), ((1, 3, 10, 20, 64), 272),
+                        ((2, 24, 30, 35, 16), 8), ((2, 24, 30, 35, 48), 32)):
+        cin = shape[-1]
+        x = torch.randn(shape, generator=g).to(dev, dt).requires_grad_(True)
+        w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dt)
+        gy = torch.randn(shape[:4] + (cout,), generator=g).to(dev, dt)
+        assert conv3d_route(dt, cin, cout) == "wgmma"
+        y = conv3d(x, w)
+        (dx,) = torch.autograd.grad(y, x, gy)
+        want["wgmma"] += 1
+        want[conv3d_route(dt, cout, cin)] += 1
+        # both sides sum bf16 products in float32 and round once: one bf16
+        # ulp of the output's scale
+        for got, ref in ((y, conv3d_plain(x.detach(), w)),
+                         (dx, conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous()))):
+            assert got.dtype == dt and got.shape == ref.shape
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= 1e-2 * max(1.0, ref.float().abs().max().item())
+    torch.cuda.synchronize()
+    assert want["wgmma"] == 10  # three of the shapes take the tensor cores for dx too
+    assert build.CONV3D_ROUTES == want
+    assert build.LAUNCHES["conv3d"] == sum(want.values())
+
+
+def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(5)
+    build.reset_launches()
+    xb = torch.randn((1, 4, 8, 16, 32), generator=g).to(dev, torch.bfloat16)
+    wb = (torch.randn((3, 3, 3, 32, 16), generator=g) * 0.05).to(dev, torch.bfloat16)
+    conv3d_fwd(xb, wb)                  # bf16, 32 -> 16: tensor cores
+    conv3d_fwd(xb.float(), wb.float())  # float32: CUDA cores
+    conv3d_fwd(xb[..., :1].contiguous(), wb[:, :, :, :1].contiguous())  # Cin = 1: CUDA cores
+    assert build.CONV3D_ROUTES == {"wgmma": 1, "fma": 2}
+    # dx through its own entry is the forward entry on the flipped, swapped weights
+    gy = torch.randn((1, 4, 8, 16, 16), generator=g).to(dev, torch.bfloat16)
+    a = conv3d_dx(gy, wb)
+    b = conv3d_fwd(gy, wb.flip(0, 1, 2).transpose(3, 4).contiguous())
+    assert torch.equal(a, b)
+    assert build.CONV3D_ROUTES == {"wgmma": 3, "fma": 2}
+    assert build.LAUNCHES["conv3d"] == 5
