@@ -1,11 +1,10 @@
 """Top-level BiaPy job API of the PyTorch port.
 
-Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config
-load/migrate/merge/check, the workflow build (SEMANTIC_SEG), whose
-``prepare_model()`` gives the train state that
-``engine/train_engine.py::make_train_step`` advances, and the in-memory
-``predict``. The epoch loop of ``train()``, disk-driven testing,
-checkpoints and BMZ are not ported yet (ROADMAP queue 1).
+Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config load (YAML, dict, or
+a ``.ckpt`` checkpoint of either package with its embedded config),
+migrate/merge/check, the workflow build (SEMANTIC_SEG), ``train()``,
+``test()``, ``run_job()`` and the in-memory ``predict``. BMZ is not ported
+yet (ROADMAP queue 1).
 
 Device rule: ``device=None`` means the CUDA card ``cuda:<gpu>`` (``gpu``
 defaults to 0) and raises when PyTorch sees no CUDA device; the CPU is used
@@ -93,7 +92,7 @@ class BiaPy:
         self.cfg.merge_from_dict(raw)
         if str(raw.get("MODEL", {}).get("SOURCE", "")).lower() == "bmz":
             raise NotImplementedError("MODEL.SOURCE 'bmz' is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 10, BMZ)")
+                                      "(ROADMAP queue 1 item 11, BMZ)")
         update_dependencies(self.cfg, self.job_dir, self.job_identifier)
         check_configuration(self.cfg, self.job_identifier, check_data_paths=check_data_paths)
 
@@ -123,8 +122,17 @@ class BiaPy:
                 with open(config) as f:
                     return yaml.safe_load(f) or {}
             if config.endswith(".ckpt"):
-                raise NotImplementedError("reading a .ckpt is not ported to biapy_tpu_torch "
-                                          "yet (ROADMAP queue 1 item 4, checkpoint reader)")
+                # the embedded config is YAML text (block style from the JAX
+                # package, flow style from the port): PyYAML reads both
+                import yaml
+
+                from biapy_tpu_torch.utils.misc import load_checkpoint
+
+                ck = load_checkpoint(config)
+                raw = yaml.safe_load(ck["cfg"]) or {}
+                raw.setdefault("PATHS", {})["CHECKPOINT_FILE"] = config
+                raw.setdefault("MODEL", {})["LOAD_CHECKPOINT"] = True
+                return raw
             raise ValueError(f"Config file must be .yaml/.yml/.ckpt: {config}")
         raise ValueError(f"Unsupported config type: {type(config)}")
 
@@ -134,7 +142,7 @@ class BiaPy:
         wf = self.cfg.PROBLEM.TYPE
         if wf not in _WORKFLOW_MODULES:
             raise NotImplementedError(f"workflow {wf} is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 8, other workflows)")
+                                      "(ROADMAP queue 1 item 9, other workflows)")
         mod_name, cls_name = _WORKFLOW_MODULES[wf]
         cls = getattr(importlib.import_module(mod_name), cls_name)
         self.cfg.freeze()
@@ -169,7 +177,10 @@ class BiaPy:
             self.workflow.save_to_disk = True
 
     def run_job(self):
-        """train() then test()."""
+        """train() then test() (reference: run_job, _biapy.py:1906)."""
+        if self.cfg.MODEL.BMZ.EXPORT.ENABLE:
+            raise NotImplementedError("MODEL.BMZ.EXPORT is not ported to biapy_tpu_torch yet "
+                                      "(ROADMAP queue 1 item 11, BMZ)")
         if self.cfg.TRAIN.ENABLE:
             self.train()
         if self.cfg.TEST.ENABLE:

@@ -15,6 +15,8 @@ from __future__ import annotations
 
 import ast
 import copy
+import json
+import math
 import os
 from typing import Any, Dict, Iterator, List, Optional, Tuple, Union
 
@@ -63,6 +65,26 @@ def _coerce(new: Any, old: Any, path: str) -> Any:
                 f"Config key {path}: type mismatch (expected {type(old).__name__}, got {type(new).__name__}: {new!r})"
             )
     return new
+
+
+def _flow_yaml(v: Any) -> str:
+    """One value as YAML flow text that PyYAML's ``safe_load`` reads back:
+    JSON, except floats, which YAML 1.1 reads as floats only with a dot in
+    the mantissa (``1.0e-05``, not ``1e-05``) and spells ``.inf``/``.nan``."""
+    if isinstance(v, dict):
+        return "{" + ", ".join(f"{json.dumps(str(k))}: {_flow_yaml(x)}" for k, x in v.items()) + "}"
+    if isinstance(v, (list, tuple)):
+        return "[" + ", ".join(_flow_yaml(x) for x in v) + "]"
+    if isinstance(v, float) and not isinstance(v, bool):
+        if math.isnan(v):
+            return ".nan"
+        if math.isinf(v):
+            return ".inf" if v > 0 else "-.inf"
+        mant, _, exp = repr(v).partition("e")
+        if "." not in mant:
+            mant += ".0"
+        return mant + ("e" + exp if exp else "")
+    return json.dumps(v)
 
 
 class CN:
@@ -147,18 +169,12 @@ class CN:
         return out
 
     def dump(self) -> str:
-        """YAML dump (tuples rendered as lists, like YACS output)."""
-
-        def detuple(x):
-            if isinstance(x, dict):
-                return {k: detuple(v) for k, v in x.items()}
-            if isinstance(x, (tuple, list)):
-                return [detuple(v) for v in x]
-            return x
-
-        import yaml
-
-        return yaml.safe_dump(detuple(self.to_dict()), default_flow_style=False, sort_keys=False)
+        """The config as YAML text, without PyYAML: flow style (JSON with
+        YAML 1.1 floats), one top-level section per line; tuples are
+        rendered as lists, like YACS output. ``yaml.safe_load`` gives back
+        ``to_dict()``."""
+        items = [f"{json.dumps(k)}: {_flow_yaml(v)}" for k, v in self.to_dict().items()]
+        return "{" + ",\n ".join(items) + "}\n"
 
     # -- merging -------------------------------------------------------------
     def merge_from_dict(self, other: Dict[str, Any], _path: str = "", allow_new: bool = False) -> None:

@@ -1,0 +1,256 @@
+"""Training/eval data generators: the host-side input pipeline, copied from
+the JAX package's ``data/generators.py`` (``PairDataset``, ``BatchLoader``).
+
+A deterministic sample pipeline (seeded per (seed, epoch, position)) feeds a
+background prefetch thread; batches are channels-last numpy arrays, padded
+to the batch size; the workflow moves them to its device. The shuffle is
+the JAX package's, numpy for numpy, so both packages see the same batches
+in the same order.
+
+Augmentation (``AUGMENTOR.ENABLE``, CutMix) is not ported yet: the JAX
+package's augmentors need OpenCV, which the port does not depend on;
+the workflow raises ``NotImplementedError`` for it before it builds the
+datasets (ROADMAP queue 1 item 5). Multi-process sharding comes with the
+runtime (item 8).
+"""
+
+from __future__ import annotations
+
+import os
+import queue
+import threading
+from typing import Dict, Iterator, List, Optional, Tuple
+
+import numpy as np
+
+from biapy_tpu_torch.data.dataset import BiaPyDataset
+from biapy_tpu_torch.data.io import read_img_as_ndarray
+from biapy_tpu_torch.data.norm import normalize_image, normalize_mask
+from biapy_tpu_torch.data.patching import extract_patch
+
+PREFETCH = 2  # batches the loader's thread prepares ahead
+
+
+class PairDataset:
+    """Image+mask sample source with normalization. ``augment`` marks the
+    training set, whose random crops follow ``DATA.TRAIN.PROBABILITY_MAP``
+    (the augmentations themselves are not ported)."""
+
+    def __init__(
+        self,
+        ds: BiaPyDataset,
+        cfg,
+        norm_spec: Dict,
+        augment: bool = True,
+        random_crop: bool = False,
+        n_classes: int = 2,
+    ):
+        self.ds = ds
+        self.cfg = cfg
+        self.is_3d = cfg.PROBLEM.NDIM == "3D"
+        self.nd = 3 if self.is_3d else 2
+        self.crop_shape = tuple(cfg.DATA.PATCH_SIZE)
+        self.norm_spec = norm_spec
+        self.augment = augment
+        self.random_crop = random_crop
+        self.n_classes = n_classes
+
+    def __len__(self) -> int:
+        return len(self.ds.sample_list)
+
+    def _load(self, idx: int) -> Tuple[np.ndarray, Optional[np.ndarray]]:
+        s = self.ds.sample_list[idx]
+        f = self.ds.dataset_info[s.fid]
+        img, gt = s.img, s.gt
+        if img is None:
+            # disk-backed sample: mirror EXACTLY the geometry the dataset
+            # build computed its patch grid on (FORCE_RGB, reflect pad) —
+            # coords live in that processed space
+            img = read_img_as_ndarray(f.path, is_3d=self.is_3d)
+            if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
+                img = np.repeat(img, 3, axis=-1)
+            gt_full = None
+            if f.gt_path:
+                gt_full = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d)
+            if bool(self.cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or self.random_crop:
+                from biapy_tpu_torch.data.patching import pad_to_min_shape
+
+                img, _ = pad_to_min_shape(img, self.crop_shape[: self.nd])
+                if gt_full is not None:
+                    gt_full, _ = pad_to_min_shape(gt_full, self.crop_shape[: self.nd])
+            if s.coords is not None:
+                img = extract_patch(img, s.coords)
+            if gt_full is not None:
+                gt = extract_patch(gt_full, s.coords) if s.coords is not None else gt_full
+        return img, gt
+
+    def _prob_map_cdf(self, idx: int, gt: np.ndarray):
+        """Foreground-weighted sampling distribution for random crops
+        (reference: calculate_volume_prob_map, pre_processing.py:3524 —
+        DATA.TRAIN.PROBABILITY_MAP with W_FOREGROUND/W_BACKGROUND)."""
+        cache = getattr(self, "_pm_cache", None)
+        if cache is None:
+            cache = self._pm_cache = {}
+        ent = cache.get(idx)
+        if ent is None:
+            from scipy import ndimage
+
+            tr = self.cfg.DATA.TRAIN
+            fg = (gt > 0).any(axis=-1)
+
+            # drop border-touching objects (reference uses clear_border):
+            # per-slice in 3D, matching the reference's loop over z
+            def _clear(m2):
+                lab, n = ndimage.label(m2)
+                if n:
+                    edge = np.unique(np.concatenate([
+                        lab[0], lab[-1], lab[:, 0], lab[:, -1]]))
+                    m2 = m2 & ~np.isin(lab, edge[edge > 0])
+                return m2
+            if fg.ndim == 3:
+                fg = np.stack([_clear(fg[z]) for z in range(fg.shape[0])])
+            else:
+                fg = _clear(fg)
+            n_fg, n_bg = int(fg.sum()), int((~fg).sum())
+            # W_FOREGROUND is the TOTAL mass of the foreground region
+            # (reference divides by the pixel counts, pre_processing.py:3584)
+            w = np.where(fg, float(tr.W_FOREGROUND) / max(n_fg, 1) * (n_fg > 0),
+                         float(tr.W_BACKGROUND) / max(n_bg, 1) * (n_bg > 0))
+            tot = w.sum()
+            if tot <= 0:
+                w = np.full(fg.shape, 1.0 / fg.size)
+                tot = 1.0
+            cdf = np.cumsum(w.ravel() / tot)
+            ent = cache[idx] = (cdf, fg.shape)
+        return ent
+
+    def _random_crop(self, img, gt, rng, idx=None):
+        ps = self.crop_shape[: self.nd]
+        if self.cfg.DATA.TRAIN.PROBABILITY_MAP and gt is not None and self.augment:
+            # sample the crop center from the foreground-weighted map, then
+            # clamp the window inside the image
+            cdf, shape = self._prob_map_cdf(-1 if idx is None else int(idx), gt)
+            flat = int(np.searchsorted(cdf, float(rng.random())))
+            center = np.unravel_index(min(flat, int(np.prod(shape)) - 1), shape)
+            starts = [int(np.clip(center[d] - ps[d] // 2, 0,
+                                  max(0, img.shape[d] - ps[d])))
+                      for d in range(self.nd)]
+        else:
+            starts = [int(rng.integers(0, max(1, img.shape[d] - ps[d] + 1)))
+                      for d in range(self.nd)]
+        sl = tuple(slice(st, st + ps[d]) for d, st in enumerate(starts))
+        return img[sl], (gt[sl] if gt is not None else None)
+
+    def get(self, idx: int, rng: np.random.Generator) -> Dict[str, np.ndarray]:
+        img, gt = self._load(idx)
+        if self.random_crop:
+            img, gt = self._random_crop(img, gt, rng, idx)
+        f = self.ds.dataset_info[self.ds.sample_list[idx].fid]
+        img, _ = normalize_image(img, self.norm_spec, stats=f.norm_stats)
+        if gt is not None and gt.dtype.kind != "f":
+            gt = normalize_mask(gt, self.n_classes)
+        out = {"x": np.ascontiguousarray(img, dtype=np.float32)}
+        if gt is not None:
+            out["y"] = np.ascontiguousarray(gt, dtype=np.float32)
+        return out
+
+
+class BatchLoader:
+    """Epoch iterator: shuffles, batches (the last batch padded with copies
+    of its last sample), and prefetches on a background thread (the
+    host-pipeline parallelism that torch DataLoader workers provide in the
+    reference, misc.py:1148)."""
+
+    def __init__(
+        self,
+        dataset: PairDataset,
+        batch_size: int,
+        shuffle: bool = True,
+        seed: int = 0,
+        num_workers: int = -1,
+        replicate: int = 1,
+    ):
+        self.dataset = dataset
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.seed = seed
+        # sample-loading thread pool (the reference's DataLoader worker
+        # budget, misc.py:1148 — capped at 8 there too)
+        if num_workers < 0:
+            num_workers = min(8, max(1, (os.cpu_count() or 2) // 2))
+        self.num_workers = num_workers
+        self.replicate = max(1, int(replicate))
+        self._pool = None
+        self.epoch = 0
+
+    def set_epoch(self, epoch: int):
+        self.epoch = epoch
+
+    def __len__(self) -> int:
+        n = len(self.dataset) * self.replicate
+        return (n + self.batch_size - 1) // self.batch_size
+
+    def _index_order(self) -> np.ndarray:
+        n = len(self.dataset)
+        idx = np.arange(n)
+        if self.replicate > 1:
+            # DATA.TRAIN.REPLICATE / extra_data_factor: each epoch walks the
+            # dataset N times (useful for tiny datasets with heavy
+            # augmentation; reference generators/__init__.py:301)
+            idx = np.tile(idx, self.replicate)
+        if self.shuffle:
+            rng = np.random.default_rng(self.seed + self.epoch)
+            rng.shuffle(idx)
+        return idx
+
+    def _get_one(self, pos_and_idx):
+        pos, i = pos_and_idx
+        # rng keyed on the EPOCH POSITION, not the dataset index, so
+        # REPLICATE'd walks of the same sample draw different crops
+        rng = np.random.default_rng((self.seed, self.epoch, int(pos)))
+        return self.dataset.get(int(i), rng)
+
+    def _make_batch(self, indices: List) -> Dict[str, np.ndarray]:
+        if self.num_workers > 1 and len(indices) > 1:
+            if self._pool is None:
+                from concurrent.futures import ThreadPoolExecutor
+
+                self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
+                                                thread_name_prefix="loader")
+            samples = list(self._pool.map(self._get_one, indices))
+        else:
+            samples = [self._get_one(i) for i in indices]
+        batch = {k: np.stack([s[k] for s in samples]) for k in samples[0]}
+        if len(indices) < self.batch_size:
+            pad = self.batch_size - len(indices)
+            batch = {k: np.concatenate([v, np.repeat(v[-1:], pad, axis=0)]) for k, v in batch.items()}
+        return batch
+
+    def __iter__(self) -> Iterator[Dict[str, np.ndarray]]:
+        order = list(enumerate(self._index_order()))  # (epoch position, idx)
+        chunks = [order[i : i + self.batch_size] for i in range(0, len(order), self.batch_size)]
+        q: "queue.Queue" = queue.Queue(maxsize=PREFETCH)
+        stop = object()
+
+        err: List[BaseException] = []
+
+        def producer():
+            try:
+                for c in chunks:
+                    q.put(self._make_batch(list(c)))
+            except BaseException as e:  # re-raised on the consumer side —
+                # a swallowed error would silently truncate the epoch
+                err.append(e)
+            finally:
+                q.put(stop)
+
+        t = threading.Thread(target=producer, daemon=True)
+        t.start()
+        while True:
+            item = q.get()
+            if item is stop:
+                break
+            yield item
+        t.join()
+        if err:
+            raise err[0]

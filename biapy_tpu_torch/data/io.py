@@ -1,6 +1,9 @@
-"""Image layout helpers, copied from the JAX package's ``data/io.py``
-(``ensure_channels_last`` and its ``_fit_axes_order``). The file readers and
-writers of that module are not part of the serving slice yet.
+"""Image IO, copied from the JAX package's ``data/io.py``: TIFF and ``.npy``
+files (``imread``, ``imwrite``, ``read_img_as_ndarray``, ``list_image_files``,
+``save_tif``) and the layout helpers (``ensure_channels_last`` and its
+``_fit_axes_order``). HDF5, Zarr, NIfTI and PNG/JPG raise
+``NotImplementedError``: their readers come with the by-chunks engine
+(ROADMAP queue 1 item 6).
 
 Convention preserved from the reference: images are channels-last ndarrays —
 ``(y, x, c)`` in 2D, ``(z, y, x, c)`` in 3D.
@@ -8,9 +11,56 @@ Convention preserved from the reference: images are channels-last ndarrays —
 
 from __future__ import annotations
 
-from typing import Optional
+import os
+from typing import List, Optional
 
 import numpy as np
+
+from biapy_tpu_torch.data.tiff import read_tiff, write_tiff
+
+TIFF_EXTS = (".tif", ".tiff")
+H5_EXTS = (".h5", ".hdf5", ".hdf")
+ZARR_EXTS = (".zarr", ".n5")
+PNG_EXTS = (".png", ".jpg", ".jpeg", ".bmp")
+NPY_EXTS = (".npy",)
+NIFTI_EXTS = (".nii", ".nii.gz")
+
+SUPPORTED_EXTS = TIFF_EXTS + H5_EXTS + ZARR_EXTS + PNG_EXTS + NPY_EXTS + NIFTI_EXTS
+
+
+def _is_nifti(path: str) -> bool:
+    p = path.lower()  # the file lister matches case-insensitively too
+    return p.endswith(".nii") or p.endswith(".nii.gz")
+
+
+def _format_not_ported(path: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"reading or writing {path!r}: only TIFF and .npy files are ported to biapy_tpu_torch "
+        "yet; HDF5, Zarr, NIfTI and PNG/JPG come with the data readers (ROADMAP queue 1 item 6, "
+        "5, by-chunks engine)")
+
+
+def imread(path: str, data_path: Optional[str] = None) -> np.ndarray:
+    """Read an image file into an ndarray (no axis normalization applied)."""
+    ext = os.path.splitext(path)[1].lower()
+    if ext in TIFF_EXTS:
+        return read_tiff(path)
+    if ext in NPY_EXTS:
+        return np.load(path)
+    raise _format_not_ported(path)
+
+
+def imwrite(path: str, data: np.ndarray, data_path: Optional[str] = None) -> None:
+    """Write an ndarray to ``path``, dispatching on extension."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in TIFF_EXTS:
+        write_tiff(path, data)
+        return
+    if ext in NPY_EXTS:
+        np.save(path, data)
+        return
+    raise _format_not_ported(path)
 
 
 def _fit_axes_order(order: str, disk_ndim: int) -> str:
@@ -71,3 +121,48 @@ def ensure_channels_last(img: np.ndarray, ndim: int, axes_order: Optional[str] =
                 return np.moveaxis(img, 0, -1)
             return img
         raise ValueError(f"Cannot interpret shape {img.shape} as a 3D volume")
+
+
+def read_img_as_ndarray(path: str, is_3d: bool = False, data_path: Optional[str] = None,
+                        axes_order: Optional[str] = None) -> np.ndarray:
+    """Read an image and normalize to channels-last (reference:
+    data_manipulation.py:3417)."""
+    return ensure_channels_last(imread(path, data_path), 3 if is_3d else 2, axes_order=axes_order)
+
+
+def list_image_files(directory: str) -> List[str]:
+    """Sorted list of image files (or zarr dirs) in a directory: the same
+    list as the JAX package's, so that images pair with their masks the
+    same way; the formats not ported yet raise when read."""
+    out = []
+    for name in sorted(os.listdir(directory)):
+        p = os.path.join(directory, name)
+        ext = os.path.splitext(name)[1].lower()
+        if ext in SUPPORTED_EXTS or _is_nifti(name.lower()):
+            out.append(p)
+        elif os.path.isdir(p) and (
+            os.path.exists(os.path.join(p, ".zarray")) or os.path.exists(os.path.join(p, ".zgroup"))
+        ):
+            out.append(p)
+    return out
+
+
+def save_tif(
+    data: np.ndarray,
+    out_dir: str,
+    filenames: Optional[List[str]] = None,
+    verbose: bool = True,
+) -> None:
+    """Save a batch of images as TIFFs (reference: data_manipulation.py:3821).
+
+    ``data`` is (n, y, x, c) or (n, z, y, x, c).
+    """
+    os.makedirs(out_dir, exist_ok=True)
+    if verbose:
+        print(f"Saving {len(data)} images in {out_dir} . . .")
+    for i in range(len(data)):
+        if filenames is not None:
+            base = os.path.splitext(os.path.basename(filenames[i]))[0] + ".tif"
+        else:
+            base = f"{i:03d}.tif"
+        write_tiff(os.path.join(out_dir, base), data[i])

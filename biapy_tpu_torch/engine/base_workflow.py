@@ -1,34 +1,51 @@
-"""Base workflow: the model and train-state build, and inference.
+"""Base workflow: the model and train state, the epoch loop, checkpoints and
+inference.
 
 Counterpart of ``biapy_tpu/engine/base_workflow.py``: ``apply_activations``,
 ``prepare_model`` (model, optimizer and ``TrainState``, which
-``engine/train_engine.py::make_train_step`` advances),
-``predict_block_on_device`` (whole-volume sliding-window inference on the
-card, normalisation of the raw volume included), ``process_test_sample`` on
-the device path and ``test`` on the in-memory branch. The epoch loop of
-``train()``, checkpoints, test-time augmentation, the host crop/merge path,
-ROI masks and reading test data from disk are not ported yet (ROADMAP
-queue 1) and raise ``NotImplementedError``.
+``engine/train_engine.py::make_train_step`` advances; checkpoint loading and
+resume), ``train`` (data from disk, the epoch loop with validation, the
+plateau controller, early stopping, ``TRAIN.CHECKPOINT_MONITOR``, the JAX
+package's ``.ckpt`` checkpoints, the loggers, the best checkpoint reloaded
+at the end), ``predict_block_on_device`` (whole-volume sliding-window
+inference on the card, normalisation of the raw volume included),
+``process_test_sample`` on the device path and ``test`` from disk or from an
+in-memory image. Test-time augmentation, the host crop/merge path, ROI
+masks, the by-chunks engine, the profiler hook and the contrastive and
+multi-head training branches are not ported yet (ROADMAP queue 1) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
 
 import copy
-import glob
 import os
+import time
 from abc import ABCMeta, abstractmethod
-from typing import Any, Dict, List, Optional, Sequence
+from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
 
-from biapy_tpu_torch.data.data_manipulation import prepare_in_memory_test_data
+from biapy_tpu_torch.data.data_manipulation import (load_and_prepare_test_data,
+                                                     load_and_prepare_train_data,
+                                                     prepare_in_memory_test_data)
+from biapy_tpu_torch.data.generators import BatchLoader, PairDataset
+from biapy_tpu_torch.data.io import read_img_as_ndarray, save_tif
 from biapy_tpu_torch.data.norm import build_norm_dict, compute_norm_stats, stats_to_affine
+from biapy_tpu_torch.data.patching import extract_patch
 from biapy_tpu_torch.engine.schedulers import (PlateauController, build_multihead_optimizer,
-                                                build_optimizer)
-from biapy_tpu_torch.engine.train_engine import TrainState
+                                                build_optimizer, load_optax_state_dict,
+                                                optax_state_dict, set_learning_rate)
+from biapy_tpu_torch.engine.train_engine import (TrainState, make_eval_step, make_train_step,
+                                                  resolve_mixed_precision)
 from biapy_tpu_torch.models import build_model
+from biapy_tpu_torch.models.flax_import import apply_checkpoint_params, export_flax_variables
 from biapy_tpu_torch.ops.stitch import sliding_window_inference
+from biapy_tpu_torch.utils.callbacks import EarlyStopping
+from biapy_tpu_torch.utils.misc import (JsonLogger, MetricLogger, TensorboardLogger,
+                                        get_checkpoint_path, load_checkpoint, save_model,
+                                        set_seed)
 
 
 def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
@@ -58,6 +75,7 @@ def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
 
 
 LEFT_OUT = "queue 1 item 1, left out of the serving slice"
+AUGMENT = "queue 1 item 5, augmentors, pre-processing and generator checks"
 
 
 def _not_ported(what: str, item: str = LEFT_OUT) -> NotImplementedError:
@@ -74,6 +92,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self.job_identifier = job_identifier
         self.verbose = verbose
         self.device = torch.device(device) if device is not None else torch.device("cuda:0")
+        set_seed(int(cfg.SYSTEM.SEED))
         self.is_3d = cfg.PROBLEM.NDIM == "3D"
         self.nd = 3 if self.is_3d else 2
         self.norm_spec = build_norm_dict(cfg)
@@ -93,6 +112,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self.state: Optional[TrainState] = None
         self.plateau: Optional[PlateauController] = None
         self.model_build_kwargs: Dict = {}
+        self.start_epoch = 0
         self._predictions: List[Dict[str, Any]] = []
         self.save_to_disk = True
         self.metrics_per_test_file: List[Dict[str, float]] = []
@@ -120,42 +140,262 @@ class Base_Workflow(metaclass=ABCMeta):
         """Build the model on the workflow's device, initialised from a
         ``torch.Generator`` seeded with SYSTEM.SEED, and the train state
         (step 0, the optimizer over the model's parameters, the plateau
-        controller if the schedule has one)."""
+        controller if the schedule has one); then, with MODEL.LOAD_CHECKPOINT,
+        load the checkpoint's MODEL.ITEMS_TO_LOAD_FROM_CHECKPOINT (finetune or
+        resume, reference: load_model_checkpoint, misc.py:516-660)."""
         if self.model is not None:
             return
-        if self.cfg.MODEL.LOAD_CHECKPOINT:
-            raise _not_ported("MODEL.LOAD_CHECKPOINT (the checkpoint reader)",
-                              "queue 1 item 4, checkpoint reader")
-        gen = torch.Generator().manual_seed(int(self.cfg.SYSTEM.SEED))
+        cfg = self.cfg
+        gen = torch.Generator().manual_seed(int(cfg.SYSTEM.SEED))
         model, self.model_build_kwargs = build_model(
-            self.cfg, self.output_channels, self.output_channel_info, self.activations, gen=gen)
+            cfg, self.output_channels, self.output_channel_info, self.activations, gen=gen)
         self.model = model.to(self.device).eval()
         if self.verbose:
             n = sum(p.numel() for p in self.model.parameters())
-            print(f"Model: {self.cfg.MODEL.ARCHITECTURE} — {n:,} parameters")
+            print(f"Model: {cfg.MODEL.ARCHITECTURE} — {n:,} parameters")
         steps_per_epoch = max(1, getattr(self, "_steps_per_epoch", 100))
-        n_declared = max(len(self.cfg.TRAIN.OPTIMIZER), len(self.cfg.TRAIN.LR))
+        n_declared = max(len(cfg.TRAIN.OPTIMIZER), len(cfg.TRAIN.LR))
         if n_declared > 1 and len(self.output_channels) > 1:
             build_multihead_optimizer()
-        optimizer, self.plateau = build_optimizer(self.cfg, steps_per_epoch,
+        optimizer, self.plateau = build_optimizer(cfg, steps_per_epoch,
                                                   self.model.named_parameters())
         self.state = TrainState(step=0, model=self.model, optimizer=optimizer,
                                 plateau=self.plateau)
+        if not cfg.MODEL.LOAD_CHECKPOINT:
+            return
+        path = get_checkpoint_path(cfg, self.job_identifier)
+        if not (path and os.path.exists(path)):
+            if self.verbose:
+                print("No checkpoint found to load")
+            return
+        ck = load_checkpoint(path)
+        items = list(cfg.MODEL.ITEMS_TO_LOAD_FROM_CHECKPOINT or ["weights"])
+        if "weights" in items:
+            apply_checkpoint_params(self.model, ck["params"], ck.get("batch_stats"),
+                                    skip_unmatched=bool(cfg.MODEL.SKIP_UNMATCHED_LAYERS))
+        if ("optimizer" in items or "opts" in items) and ck.get("opt_state"):
+            try:
+                load_optax_state_dict(optimizer, ck["opt_state"])
+                if self.verbose:
+                    print("Optimizer state loaded from checkpoint")
+            except (KeyError, ValueError, TypeError) as e:
+                if self.verbose:
+                    print(f"Optimizer state in checkpoint incompatible, reinitialized ({e!r})")
+        if "epoch" in items or cfg.MODEL.LOAD_CHECKPOINT_EPOCH == "last_on_train":
+            # checkpoints record the COMPLETED epoch index, so resume starts
+            # at the next one: a finished run resumes as a no-op
+            self.start_epoch = int(ck.get("epoch", -1)) + 1
+        if self.verbose:
+            print(f"Loaded checkpoint {path} (epoch {self.start_epoch})")
+
+    def save_checkpoint(self, epoch: int, metric: str = "", with_optimizer: bool = False) -> str:
+        """Write the model (and the optimizer state) as a ``.ckpt`` of the JAX
+        package's format under PATHS.CHECKPOINT."""
+        params, batch_stats = export_flax_variables(self.model)
+        return save_model(self.cfg, self.cfg.PATHS.CHECKPOINT, self.job_identifier, params,
+                          epoch, batch_stats,
+                          opt_state=optax_state_dict(self.state.optimizer) if with_optimizer
+                          else None,
+                          model_build_kwargs=self.model_build_kwargs, metric=metric)
+
+    # ------------------------------------------------------------- training
+    def _to_device(self, batch: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
+        """A loader batch on the workflow's device: through pinned memory
+        and without waiting for the copy on a CUDA device."""
+        out = {}
+        for k, v in batch.items():
+            t = torch.from_numpy(v)
+            if self.device.type == "cuda":
+                t = t.pin_memory().to(self.device, non_blocking=True)
+            out[k] = t
+        return out
+
+    def prepare_train_generators(self):
+        """The train and validation loaders from DATA.TRAIN / DATA.VAL
+        (reference: prepare_train_generators); sets ``train_loader``,
+        ``val_loader`` and the steps per epoch the schedules read."""
+        cfg = self.cfg
+        if cfg.AUGMENTOR.ENABLE or cfg.AUGMENTOR.CUTMIX:
+            raise _not_ported("AUGMENTOR.ENABLE / AUGMENTOR.CUTMIX (data augmentation)", AUGMENT)
+        if cfg.DATA.CHECK_GENERATORS:
+            raise _not_ported("DATA.CHECK_GENERATORS (generator checks)", AUGMENT)
+        train_ds, val_ds = load_and_prepare_train_data(cfg, self.norm_spec)
+        n_classes = int(cfg.DATA.N_CLASSES)
+        random_crop = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
+        seed = int(cfg.SYSTEM.SEED)
+        self.train_data = PairDataset(train_ds, cfg, self.norm_spec, augment=True,
+                                      random_crop=random_crop, n_classes=n_classes)
+        self.val_data = PairDataset(val_ds, cfg, self.norm_spec, augment=False,
+                                    random_crop=random_crop, n_classes=n_classes)
+        bs = int(cfg.TRAIN.BATCH_SIZE)
+        self.train_loader = BatchLoader(self.train_data, bs,
+                                        num_workers=int(cfg.SYSTEM.NUM_WORKERS),
+                                        shuffle=cfg.AUGMENTOR.SHUFFLE_TRAIN_DATA_EACH_EPOCH,
+                                        seed=seed,
+                                        replicate=max(1, int(cfg.DATA.TRAIN.REPLICATE or 0)))
+        self.val_loader = BatchLoader(self.val_data, bs,
+                                      shuffle=bool(cfg.AUGMENTOR.SHUFFLE_VAL_DATA_EACH_EPOCH),
+                                      seed=seed)
+        self._steps_per_epoch = len(self.train_loader)
+        if self.verbose:
+            print(f"Train samples: {len(self.train_data)}, val samples: {len(self.val_data)}, "
+                  f"batch: {bs} on {self.device}")
+
+    def train_one_epoch(self, train_step: Callable, epoch: int,
+                        generator: Optional[torch.Generator] = None) -> MetricLogger:
+        """One pass over ``train_loader`` (reference: train_one_epoch,
+        train_engine.py:25). The metrics of a step are read on the host after
+        the next step is queued, so the card does not wait for the host
+        between steps."""
+        self.train_loader.set_epoch(epoch)
+        logger = MetricLogger(verbose=self.verbose)
+        opt = self.state.optimizer
+        pending = None
+        for batch in logger.log_every(self.train_loader, 10, header=f"Epoch: [{epoch}]"):
+            self.state, mtr = train_step(self.state, self._to_device(batch), generator)
+            # the rate this update used, captured before the next one changes it
+            mtr["lr"] = opt.state["lr"].clone()
+            if pending is not None:
+                logger.update(**{k: float(v) for k, v in pending.items()})
+            pending = mtr
+        if pending is not None:
+            logger.update(**{k: float(v) for k, v in pending.items()})
+        return logger
+
+    def evaluate(self, eval_step: Callable) -> Dict[str, float]:
+        """Validation metrics over ``val_loader`` in eval mode (running
+        BatchNorm statistics). DATA.VAL.DIST_EVAL (reference:
+        generators/__init__.py:489-503): True pads the ragged last batch with
+        duplicates (the loader does); False evaluates its samples one by one,
+        each repeated over the batch, and weights batches by true count."""
+        bs = self.val_loader.batch_size
+        n_full, n_rem = divmod(len(self.val_data), bs)
+        dist_eval = bool(self.cfg.DATA.VAL.DIST_EVAL)
+        vals: Dict[str, List[float]] = {}
+        weights: List[float] = []
+
+        def eval_one(b, weight):
+            for k, v in eval_step(self.state, self._to_device(b)).items():
+                vals.setdefault(k, []).append(float(v))
+            weights.append(weight)
+
+        for bi, batch in enumerate(self.val_loader):
+            if not dist_eval and n_rem and bi == n_full:
+                for j in range(n_rem):
+                    eval_one({k: np.repeat(v[j:j + 1], bs, axis=0) for k, v in batch.items()},
+                             1.0)
+            else:
+                eval_one(batch, float(bs))
+        return {("val_" + k): float(np.average(v, weights=weights)) for k, v in vals.items()}
 
     def train(self):
-        raise _not_ported("the epoch loop of Base_Workflow.train() (data generators, "
-                          "augmentors, checkpoints, loggers; the train step itself is "
-                          "engine/train_engine.py::make_train_step)",
-                          "queue 1 item 3, training loop")
+        """The epoch loop (reference: base_workflow.py:1007; the JAX package's
+        base_workflow.py:451-717)."""
+        cfg = self.cfg
+        if int(getattr(cfg.LOG, "PROFILE_STEPS", 0) or 0) > 0:
+            raise _not_ported("LOG.PROFILE_STEPS (the profiler hook)",
+                              "queue 1 item 7, port bench and its profiler")
+        if self.verbose:
+            print("###########################\n#  PREPARE TRAINING DATA  #\n"
+                  "###########################")
+        self.prepare_train_generators()
+        if self.verbose and bool(cfg.DATA.VAL.DIST_EVAL) and len(self.val_data) % int(
+                cfg.TRAIN.BATCH_SIZE):
+            print("Warning: Enabling distributed evaluation with an eval dataset not divisible "
+                  "by the batch size. This will slightly alter validation results as extra "
+                  "duplicate entries are added to fill the last batch. Set "
+                  "DATA.VAL.DIST_EVAL=False for exact metrics.")
+        self.prepare_model()
+        train_step = make_train_step(
+            self.loss, self.train_metrics,
+            mixed_precision=resolve_mixed_precision(cfg.TRAIN.MIXED_PRECISION, self.device))
+        eval_step = make_eval_step(self.loss, self.train_metrics)
+        early = EarlyStopping(patience=int(cfg.TRAIN.PATIENCE)) if cfg.TRAIN.PATIENCE >= 0 else None
+        jsonlog = JsonLogger(os.path.join(cfg.LOG.LOG_DIR, f"{self.job_identifier}_train.jsonl"))
+        tb = TensorboardLogger(cfg.LOG.TENSORBOARD_LOG_DIR)
+        gen = torch.Generator(device=self.device).manual_seed(int(cfg.SYSTEM.SEED))
+        best_val = float("inf")
+        self.history: List[Dict[str, float]] = []
+
+        if self.verbose:
+            print("#####################\n#  TRAIN THE MODEL  #\n#####################")
+        for epoch in range(self.start_epoch, int(cfg.TRAIN.EPOCHS)):
+            t0 = time.time()
+            logger = self.train_one_epoch(train_step, epoch, gen)
+            if not np.isfinite(logger.meters["loss"].global_avg):
+                raise RuntimeError("Loss is NaN — stopping training "
+                                   "(reference: train_engine.py:160)")
+            record = {"epoch": epoch, **{k: m.global_avg for k, m in logger.meters.items()}}
+
+            if len(self.val_data) > 0:
+                val_metrics = self.evaluate(eval_step)
+                record.update(val_metrics)
+                val_loss = val_metrics["val_loss"]
+                if self.plateau is not None:
+                    set_learning_rate(self.state.optimizer, self.plateau.step(val_loss))
+                # TRAIN.CHECKPOINT_MONITOR picks the best-checkpoint metric
+                # (reference: config.py:1787); '*loss' minimizes, else maximizes
+                monitor = str(cfg.TRAIN.CHECKPOINT_MONITOR or "val_loss")
+                if not monitor.startswith("val_"):
+                    monitor = "val_" + monitor
+                if monitor in val_metrics:
+                    mon_val = val_metrics[monitor]
+                    score = mon_val if "loss" in monitor else -mon_val
+                else:
+                    # an absent metric falls back to the loss and must also
+                    # MINIMIZE
+                    if epoch == self.start_epoch and self.verbose:
+                        print(f"WARNING: TRAIN.CHECKPOINT_MONITOR '{monitor}' is not among the "
+                              f"validation metrics {sorted(val_metrics)}; monitoring val_loss")
+                    score = val_loss
+                if score < best_val:
+                    best_val = score
+                    self.save_checkpoint(epoch, metric="best")
+                if early is not None and early(val_loss):
+                    if self.verbose:
+                        print(f"Early stopping at epoch {epoch}")
+                    break
+            freq = int(cfg.MODEL.SAVE_CKPT_FREQ)  # -1 => only best + final
+            if (freq > 0 and (epoch + 1) % freq == 0) or epoch == cfg.TRAIN.EPOCHS - 1:
+                self.save_checkpoint(epoch, with_optimizer=True)  # resume restores it
+            record["time"] = time.time() - t0
+            jsonlog.write(record)
+            tb.update(step=epoch,
+                      **{k: v for k, v in record.items() if isinstance(v, (int, float))})
+            self.history.append(record)
+            freq = int(cfg.LOG.CHART_CREATION_FREQ)
+            if freq > 0 and ((epoch + 1) % freq == 0 or epoch == cfg.TRAIN.EPOCHS - 1):
+                from biapy_tpu_torch.utils.util import create_plots
+
+                create_plots(self.history, cfg.PATHS.CHARTS, self.job_identifier)
+            if self.verbose:
+                print(f"Epoch {epoch} done in {record['time']:.1f}s: "
+                      + " ".join(f"{k}={v:.4f}" for k, v in record.items() if isinstance(v, float)))
+        tb.close()
+
+        # reload the best checkpoint for testing (reference: :1244)
+        best_path = os.path.join(cfg.PATHS.CHECKPOINT,
+                                 f"{self.job_identifier}-checkpoint-best.ckpt")
+        if os.path.exists(best_path):
+            ck = load_checkpoint(best_path)
+            apply_checkpoint_params(self.model, ck["params"], ck.get("batch_stats"))
+            if self.verbose:
+                print("Reloaded best checkpoint for testing")
 
     def _ensure_model_for_test(self):
-        if self.model is None:
-            self.prepare_model()
-            ck = self.cfg.PATHS.CHECKPOINT_FILE or glob.glob(os.path.join(
-                str(self.cfg.PATHS.CHECKPOINT), f"{self.job_identifier}-checkpoint-*.ckpt"))
-            if ck:
-                raise _not_ported(f"loading the job's checkpoint ({ck})",
-                                  "queue 1 item 4, checkpoint reader")
+        """The model for inference: the trained one, or a new one with the
+        job's checkpoint (PATHS.CHECKPOINT_FILE or MODEL.LOAD_CHECKPOINT_EPOCH
+        under PATHS.CHECKPOINT) loaded when there is one."""
+        if self.state is not None:
+            return
+        self.prepare_model()
+        if not self.cfg.MODEL.LOAD_CHECKPOINT:
+            path = get_checkpoint_path(self.cfg, self.job_identifier)
+            if path and os.path.exists(path):
+                ck = load_checkpoint(path)
+                apply_checkpoint_params(self.model, ck["params"], ck.get("batch_stats"))
+                if self.verbose:
+                    print(f"Loaded checkpoint {path} for inference")
 
     # ------------------------------------------------------------- inference
     def predict_block_on_device(self, block_n: np.ndarray,
@@ -237,29 +477,60 @@ class Base_Workflow(metaclass=ABCMeta):
                 print(f"  {fname}: " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
         self.after_merge_patches(merged, sample, fname)
         self._predictions.append({"role": "raw", "pred": merged, "file": fname, "metrics": m})
+        if self.save_to_disk and cfg.TEST.SAVE_MODEL_RAW_OUTPUT:
+            # raw (pre-post-processing) output next to the final artifacts
+            # (reference: TEST.SAVE_MODEL_RAW_OUTPUT, base_workflow.py:2113)
+            save_tif(merged[None], cfg.PATHS.RESULT_DIR.PER_IMAGE, [fname], verbose=False)
         return {"pred": merged}
 
     def test(self, image: Optional[np.ndarray] = None, gt: Optional[np.ndarray] = None):
-        """Inference on an in-memory image (the ``predict()`` surface)."""
+        """Inference on every image of DATA.TEST.PATH (or the validation split
+        with DATA.TEST.USE_VAL_AS_TEST), or on an in-memory image (the
+        ``predict()`` surface); results written unless ``save_to_disk`` is
+        off."""
+        cfg = self.cfg
         self._predictions = []
         self.metrics_per_test_file = []
         self._ensure_model_for_test()
-        if image is None:
-            raise _not_ported("reading test data from disk (TEST with DATA.TEST.PATH)",
-                              "queue 1 items 1 and 5")
-        if self.save_to_disk:
-            raise _not_ported("writing test results to disk")
-        ds = prepare_in_memory_test_data(image, gt, self.is_3d)
+        if image is None and cfg.TEST.BY_CHUNKS.ENABLE and self.is_3d:
+            raise _not_ported("TEST.BY_CHUNKS (the by-chunks engine)",
+                              "queue 1 item 6, by-chunks engine")
+        if image is not None:
+            ds = prepare_in_memory_test_data(image, gt, self.is_3d)
+        elif cfg.DATA.TEST.USE_VAL_AS_TEST:
+            # the held-out validation split (or cross-val fold) is the test
+            # set (reference: DATA.TEST.USE_VAL_AS_TEST, base_workflow.py:1283)
+            _, ds = load_and_prepare_train_data(cfg, self.norm_spec)
+            if self.verbose:
+                print(f"Using the validation split as test set ({len(ds.sample_list)} samples)")
+        else:
+            ds = load_and_prepare_test_data(cfg, self.norm_spec)
         if self.verbose:
             print("###############\n#  INFERENCE  #\n###############")
             print(f"Processing {len(ds.sample_list)} test images")
         for i, s in enumerate(ds.sample_list):
-            self.process_test_sample(s.img, s.gt, f"pred_{i}.tif", s)
+            f = ds.dataset_info[s.fid]
+            img, g = s.img, s.gt
+            if img is None:
+                img = read_img_as_ndarray(f.path, is_3d=self.is_3d)
+                if f.gt_path:
+                    g = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d)
+                if s.coords is not None:  # patch sample (e.g. USE_VAL_AS_TEST)
+                    img = extract_patch(img, s.coords)
+                    if g is not None:
+                        g = extract_patch(g, s.coords)
+            fname = os.path.basename(f.path) if f.path != "<in_memory>" else f"pred_{i}.tif"
+            if s.coords is not None:
+                stem, ext = os.path.splitext(fname)
+                fname = f"{stem}_sample{i}{ext or '.tif'}"
+            self.process_test_sample(img, g, fname, s)
         self.after_all_images()
         self.print_stats()
 
     def print_stats(self):
-        """Aggregate and print the per-image metrics."""
+        """Aggregate and print the per-image metrics; write them as a CSV
+        (reference: print_stats :2307 and the metrics_per_test_file CSV,
+        base_workflow.py:1534)."""
         if not self.metrics_per_test_file:
             return None
         keys = self.metrics_per_test_file[0].keys()
@@ -267,4 +538,17 @@ class Base_Workflow(metaclass=ABCMeta):
         for k, v in agg.items():
             print(f"Test {k} (per image): {v:.6f}")
         self.stats = agg
+        if self.save_to_disk:
+            import csv
+
+            out = os.path.join(str(self.cfg.PATHS.RESULT_DIR.PATH),
+                               f"{self.job_identifier}_per_image_metrics.csv")
+            os.makedirs(os.path.dirname(out), exist_ok=True)
+            with open(out, "w", newline="") as f:
+                w = csv.DictWriter(f, fieldnames=["image"] + list(keys))
+                w.writeheader()
+                files = [p.get("file", f"{i}") for i, p in enumerate(self._predictions)
+                         if p.get("role") in ("raw",)]
+                for i, m in enumerate(self.metrics_per_test_file):
+                    w.writerow({"image": files[i] if i < len(files) else i, **m})
         return agg

@@ -35,7 +35,10 @@ import math
 import re
 from typing import Callable, Dict, Iterable, Optional, Tuple
 
+import numpy as np
 import torch
+
+from biapy_tpu_torch.models.flax_import import flatten, unflatten
 
 Schedule = Callable[[torch.Tensor], torch.Tensor]
 
@@ -161,17 +164,23 @@ class Optimizer:
     the rules). ``state`` maps a name to the tensors the update carries:
     ``count`` (updates made), ``lr`` (the learning rate of the last update,
     or the one the host set), per parameter ``trace`` (SGD) or ``mu`` /
-    ``nu`` (Adam)."""
+    ``nu`` (Adam). ``optax_state_dict`` / ``load_optax_state_dict`` move it
+    to and from the JAX package's checkpoint layout."""
 
     def __init__(self, named_params: Iterable[Tuple[str, torch.Tensor]], name: str, lr: float,
                  schedule: Optional[Schedule] = None, b1: float = 0.9, b2: float = 0.999,
                  weight_decay: float = 0.0, clip_norm: float = 0.0,
                  b1_schedule: Optional[Schedule] = None, ramp: Optional[Schedule] = None,
-                 momentum: float = 0.9, eps: float = 1e-8):
+                 momentum: float = 0.9, eps: float = 1e-8, freeze: bool = False):
         self.name = name.upper()
         if self.name not in ("SGD", "ADAM", "ADAMW"):
             raise ValueError(f"Unknown optimizer: {name} (expected SGD/ADAM/ADAMW)")
-        self.params: Dict[str, torch.Tensor] = {n: p for n, p in named_params if p.requires_grad}
+        named = list(named_params)
+        # every parameter's name, frozen ones included, and whether freezing
+        # patterns were given: the optax state's layout depends on both
+        self.names = [n for n, _ in named]
+        self.freeze = freeze
+        self.params: Dict[str, torch.Tensor] = {n: p for n, p in named if p.requires_grad}
         if not self.params:
             raise ValueError("Optimizer: no trainable parameter")
         self.schedule, self.b1_schedule, self.ramp = schedule, b1_schedule, ramp
@@ -263,14 +272,14 @@ def build_optimizer(cfg, steps_per_epoch: int,
             p.requires_grad_(False)
     opt = Optimizer(named, name, lr, schedule=schedule, b1=float(b1), b2=float(b2),
                     weight_decay=wd, clip_norm=float(cfg.TRAIN.GRADIENT_CLIP_NORM or 0.0),
-                    b1_schedule=b1_schedule, ramp=ramp)
+                    b1_schedule=b1_schedule, ramp=ramp, freeze=bool(regs))
     return opt, plateau
 
 
 def _multihead_not_ported(*args, **kwargs):
     raise NotImplementedError("per-head optimizers (list-valued TRAIN.OPTIMIZER / TRAIN.LR on a "
                               "multi-head model) are not ported to biapy_tpu_torch yet (ROADMAP "
-                              "queue 1 item 8, other workflows: the multi-head ones need them)")
+                              "queue 1 item 9, other workflows: the multi-head ones need them)")
 
 
 head_param_labels = build_multihead_optimizer = _multihead_not_ported
@@ -288,3 +297,85 @@ def get_learning_rate(optimizer: Optimizer) -> Optional[float]:
     """The learning rate of the last update (before the first: the one it
     will use)."""
     return float(optimizer.state["lr"])
+
+
+# --------------------------------------------------------------------------
+# the optimizer state in the JAX package's checkpoint layout
+# --------------------------------------------------------------------------
+def optax_state_dict(opt: Optimizer) -> Dict:
+    """``flax.serialization.to_state_dict`` of the optax state that
+    ``biapy_tpu/engine/schedulers.py::build_optimizer`` builds for the same
+    config, after the same updates: ``inject_hyperparams`` around the SGD /
+    ADAM / ADAMW chain (count, the learning rate and b1 of the last update,
+    the counts of count-driven schedules), inside the warm-up ramp, the clip
+    and the freeze mask where the config has them. A frozen parameter's
+    moments are empty dicts, as optax's masked nodes serialize."""
+    st = opt.state
+    count = np.asarray(int(st["count"]), np.int32)
+
+    def moments(m):
+        return unflatten(opt.names, lambda n: (
+            st[f"{m}/{n}"].detach().float().cpu().numpy() if n in opt.params else {}))
+
+    if opt.name == "SGD":
+        inner = {"0": {}, "1": {"0": {"trace": moments("trace")}, "1": {}}}
+    else:
+        adam = {"count": count, "mu": moments("mu"), "nu": moments("nu")}
+        inner = ({"0": {}, "1": {"0": adam, "1": {}}} if opt.name == "ADAM"
+                 else {"0": adam, "1": {}, "2": {}})
+    hp_states = {}
+    if opt.schedule is not None:
+        hp_states["learning_rate"] = {"count": count}
+    b1 = opt.b1
+    if opt.b1_schedule is not None:
+        hp_states["b1"] = {"count": count}
+        # the hyperparameters of the last update (of the first, before any)
+        b1 = float(opt.b1_schedule(torch.clamp(st["count"] - 1, min=0)))
+    sd = {"count": count,
+          "hyperparams": {"learning_rate": np.asarray(float(st["lr"]), np.float32),
+                          "b1": np.asarray(b1, np.float32)},
+          "hyperparams_states": hp_states, "inner_state": inner}
+    if opt.ramp is not None:
+        sd = {"0": sd, "1": {"count": count}}
+    if opt.clip_norm > 0:
+        sd = {"0": {}, "1": sd}
+    if opt.freeze:
+        sd = {"inner_states": {"train": {"inner_state": sd}, "frozen": {"inner_state": {}}}}
+    return sd
+
+
+def load_optax_state_dict(opt: Optimizer, sd: Dict) -> None:
+    """Restore ``opt``'s state (count, learning rate, momentum or moments)
+    from the layout ``optax_state_dict`` gives, as a checkpoint of either
+    package holds it. Raises ``KeyError`` / ``ValueError`` where the layout
+    or a shape does not match; nothing changes then."""
+    if opt.freeze:
+        sd = sd["inner_states"]["train"]["inner_state"]
+    if opt.clip_norm > 0:
+        sd = sd["1"]
+    if opt.ramp is not None:
+        sd = sd["0"]
+    inner = sd["inner_state"]
+    if opt.name == "SGD":
+        trees = {"trace": inner["1"]["0"]["trace"]}
+    else:
+        adam = inner["1"]["0"] if opt.name == "ADAM" else inner["0"]
+        trees = {"mu": adam["mu"], "nu": adam["nu"]}
+    new = {"count": float(np.asarray(sd["count"])),
+           "lr": float(np.asarray(sd["hyperparams"]["learning_rate"]))}
+    for m, tree in trees.items():
+        flat = flatten(tree)
+        for n, p in opt.params.items():
+            v = flat[n.replace(".", "/")]
+            t = v.float() if isinstance(v, torch.Tensor) else torch.from_numpy(
+                np.array(v, dtype=np.float32))
+            if tuple(t.shape) != tuple(p.shape):
+                raise ValueError(f"optimizer state {m}/{n}: shape {tuple(t.shape)} != "
+                                 f"{tuple(p.shape)}")
+            new[f"{m}/{n}"] = t
+    with torch.no_grad():
+        for k, v in new.items():
+            if isinstance(v, float):
+                opt.state[k].fill_(v)
+            else:
+                opt.state[k].copy_(v)

@@ -2,7 +2,8 @@
 
 Counterpart of ``biapy_tpu/engine/semantic_seg.py``: one head, sigmoid
 (binary) or softmax (multi-class); CE / Dice / CE+Dice losses (LOSS.TYPE)
-and the IoU train metric; foreground IoU per image at test time.
+and the IoU train metric; foreground IoU per image at test time; the
+binarised prediction written per image (two classes).
 """
 
 from __future__ import annotations
@@ -12,6 +13,7 @@ from typing import Dict, Optional
 
 import numpy as np
 
+from biapy_tpu_torch.data.io import save_tif
 from biapy_tpu_torch.engine import metrics as M
 from biapy_tpu_torch.engine.base_workflow import Base_Workflow, _not_ported
 
@@ -52,7 +54,7 @@ class Semantic_Segmentation_Workflow(Base_Workflow):
             raise ValueError(f"Unsupported LOSS.TYPE for semantic seg: {cfg.LOSS.TYPE}")
         if cfg.LOSS.CONTRAST.ENABLE:
             raise _not_ported("LOSS.CONTRAST (pixel-contrastive co-training)",
-                              "queue 1 item 8, other workflows")
+                              "queue 1 item 9, other workflows")
         self.train_metrics = {
             "iou": partial(M.jaccard_index, num_classes=n_classes, ignore_index=ignore),
         }
@@ -73,5 +75,13 @@ class Semantic_Segmentation_Workflow(Base_Workflow):
         return {"iou": float(iou)}
 
     def after_merge_patches(self, pred, sample, fname):
-        if self.cfg.TEST.POST_PROCESSING.MEDIAN_FILTER:
+        cfg = self.cfg
+        if cfg.TEST.POST_PROCESSING.MEDIAN_FILTER:
             raise _not_ported("TEST.POST_PROCESSING.MEDIAN_FILTER")
+        if self.save_to_disk and cfg.DATA.N_CLASSES <= 2:
+            binar = (pred > 0.5).astype(np.uint8)
+            save_tif(binar[None], cfg.PATHS.RESULT_DIR.PER_IMAGE_BIN, [fname], verbose=False)
+
+    # after_all_images: the JAX workflow's is the 2D-stack analysis
+    # (TEST.ANALIZE_2D_IMGS_AS_3D_STACK); the port runs 3D models only, so the
+    # base class's no-op stands

@@ -12,7 +12,7 @@ and backward in bf16 through the modules' own ``kernel.to(x.dtype)`` casts
 float32 before the loss, float32 gradients and update.
 
 A loss with ``needs_rng``, ``extra_batch_rep_keys`` and ``aux_out_fn``
-belong to the contrastive head and come with it (ROADMAP queue 1 item 8).
+belong to the contrastive head and come with it (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations

@@ -24,10 +24,10 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
     if str(cfg.MODEL.SOURCE).lower() != "biapy":
         raise NotImplementedError(
             f"MODEL.SOURCE '{cfg.MODEL.SOURCE}' is not ported yet (ROADMAP queue 1 "
-            "items 9-10, rest of the zoo / BMZ)")
+            "items 10-11, rest of the zoo / BMZ)")
     if arch not in UNET_FAMILY or arch == "resunet++":
         raise NotImplementedError(
-            f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 9, rest of the zoo); "
+            f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 10, rest of the zoo); "
             "the port builds the U-Net family")
     iso = cfg.MODEL.ISOTROPY
     if isinstance(iso, bool):

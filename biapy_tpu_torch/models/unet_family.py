@@ -50,13 +50,13 @@ class UNetFamily(FlaxNamed):
         super().__init__()
         if variant not in PORTED_VARIANTS:
             raise NotImplementedError(
-                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 9: "
+                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 10: "
                 "SqExBlock / AttentionGate); ported: " + ", ".join(PORTED_VARIANTS))
         if ndim != 3:
-            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 9)")
+            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 10)")
         if contrast:
             raise NotImplementedError("the contrastive head is not ported yet "
-                                      "(ROADMAP queue 1 item 8, other workflows)")
+                                      "(ROADMAP queue 1 item 9, other workflows)")
         fm = list(feature_maps)
         depth = len(fm) - 1
         iso = list(isotropy)

@@ -13,10 +13,13 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    and training paths give it (bf16 and f32, plus odd shapes: ragged sizes,
    c = 1, kz = 5, two images, tied pool windows with a NaN; for conv3d also
    odd shapes on the tensor-core route: overhanging bricks, a channel tail,
-   an output-tile loop) against its plain PyTorch version, with kernel,
-   plain and library times (CUDA events, median), the bound and, for
-   conv3d, the route; fails unless a main-path bf16 conv3d row runs above
-   the CUDA cores' 67 TFLOP/s;
+   an output-tile loop) against its plain PyTorch version, with the
+   kernel's, the plain version's and the library call's device-side times
+   (``device_ms``: CUDA events around ten back-to-back calls queued behind a
+   spin kernel, divided by ten), the kernel's and the library call's call
+   times (``time_ms``: events around one call, host work included), the
+   bound and, for conv3d, the route; fails unless a main-path bf16 conv3d
+   row runs above the CUDA cores' 67 TFLOP/s;
 4. serving path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
    32/64/128, BatchNorm, ELU, 128^3 patches, halo 10, bf16, uint8 drain) on
    a seeded 216^3 uint8 volume, three calls, with the launch counters
@@ -36,7 +39,15 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    cat2d path, so zcat (kz = 5) and zcat_bwd are counted too;
 8. gradients on the card vs the plain path: one step at reduced width on
    the card and on the CPU, loss, gradients and updated weights compared;
-9. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+9. the job: ``BiaPy(cfg).run_job()`` on a seeded dataset of uint8 TIFFs it
+   writes under ``chiprun_out/chip_smoke_job/`` (deleted at the end): two
+   epochs at batch 2, checkpoints, the test volume from disk; the launch
+   counters over the job equal phase 6's per step plus phase 4's per
+   forward batch; the checkpoints are read back and a model loaded from the
+   best one predicts the written volume exactly; seconds per epoch, the
+   loop's patches/s, the device's idle share over steady steps, checkpoint
+   bytes and seconds and the test pass's Mvox/s are printed;
+10. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
@@ -112,7 +123,10 @@ def bound(flops, nbytes, dtype_name, card):
 
 
 def time_ms(fn, reps=10, warmup=2):
-    """Median of ``reps`` CUDA-event timings of ``fn()`` after ``warmup``."""
+    """Median of ``reps`` CUDA-event timings of one call of ``fn()`` after
+    ``warmup``: the "call ms". A window around one call also holds the host
+    work of the call (a wrapper's checks, allocation, launch), so for a short
+    kernel it is longer than the kernel."""
     import torch
 
     for _ in range(warmup):
@@ -127,6 +141,52 @@ def time_ms(fn, reps=10, warmup=2):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+_CYCLES_PER_MS = []
+
+
+def _spin(ms):
+    """Queue a kernel that keeps the device busy for about ``ms``."""
+    import torch
+
+    if not _CYCLES_PER_MS:
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        torch.cuda._sleep(20_000_000)
+        b.record()
+        b.synchronize()
+        _CYCLES_PER_MS.append(20_000_000 / a.elapsed_time(b))
+    torch.cuda._sleep(int(ms * _CYCLES_PER_MS[0]))
+
+
+def device_ms(fn, reps=10):
+    """Device-side ms per call of ``fn()``: CUDA events around ``reps``
+    back-to-back calls, divided by ``reps``. The calls are queued behind a
+    spin kernel that outlasts their host work, so the window holds only what
+    the device runs (every kernel of the call: for conv3d the weight pack
+    too). Returns ``(ms, hidden)``; ``hidden`` is false when the host took
+    longer to queue the calls than the spin lasted."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    fn()
+    host_ms = (time.perf_counter() - t0) * 1e3  # the host's part: it does not wait
+    torch.cuda.synchronize()
+    s, a, b = (torch.cuda.Event(enable_timing=True) for _ in range(3))
+    t0 = time.perf_counter()
+    s.record()
+    _spin(2.0 + 2.0 * reps * host_ms)
+    a.record()
+    for _ in range(reps):
+        fn()
+    b.record()
+    queued_ms = (time.perf_counter() - t0) * 1e3
+    b.synchronize()
+    return a.elapsed_time(b) / reps, queued_ms < s.elapsed_time(a)
 
 
 def phase_environment():
@@ -193,7 +253,9 @@ def _dt_name(dt):
 
 class _Rows:
     """Collects one row per (kernel, dtype, shape): the check against the
-    plain version and the four times."""
+    plain version, the device-side times of the kernel, its plain version and
+    the library call (``device_ms``), and the call times of the kernel and
+    the library call (``time_ms``)."""
 
     def __init__(self, card):
         self.card = card
@@ -213,22 +275,31 @@ class _Rows:
             rel = err
         else:
             err, rel, ok = _check(got, ref, tol)
-        ms = time_ms(fn)
-        plain_ms = time_ms(plain_fn)
-        lib_ms = time_ms(lib_fn) if lib_fn is not None else None
+        ms, hidden = device_ms(fn)
+        call_ms = time_ms(fn)
+        plain_ms, plain_hidden = device_ms(plain_fn)
+        lib_ms = lib_call_ms = None
+        lib_hidden = True
+        if lib_fn is not None:
+            lib_ms, lib_hidden = device_ms(lib_fn)
+            lib_call_ms = time_ms(lib_fn)
         b_ms, b_by = bound(flops, nbytes, _dt_name(dt), self.card)
         row = dict(kernel=kernel, dtype=_dt_name(dt), shape=list(shape), max_abs_err=err,
-                   max_rel_err=rel, tol=tol, ok=ok, ms=ms, plain_ms=plain_ms, library_ms=lib_ms,
-                   bound_ms=b_ms, bound_by=b_by, gbps=nbytes / ms / 1e6, **extra)
+                   max_rel_err=rel, tol=tol, ok=ok, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
+                   library_ms=lib_ms, library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by,
+                   gbps=nbytes / ms / 1e6, host_hidden=hidden and plain_hidden and lib_hidden,
+                   **extra)
         if flops:
             row["tflops"] = flops / ms / 1e9
         self.rows.append(row)
         rate = f"{row['tflops']:.1f} TFLOP/s" if flops else f"{row['gbps']:.0f} GB/s"
-        lib = f"{lib_name} {lib_ms:.3f} ms" if lib_ms is not None else "no library call"
+        lib = (f"{lib_name} {lib_ms:.3f} ms (call {lib_call_ms:.3f})" if lib_ms is not None
+               else "no library call")
         tag = " ".join(f"{k}={v}" for k, v in extra.items())
         print(f"[kernels] {kernel} {row['dtype']:8s} {tuple(shape)} {tag}: err {err:.3g} "
-              f"(tol {tol}) {'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms ({rate}), plain "
-              f"{plain_ms:.3f} ms, {lib}, bound {b_ms:.3f} ms ({b_by})")
+              f"(tol {tol}) {'ok' if ok else 'FAIL'} | kernel {ms:.3f} ms ({rate}; call "
+              f"{call_ms:.3f}), plain {plain_ms:.3f} ms, {lib}, bound {b_ms:.3f} ms ({b_by})"
+              + ("" if row["host_hidden"] else " [host not hidden]"))
         if not ok:
             self.failures.append(row)
 
@@ -804,14 +875,224 @@ def phase_whole_vs_plain_bf16():
     return dict(max_abs=worst, mean_abs=mean, conv3d_routes=routes)
 
 
-def summarise(rows, serve, train, larger_io):
+# the job phase: a seeded dataset of uint8 TIFFs (two 256^3 training volumes,
+# eight 128^3 patches each, a quarter of the patches held out for validation;
+# one 216^3 test volume), two epochs at batch 2
+JOB_TRAIN_SHAPE, JOB_TEST_SHAPE, JOB_EPOCHS, JOB_BATCH = (256, 256, 256), (216, 216, 216), 2, 2
+# launches of one forward batch of the serving path (phase 4's per patch at
+# batch 1: the kernels take the whole batch in one launch)
+SERVE_LAUNCHES = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2}
+
+
+def _job_volume(g, shape, dev):
+    """A uint8 volume and its 0/255 mask: the mask is a smoothed random field
+    above a threshold (blobs the model can learn), the image the mask
+    brightened plus noise."""
+    import torch
+    import torch.nn.functional as F
+
+    coarse = [max(2, n // 24) for n in shape]
+    field = F.interpolate(torch.randn([1, 1] + coarse, generator=g, device=dev), size=shape,
+                          mode="trilinear", align_corners=False)[0, 0]
+    mask = field > 0.4
+    img = 0.3 + 0.35 * mask + 0.12 * torch.randn(shape, generator=g, device=dev)
+    return ((img.clamp(0, 1) * 255).round().to(torch.uint8).cpu().numpy(),
+            (mask.to(torch.uint8) * 255).cpu().numpy())
+
+
+def _write_job_data(root):
+    import torch
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    g = torch.Generator(device=DEVICE).manual_seed(0)
+    vols = {}
+    for split, n, shape in (("train", 2, JOB_TRAIN_SHAPE), ("test", 1, JOB_TEST_SHAPE)):
+        for d in ("x", "y"):
+            (root / split / d).mkdir(parents=True)
+        for i in range(n):
+            img, msk = _job_volume(g, shape, DEVICE)
+            write_tiff(str(root / split / "x" / f"{split}_{i:03d}.tif"), img)
+            write_tiff(str(root / split / "y" / f"{split}_{i:03d}.tif"), msk)
+            vols[f"{split}_{i}"] = (img, msk)
+    return vols
+
+
+def _steady_idle_share(events, steps):
+    """Idle share of the device from the first conv3d launch of the second
+    training step to the end of the last event: each step launches conv3d
+    TRAIN_LAUNCHES["conv3d"] times, the first being the stem's forward."""
+    convs = [i for i, (_, name, _) in enumerate(events) if "conv3d_k3_" in name]
+    per = TRAIN_LAUNCHES["conv3d"]
+    if len(convs) != per * steps:
+        raise AssertionError(f"profiled epoch: {len(convs)} conv3d events, want {per * steps}")
+    t0 = events[convs[per]][0]
+    inside = [(st, ms) for st, _, ms in events if st >= t0]
+    t1 = max(st + ms * 1e3 for st, ms in inside)
+    busy = sum(ms for _, ms in inside)
+    window = (t1 - t0) / 1e3
+    return 1.0 - busy / window, window
+
+
+def phase_job(serve, train):
+    """The whole job through ``BiaPy(cfg).run_job()`` at the bench job's full
+    width (resunet 32/64/128, BatchNorm, ELU, 128^3 patches, bf16 mixed
+    precision, REDUCE_MEMORY, uint8 drain), batch 2, two epochs: TIFFs read
+    from disk, SGD with validation, checkpoints in the JAX package's format,
+    the best one reloaded, the test volume predicted and written. Then: the
+    checkpoints read back, a model rebuilt from the best one predicts the
+    written result exactly, launch counts against phases 4 and 6, one more
+    epoch timed and one profiled, a second test pass timed."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.tiff import read_tiff
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+    from biapy_tpu_torch.utils.misc import load_checkpoint
+
+    root = OUT_DIR / "chip_smoke_job"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        t0 = time.perf_counter()
+        vols = _write_job_data(root)
+        data_s = time.perf_counter() - t0
+        cfg = _main_cfg()
+        cfg["DATA"]["TRAIN"] = {"PATH": str(root / "train/x"), "GT_PATH": str(root / "train/y"),
+                                "IN_MEMORY": True}
+        cfg["DATA"]["VAL"] = {"FROM_TRAIN": True, "SPLIT_TRAIN": 0.25}
+        cfg["DATA"]["TEST"].update(PATH=str(root / "test/x"), GT_PATH=str(root / "test/y"),
+                                   LOAD_GT=True, IN_MEMORY=False)
+        # a rate at which twelve SGD updates move the loss
+        cfg["TRAIN"].update(EPOCHS=JOB_EPOCHS, BATCH_SIZE=JOB_BATCH, LR=[0.01])
+        job = BiaPy(cfg, result_dir=str(root / "results"), name="chip_job", silent=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        job.run_job()
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wf = job.workflow
+        hist = wf.history
+        n_steps = len(wf.train_loader) * JOB_EPOCHS
+        n_val = len(wf.val_loader) * JOB_EPOCHS
+        n_test = int(np.prod([n // 108 for n in JOB_TEST_SHAPE])) // JOB_BATCH  # 108: the core
+        per_step = {k: v // (train["by_batch"][1]["steps"] + 2)
+                    for k, v in train["by_batch"][1]["launches"].items()}
+        per_fwd = {k: serve["launches"].get(k, 0) // 24 for k in per_step}  # 3 calls x 8 patches
+        want = {k: per_step[k] * n_steps + per_fwd[k] * (n_val + n_test) for k in per_step}
+        if launches != want:
+            raise AssertionError(f"job: launches {launches}, want {want} ({n_steps} train steps "
+                                 f"x {per_step} + {n_val + n_test} forward batches x {per_fwd})")
+        losses = [h["loss"] for h in hist] + [h["val_loss"] for h in hist]
+        if len(hist) != JOB_EPOCHS or not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"job: epochs {hist}")
+
+        ck_dir = root / "results/chip_job/checkpoints"
+        files = sorted(p.name for p in ck_dir.iterdir())
+        if files != [f"chip_job-checkpoint-{JOB_EPOCHS - 1}.ckpt", "chip_job-checkpoint-best.ckpt"]:
+            raise AssertionError(f"job: checkpoints {files}")
+        ck_bytes = {f: (ck_dir / f).stat().st_size for f in files}
+        t0 = time.perf_counter()
+        cks = {f: load_checkpoint(str(ck_dir / f)) for f in files}
+        read_s = (time.perf_counter() - t0) / len(files)
+        last = cks[files[0]]
+        if last["epoch"] != JOB_EPOCHS - 1 or "opt_state" not in last:
+            raise AssertionError("job: the last checkpoint lacks its epoch or optimizer state")
+        t0 = time.perf_counter()
+        timing = wf.save_checkpoint(JOB_EPOCHS, metric="timing", with_optimizer=True)
+        write_s = time.perf_counter() - t0
+        timing_bytes = Path(timing).stat().st_size
+        Path(timing).unlink()
+
+        res = root / "results/chip_job/results/chip_job"
+        written = read_tiff(str(res / "per_image/test_000.tif"))
+        img, msk = vols["test_0"]
+        # a new job on the same config that loads the best checkpoint (by
+        # MODEL.LOAD_CHECKPOINT: BiaPy("x.ckpt") would need PyYAML to read the
+        # embedded config, an optional dependency of the port)
+        cfg["MODEL"]["LOAD_CHECKPOINT"] = True
+        cfg["PATHS"] = {"CHECKPOINT_FILE": str(ck_dir / "chip_job-checkpoint-best.ckpt")}
+        reload = BiaPy(cfg, result_dir=str(root), name="chip_job_reload", silent=True)
+        again = reload.predict(img)[0]["pred"][..., 0]
+        if written.shape != JOB_TEST_SHAPE or not np.array_equal(again, written):
+            raise AssertionError(f"job: the reloaded model's prediction {again.shape} differs from "
+                                 f"the written one {written.shape}: "
+                                 f"{np.abs(again - written).max() if again.shape == written.shape else ''}")
+        iou = wf.stats["iou"]
+        fg, pred = msk > 127, written > 127.5
+        iou_half = float(np.count_nonzero(fg & pred) / max(1, np.count_nonzero(fg | pred)))
+        del reload
+
+        # the loop alone: one more epoch timed, one profiled
+        step = make_train_step(wf.loss, wf.train_metrics,
+                               mixed_precision=resolve_mixed_precision("auto", wf.device))
+        gen = torch.Generator(device=wf.device).manual_seed(1)
+        steps = len(wf.train_loader)
+        t0 = time.perf_counter()
+        wf.train_one_epoch(step, JOB_EPOCHS, gen)  # ends on a host read of the last loss
+        loop_s = time.perf_counter() - t0
+        loop_pps = steps * JOB_BATCH / loop_s
+        wall, busy, table, events = _profile_device(
+            lambda: wf.train_one_epoch(step, JOB_EPOCHS + 1, gen))
+        idle, window_ms = _steady_idle_share(events, steps)
+
+        # the test phase again, from disk, written again
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        job.test()
+        test_s = time.perf_counter() - t0
+        mvox = int(np.prod(JOB_TEST_SHAPE)) / test_s / 1e6
+
+        device_pps = train["by_batch"][JOB_BATCH]["patches_per_s"]
+        print(f"[job] run_job: {len(wf.train_data)} train / {len(wf.val_data)} val patches of "
+              f"128^3 from 2 TIFF volumes of {JOB_TRAIN_SHAPE}, {JOB_EPOCHS} epochs of {steps} "
+              f"steps at batch {JOB_BATCH}; data written in {data_s:.1f} s; run_job {job_s:.2f} s, "
+              f"peak memory {peak / 2**30:.2f} GiB")
+        print(f"[job] seconds per epoch (train, validation, checkpoints) "
+              f"{[round(h['time'], 3) for h in hist]}; loss {[round(h['loss'], 5) for h in hist]}, "
+              f"val_loss {[round(h['val_loss'], 5) for h in hist]}")
+        print(f"[job] the loop: {loop_pps:.3f} training patches/s ({steps} steps in "
+              f"{loop_s:.3f} s, loader and H2D included) vs {device_pps:.3f} device-resident "
+              f"(phase 6, b={JOB_BATCH}): {100 * (1 - loop_pps / device_pps):.1f}% lower")
+        print(f"[job] profiled epoch: device idle {100 * idle:.1f}% of steps 2-{steps} "
+              f"({window_ms:.1f} ms); wall {wall:.3f} s, device busy {busy / 1e3:.3f} s")
+        print(f"[job] checkpoints {ck_bytes} bytes; write {write_s:.3f} s ({timing_bytes} bytes, "
+              f"optimizer state included), read {read_s:.3f} s each")
+        print(f"[job] test from disk: {JOB_TEST_SHAPE} in {test_s:.3f} s, {mvox:.3f} Mvox/s "
+              f"(read, predict, write); IoU {iou:.4f} (the workflow's, threshold 0.5 on the uint8 "
+              f"values), {iou_half:.4f} at p > 0.5; the reloaded best checkpoint predicts the "
+              f"written volume exactly")
+        print(f"[job] launches over run_job {launches} = {n_steps} steps x {per_step} + "
+              f"{n_val + n_test} forward batches x {per_fwd}")
+        return dict(seconds=job_s, data_seconds=data_s, epoch_seconds=[h["time"] for h in hist],
+                    history=hist, peak_bytes=peak, launches=launches, checkpoint_bytes=ck_bytes,
+                    checkpoint_write_s=write_s, checkpoint_read_s=read_s,
+                    loop_patches_per_s=loop_pps, device_patches_per_s=device_pps,
+                    loop_seconds=loop_s, idle_share=idle, profile=dict(
+                        wall_s=wall, device_ms=busy,
+                        top=[dict(name=k, ms=m, count=c) for k, m, c in table[:30]]),
+                    test_seconds=test_s, test_mvox_per_s=mvox, iou=iou, iou_p_half=iou_half)
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def summarise(rows, serve, train, larger_io, job):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
-    bound_ms and library_ms are sums over the kernel's launches in one unit
-    of its path's work: one 128^3 serving patch for the three forward
+    bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
+    wrapper's call time, ``time_ms``) are sums over the kernel's launches in
+    one unit of its path's work: one 128^3 serving patch for the three forward
     kernels (conv3d also carries the sums over one training step, forward +
     dx, under ``train_step_*``), one training step at batch 1 for the four
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
-    up the runs of the paths, each counted from zero."""
+    up the runs of the paths (serving, training, LARGER_IO, the job), each
+    counted from zero."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -828,6 +1109,7 @@ def summarise(rows, serve, train, larger_io):
         byte_ms = sum(r["bound_ms"] for r in picked if r["bound_by"] == "bytes")
         libs = [r["library_ms"] for r in picked]
         return {prefix + "ms": sum(r["ms"] for r in picked),
+                prefix + "call_ms": sum(r["call_ms"] for r in picked),
                 prefix + "plain_ms": sum(r["plain_ms"] for r in picked),
                 prefix + "bound_ms": sum(r["bound_ms"] for r in picked),
                 prefix + "bound_by": "operations" if ops_ms >= byte_ms else "bytes",
@@ -849,7 +1131,7 @@ def summarise(rows, serve, train, larger_io):
     for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
         by_path = {"serve": serve["launches"].get(name, 0), "train": train["launches"][name],
-                   "train_larger_io": larger_io["launches"][name]}
+                   "train_larger_io": larger_io["launches"][name], "job": job["launches"][name]}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -884,20 +1166,22 @@ def main():
     train = phase_train()
     larger_io = phase_train_larger_io()
     grads = phase_grads_vs_plain()
-    kernels = summarise(rows, serve, train, larger_io)
+    job = phase_job(serve, train)
+    kernels = summarise(rows, serve, train, larger_io, job)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
-        train_larger_io=larger_io, whole_vs_plain_max_abs=diff,
+        train_larger_io=larger_io, job=job, whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
 
     print(f"[done] all phases in {time.perf_counter() - t_start:.0f} s")
     print(smi)
-    print("(kernels: ms, plain_ms, bound_ms and library_ms are sums over each kernel's launches "
-          "in one serving patch (conv3d, pool_max_folded, zd2s) or one training step at batch 1 "
-          "(the others; conv3d's train_step_* too), bf16; launches add up the main paths' runs)")
+    print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
+          "call, host work included) are sums over each kernel's launches in one serving patch "
+          "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
+          "train_step_* too), bf16; launches add up the main paths' runs, the job's included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -7,7 +7,8 @@ plain versions are held against the JAX package exactly as its own tests
 run it on the CPU: ``conv3d`` falls to its XLA reference ``_conv3d_xla``,
 and the Pallas shuffle kernels run in interpret mode.
 
-Also here: the isolation check that the port imports nothing of JAX.
+Also here: the isolation check that the port imports nothing of JAX (nor
+msgpack), and the optional packages only inside functions.
 """
 
 import ast
@@ -158,12 +159,20 @@ def test_shuffle_wrappers_reject_shapes_they_do_not_take(call):
         call(torch.zeros(4, 2, 2, 6))
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu")
+_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack")
+# optional dependencies of the port: imported only inside the functions
+# that use them, where they are optional
+_LAZY_ONLY = ("cv2", "matplotlib", "yaml", "PIL")
 
 
-def _imports(path: Path):
+def _imports(path: Path, top_level_only: bool = False):
     tree = ast.parse(path.read_text(), filename=str(path))
-    for node in ast.walk(tree):
+    nodes = ast.walk(tree)
+    if top_level_only:
+        # module scope, including the bodies of top-level if/try blocks
+        nodes = [n for top in tree.body for n in ast.walk(top)
+                 if not isinstance(top, (ast.FunctionDef, ast.AsyncFunctionDef, ast.ClassDef))]
+    for node in nodes:
         if isinstance(node, ast.Import):
             for a in node.names:
                 yield a.name
@@ -176,11 +185,16 @@ def test_port_imports_nothing_of_jax():
     assert len(files) > 10
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"biapy_tpu_torch/engine/train_engine.py", "biapy_tpu_torch/engine/schedulers.py",
-            "biapy_tpu_torch/engine/metrics.py"} <= names
+            "biapy_tpu_torch/engine/metrics.py", "biapy_tpu_torch/utils/flax_msgpack.py",
+            "biapy_tpu_torch/utils/misc.py"} <= names
     bad = []
     for f in files:
         for mod in _imports(f):
             top = mod.split(".")[0]
             if top in _FORBIDDEN:
                 bad.append(f"{f.relative_to(REPO)}: {mod}")
-    assert not bad, "the port must not import JAX or the JAX package:\n" + "\n".join(bad)
+        for mod in _imports(f, top_level_only=True):
+            if mod.split(".")[0] in _LAZY_ONLY:
+                bad.append(f"{f.relative_to(REPO)}: {mod} at module level")
+    assert not bad, ("the port must not import JAX, the JAX package or msgpack, and imports "
+                     "optional packages inside functions:\n" + "\n".join(bad))

@@ -415,9 +415,16 @@ def test_eval_step_and_mixed_precision_setting(tmp_path):
 
 
 def test_epoch_loop_names_the_roadmap(tmp_path):
-    job = biapy_tpu_torch.BiaPy(_cfg(), result_dir=str(tmp_path), name="t", silent=True,
-                                check_data_paths=False, device="cpu")
-    with pytest.raises(NotImplementedError, match="training loop"):
-        job.train()
-    with pytest.raises(NotImplementedError, match="training loop"):
-        job.run_job()
+    """The epoch loop runs (tests/test_torch_job.py); what it does not port
+    (augmentation, the profiler hook) raises before any data is read,
+    naming the roadmap."""
+    for what, match in (({"AUGMENTOR": {"ENABLE": True, "VFLIP": True}}, "augmentors"),
+                        ({"LOG": {"PROFILE_STEPS": 3}}, "profiler")):
+        cfg = _cfg()
+        cfg.update(what)
+        job = biapy_tpu_torch.BiaPy(cfg, result_dir=str(tmp_path), name="t", silent=True,
+                                    check_data_paths=False, device="cpu")
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+            job.train()
+        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
+            job.run_job()
