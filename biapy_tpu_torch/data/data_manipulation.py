@@ -7,9 +7,13 @@ padding) per file, optionally load pixels in memory, split train/val
 (fraction, k-fold, or separate dir), and filter samples by simple
 properties (foreground fraction / mean / min / max).
 
+Zarr/N5/HDF5 inputs as in the JAX package: the Zarr multiple-data layout
+(``DATA.*.INPUT_ZARR_MULTIPLE_DATA``, raw and GT at inner paths of one
+file), ``DATA.*.INPUT_IMG_AXES_ORDER`` and, with ``IN_MEMORY: False``, lazy
+samples whose patches stream from disk (``io.read_patch_as_ndarray``).
+
 Not ported yet, each raising ``NotImplementedError`` that names the roadmap:
-lazy Zarr/H5 streaming and the Zarr multiple-data layout (ROADMAP queue 1
-item 6), ``DATA.PREPROCESS`` (item 5) and the image-to-image
+``DATA.PREPROCESS`` (ROADMAP queue 1 item 5) and the image-to-image
 multiple-raw-one-target layout (item 9).
 """
 
@@ -22,7 +26,8 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 
 from biapy_tpu_torch.data.dataset import BiaPyDataset, DataSample, DatasetFile
-from biapy_tpu_torch.data.io import list_image_files, read_img_as_ndarray
+from biapy_tpu_torch.data.io import (_is_chunked, lazy_image_shape, list_image_files,
+                                     read_img_as_ndarray, read_patch_as_ndarray)
 from biapy_tpu_torch.data.norm import normalize_image
 from biapy_tpu_torch.data.patching import compute_patch_grid, extract_patch, pad_to_min_shape
 
@@ -124,22 +129,29 @@ def filter_samples_by_properties(
                 kept.append(s)
             continue
         if img is None or by_image:
-            img = read_img_as_ndarray(f.path, is_3d=is_3d, data_path=f.data_path,
-                                      axes_order=f.input_axes)
-            gt = None
-            if f.gt_path:
-                gt = read_img_as_ndarray(f.gt_path, is_3d=is_3d, data_path=f.gt_data_path,
-                                         axes_order=f.gt_input_axes)
-            # mirror the geometry the patch grid was computed on (reflect
-            # pad), else coords select the wrong region of the raw image
-            if reflect and crop_shape is not None:
-                img, _ = pad_to_min_shape(img, crop_shape[: img.ndim - 1])
-                if gt is not None:
-                    gt, _ = pad_to_min_shape(gt, crop_shape[: gt.ndim - 1])
-            if s.coords and not by_image:
-                img = extract_patch(img, s.coords)
-                if gt is not None:
-                    gt = extract_patch(gt, s.coords)
+            if s.coords and _is_chunked(f.path) and not by_image:
+                img = read_patch_as_ndarray(f.path, s.coords, is_3d=is_3d,
+                                            data_path=f.data_path, axes_order=f.input_axes)
+                if f.gt_path:
+                    gt = read_patch_as_ndarray(f.gt_path, s.coords, is_3d=is_3d,
+                                               data_path=f.gt_data_path, axes_order=f.gt_input_axes)
+            else:
+                img = read_img_as_ndarray(f.path, is_3d=is_3d, data_path=f.data_path,
+                                          axes_order=f.input_axes)
+                gt = None
+                if f.gt_path:
+                    gt = read_img_as_ndarray(f.gt_path, is_3d=is_3d, data_path=f.gt_data_path,
+                                             axes_order=f.gt_input_axes)
+                # mirror the geometry the patch grid was computed on (reflect
+                # pad), else coords select the wrong region of the raw image
+                if reflect and crop_shape is not None:
+                    img, _ = pad_to_min_shape(img, crop_shape[: img.ndim - 1])
+                    if gt is not None:
+                        gt, _ = pad_to_min_shape(gt, crop_shape[: gt.ndim - 1])
+                if s.coords and not by_image:
+                    img = extract_patch(img, s.coords)
+                    if gt is not None:
+                        gt = extract_patch(gt, s.coords)
         drop = _decide(img, gt, stats=f.norm_stats)
         if by_image:
             file_verdicts[s.fid] = drop
@@ -170,21 +182,70 @@ def build_dataset(
     reflect_to_complete_shape: bool = True,
     whole_images: bool = False,
     convert_to_rgb: bool = False,
+    input_axes: Optional[str] = None,
+    zarr_multiple: bool = False,
+    raw_path_in_file: Optional[str] = None,
+    gt_path_in_file: Optional[str] = None,
 ) -> BiaPyDataset:
     """Scan a directory pair into a BiaPyDataset with patch-grid samples.
 
     ``whole_images``: one sample per image (random-crop training mode or
-    per-image test mode); otherwise a full patch grid per image. The
-    super-resolution workflow's GT upscaling comes with that workflow.
+    per-image test mode); otherwise a full patch grid per image.
+    ``zarr_multiple``: raw + GT live inside one Zarr/H5 per file at
+    ``raw_path_in_file`` / ``gt_path_in_file`` (reference:
+    DATA.*.INPUT_ZARR_MULTIPLE_DATA, samples_from_zarr
+    data_manipulation.py:1850). Chunked files with ``in_memory=False``
+    become LAZY: only metadata is read here, pixels stream patch-by-patch
+    at sample time. The super-resolution workflow's GT upscaling comes with
+    that workflow.
     """
     nd = 3 if is_3d else 2
-    pairs = _scan_pairs(x_path, y_path)
+    if zarr_multiple:
+        xs = list_image_files(x_path)
+        if not xs:
+            raise FileNotFoundError(f"No Zarr/H5 files found in {x_path}")
+        if gt_path_in_file:
+            pairs = [(x, x) for x in xs]  # raw + GT nested in the same file
+        elif y_path and os.path.isdir(y_path) and y_path != x_path:
+            # raw nested in the zarr, GT in a separate dir
+            ys = list_image_files(y_path)
+            if len(xs) != len(ys):
+                raise ValueError(f"Image/GT count mismatch: {len(xs)} vs {len(ys)}")
+            pairs = list(zip(xs, ys))
+        else:
+            pairs = [(x, None) for x in xs]
+    else:
+        pairs = _scan_pairs(x_path, y_path)
     ds = BiaPyDataset()
     for fi, (xp, yp) in enumerate(pairs):
-        img = read_img_as_ndarray(xp, is_3d=is_3d)
+        dpath = raw_path_in_file if zarr_multiple else None
+        same_file = yp == xp
+        gpath = gt_path_in_file if zarr_multiple and same_file else None
+        if not in_memory and _is_chunked(xp):
+            # Lazy path: metadata only; per-patch normalization at load time.
+            g_ax = input_axes if same_file else None
+            shape, _ = lazy_image_shape(xp, is_3d=is_3d, data_path=dpath, axes_order=input_axes)
+            gt_shape = None
+            if yp is not None:
+                gt_shape, _ = lazy_image_shape(yp, is_3d=is_3d, data_path=gpath, axes_order=g_ax)
+            f = DatasetFile(path=xp, shape=shape, gt_path=yp, gt_shape=gt_shape,
+                            input_axes=input_axes, gt_input_axes=g_ax,
+                            data_path=dpath, gt_data_path=gpath)
+            ds.dataset_info.append(f)
+            if whole_images:
+                ds.sample_list.append(DataSample(fid=fi, coords=None))
+            else:
+                coords, _ = compute_patch_grid(shape[:nd], crop_shape[:nd], overlap, padding)
+                ds.sample_list.extend(DataSample(fid=fi, coords=pc) for pc in coords)
+            continue
+        # axes orders only describe chunked (Zarr/H5) layouts; TIFF readers
+        # use the channels-last heuristic.
+        ax = input_axes if _is_chunked(xp) else None
+        g_ax = ax if same_file else None
+        img = read_img_as_ndarray(xp, is_3d=is_3d, data_path=dpath, axes_order=ax)
         if convert_to_rgb and img.shape[-1] == 1:
             img = np.repeat(img, 3, axis=-1)
-        gt = read_img_as_ndarray(yp, is_3d=is_3d) if yp else None
+        gt = read_img_as_ndarray(yp, is_3d=is_3d, data_path=gpath, axes_order=g_ax) if yp else None
         if reflect_to_complete_shape:
             img, _ = pad_to_min_shape(img, crop_shape[:nd])
             if gt is not None:
@@ -193,7 +254,9 @@ def build_dataset(
         if norm_spec is not None:
             _, stats = normalize_image(img, norm_spec)
         f = DatasetFile(path=xp, shape=img.shape, gt_path=yp,
-                        gt_shape=gt.shape if gt is not None else None, norm_stats=stats)
+                        gt_shape=gt.shape if gt is not None else None, norm_stats=stats,
+                        input_axes=ax, gt_input_axes=g_ax,
+                        data_path=dpath, gt_data_path=gpath)
         ds.dataset_info.append(f)
         if whole_images:
             ds.sample_list.append(DataSample(fid=fi, coords=None,
@@ -239,10 +302,6 @@ def split_train_val(
 
 def _check_ported(cfg, split: str) -> None:
     """Raise for the data options of ``split`` this module does not port."""
-    sub = getattr(cfg.DATA, split)
-    if bool(sub.INPUT_ZARR_MULTIPLE_DATA):
-        raise _not_ported(f"DATA.{split}.INPUT_ZARR_MULTIPLE_DATA (Zarr/H5 inputs)",
-                          "queue 1 item 6, by-chunks engine")
     if cfg.PROBLEM.TYPE == "IMAGE_TO_IMAGE" and bool(
             cfg.PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER):
         raise _not_ported("PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER",
@@ -274,6 +333,10 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
         reflect_to_complete_shape=bool(cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or random_crops,
         whole_images=random_crops,
         convert_to_rgb=bool(cfg.DATA.FORCE_RGB),
+        input_axes=str(cfg.DATA.TRAIN.INPUT_IMG_AXES_ORDER) or None,
+        zarr_multiple=bool(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA),
+        raw_path_in_file=str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
+        gt_path_in_file=(str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
     )
     fs = cfg.DATA.TRAIN.FILTER_SAMPLES
     if fs.ENABLE:
@@ -299,7 +362,11 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
             norm_spec=norm_spec,
             reflect_to_complete_shape=bool(cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or random_crops,
             whole_images=random_crops,
-                convert_to_rgb=bool(cfg.DATA.FORCE_RGB),
+            convert_to_rgb=bool(cfg.DATA.FORCE_RGB),
+            input_axes=str(cfg.DATA.VAL.INPUT_IMG_AXES_ORDER) or None,
+            zarr_multiple=bool(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA),
+            raw_path_in_file=str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
+            gt_path_in_file=(str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
         )
         vfs = cfg.DATA.VAL.FILTER_SAMPLES
         if vfs.ENABLE:
@@ -340,6 +407,10 @@ def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDa
         reflect_to_complete_shape=bool(cfg.DATA.REFLECT_TO_COMPLETE_SHAPE),
         whole_images=True,
         convert_to_rgb=bool(cfg.DATA.FORCE_RGB),
+        input_axes=str(cfg.DATA.TEST.INPUT_IMG_AXES_ORDER) or None,
+        zarr_multiple=bool(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA),
+        raw_path_in_file=str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
+        gt_path_in_file=(str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
     )
     tfs = cfg.DATA.TEST.FILTER_SAMPLES
     if tfs.ENABLE:

@@ -24,7 +24,7 @@ from typing import Dict, Iterator, List, Optional, Tuple
 import numpy as np
 
 from biapy_tpu_torch.data.dataset import BiaPyDataset
-from biapy_tpu_torch.data.io import read_img_as_ndarray
+from biapy_tpu_torch.data.io import _is_chunked, read_img_as_ndarray, read_patch_as_ndarray
 from biapy_tpu_torch.data.norm import normalize_image, normalize_mask
 from biapy_tpu_torch.data.patching import extract_patch
 
@@ -63,15 +63,29 @@ class PairDataset:
         f = self.ds.dataset_info[s.fid]
         img, gt = s.img, s.gt
         if img is None:
+            if s.coords is not None and _is_chunked(f.path):
+                # Lazy Zarr/H5: stream only this patch's region from disk.
+                img = read_patch_as_ndarray(f.path, s.coords, is_3d=self.is_3d,
+                                            data_path=f.data_path, axes_order=f.input_axes)
+                if f.gt_path:
+                    gt = read_patch_as_ndarray(f.gt_path, s.coords, is_3d=self.is_3d,
+                                               data_path=f.gt_data_path,
+                                               axes_order=f.gt_input_axes)
+                if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
+                    img = np.repeat(img, 3, axis=-1)
+                return img, gt
             # disk-backed sample: mirror EXACTLY the geometry the dataset
             # build computed its patch grid on (FORCE_RGB, reflect pad) —
             # coords live in that processed space
-            img = read_img_as_ndarray(f.path, is_3d=self.is_3d)
+            img = read_img_as_ndarray(f.path, is_3d=self.is_3d, data_path=f.data_path,
+                                      axes_order=f.input_axes)
             if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
                 img = np.repeat(img, 3, axis=-1)
             gt_full = None
             if f.gt_path:
-                gt_full = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d)
+                gt_full = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d,
+                                              data_path=f.gt_data_path,
+                                              axes_order=f.gt_input_axes)
             if bool(self.cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or self.random_crop:
                 from biapy_tpu_torch.data.patching import pad_to_min_shape
 

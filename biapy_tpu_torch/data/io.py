@@ -1,9 +1,14 @@
-"""Image IO, copied from the JAX package's ``data/io.py``: TIFF and ``.npy``
-files (``imread``, ``imwrite``, ``read_img_as_ndarray``, ``list_image_files``,
-``save_tif``) and the layout helpers (``ensure_channels_last`` and its
-``_fit_axes_order``). HDF5, Zarr, NIfTI and PNG/JPG raise
-``NotImplementedError``: their readers come with the by-chunks engine
-(ROADMAP queue 1 item 6).
+"""Image IO, copied from the JAX package's ``data/io.py``: TIFF, ``.npy``,
+Zarr v2 / N5 (``data/zarr_store.py``, numpy and zlib only) and HDF5
+(``h5py``, optional: imported only inside the functions that open an
+``.h5`` file) — ``imread``, ``imwrite``, ``read_img_as_ndarray``,
+``list_image_files``, ``save_tif``, the lazy readers the by-chunks engine
+and the lazy training samples stream from (``open_lazy``,
+``lazy_image_shape``, ``LazyCanonicalView``, ``read_patch_lazy``,
+``read_patch_as_ndarray``) and the layout helpers
+(``ensure_channels_last`` and its ``_fit_axes_order``). NIfTI and PNG/JPG
+raise ``NotImplementedError``: their readers come with ROADMAP queue 1
+item 5.
 
 Convention preserved from the reference: images are channels-last ndarrays —
 ``(y, x, c)`` in 2D, ``(z, y, x, c)`` in 3D.
@@ -12,11 +17,12 @@ Convention preserved from the reference: images are channels-last ndarrays —
 from __future__ import annotations
 
 import os
-from typing import List, Optional
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 
 from biapy_tpu_torch.data.tiff import read_tiff, write_tiff
+from biapy_tpu_torch.data.zarr_store import ZarrArray, ZarrGroup, open_zarr
 
 TIFF_EXTS = (".tif", ".tiff")
 H5_EXTS = (".h5", ".hdf5", ".hdf")
@@ -35,32 +41,121 @@ def _is_nifti(path: str) -> bool:
 
 def _format_not_ported(path: str) -> NotImplementedError:
     return NotImplementedError(
-        f"reading or writing {path!r}: only TIFF and .npy files are ported to biapy_tpu_torch "
-        "yet; HDF5, Zarr, NIfTI and PNG/JPG come with the data readers (ROADMAP queue 1 item 6, "
-        "5, by-chunks engine)")
+        f"reading or writing {path!r}: NIfTI and PNG/JPG files are not ported to "
+        "biapy_tpu_torch yet (ROADMAP queue 1 item 5); TIFF, .npy, Zarr, N5 and HDF5 are")
+
+
+def _norm_inner_path(data_path: str) -> str:
+    """Nested Zarr/H5 paths accept dot notation (reference:
+    read_chunked_nested_zarr, data_3D_manipulation.py:1423)."""
+    return data_path.replace(".", "/") if "/" not in data_path else data_path
+
+
+def _first_h5_dataset(h5file, data_path: Optional[str] = None):
+    import h5py
+
+    if data_path:
+        return h5file[_norm_inner_path(data_path)]
+    found = []
+
+    def visit(name, obj):
+        if isinstance(obj, h5py.Dataset) and not found:
+            found.append(obj)
+
+    h5file.visititems(visit)
+    if not found:
+        raise ValueError(f"No dataset found in HDF5 file {h5file.filename}")
+    return found[0]
+
+
+def _first_zarr_array(z: Union[ZarrArray, ZarrGroup], data_path: Optional[str] = None) -> ZarrArray:
+    if isinstance(z, ZarrArray):
+        return z
+    if data_path:
+        arr = z[_norm_inner_path(data_path)]
+        if isinstance(arr, ZarrArray):
+            return arr
+        raise ValueError(f"{data_path} is a group, not an array")
+    for name in z.keys():
+        sub = z[name]
+        if isinstance(sub, ZarrArray):
+            return sub
+        if isinstance(sub, ZarrGroup):
+            try:
+                return _first_zarr_array(sub)
+            except ValueError:
+                continue
+    raise ValueError(f"No array found in zarr group {z.path}")
 
 
 def imread(path: str, data_path: Optional[str] = None) -> np.ndarray:
     """Read an image file into an ndarray (no axis normalization applied)."""
+    if _is_nifti(path):
+        raise _format_not_ported(path)
     ext = os.path.splitext(path)[1].lower()
     if ext in TIFF_EXTS:
         return read_tiff(path)
+    if ext in H5_EXTS:
+        import h5py
+
+        with h5py.File(path, "r") as f:
+            return _first_h5_dataset(f, data_path)[...]
+    if ext in ZARR_EXTS or (os.path.isdir(path) and (
+            os.path.exists(os.path.join(path, ".zarray"))
+            or os.path.exists(os.path.join(path, ".zgroup"))
+            or os.path.exists(os.path.join(path, "attributes.json")))):
+        return np.asarray(_first_zarr_array(open_zarr(path), data_path))
     if ext in NPY_EXTS:
         return np.load(path)
-    raise _format_not_ported(path)
+    if ext in PNG_EXTS:
+        raise _format_not_ported(path)
+    raise ValueError(f"Unsupported image extension: {path}")
 
 
-def imwrite(path: str, data: np.ndarray, data_path: Optional[str] = None) -> None:
-    """Write an ndarray to ``path``, dispatching on extension."""
-    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+def open_lazy(path: str, data_path: Optional[str] = None):
+    """Open a chunked file (zarr/h5) without reading it; returns an
+    array-like supporting slicing, plus a file handle to close (or None).
+
+    Reference analog: ``load_img_part_from_efficient_file`` and the lazy
+    handles used throughout biapy/data/data_3D_manipulation.py.
+    """
     ext = os.path.splitext(path)[1].lower()
-    if ext in TIFF_EXTS:
-        write_tiff(path, data)
-        return
-    if ext in NPY_EXTS:
-        np.save(path, data)
-        return
-    raise _format_not_ported(path)
+    if ext in H5_EXTS:
+        import h5py
+
+        f = h5py.File(path, "r")
+        return _first_h5_dataset(f, data_path), f
+    if ext in ZARR_EXTS or (os.path.isdir(path) and (
+            os.path.exists(os.path.join(path, ".zarray"))
+            or os.path.exists(os.path.join(path, ".zgroup"))
+            or os.path.exists(os.path.join(path, "attributes.json")))):
+        return _first_zarr_array(open_zarr(path), data_path), None
+    # Non-chunked formats: read fully.
+    return imread(path, data_path), None
+
+
+def _is_chunked(path: str) -> bool:
+    ext = os.path.splitext(path)[1].lower()
+    return ext in H5_EXTS or ext in ZARR_EXTS or (
+        os.path.isdir(path) and (os.path.exists(os.path.join(path, ".zarray"))
+                                 or os.path.exists(os.path.join(path, ".zgroup"))
+                                 or os.path.exists(os.path.join(path, "attributes.json"))))
+
+
+def _default_axes_order(disk_shape: Tuple[int, ...], ndim: int) -> str:
+    """Heuristic on-disk axes order for a chunked file (mirrors
+    ``ensure_channels_last``'s channels-first/last guess)."""
+    n = len(disk_shape)
+    spatial = "ZYX" if ndim == 3 else "YX"
+    if n == ndim:
+        return spatial
+    if n == ndim + 1:
+        if disk_shape[0] <= 4 and disk_shape[-1] > 4:
+            return "C" + spatial
+        return spatial + "C"
+    if n == ndim + 2 and disk_shape[0] == 1:
+        return "T" + (_default_axes_order(disk_shape[1:], ndim))
+    raise ValueError(f"Cannot interpret disk shape {disk_shape} as a {ndim}D image")
 
 
 def _fit_axes_order(order: str, disk_ndim: int) -> str:
@@ -74,6 +169,173 @@ def _fit_axes_order(order: str, disk_ndim: int) -> str:
     if len(order) != disk_ndim:
         raise ValueError(f"axes_order '{order}' does not match data ndim {disk_ndim}")
     return order
+
+
+def lazy_image_shape(path: str, is_3d: bool = False, data_path: Optional[str] = None,
+                     axes_order: Optional[str] = None) -> Tuple[Tuple[int, ...], np.dtype]:
+    """Channels-last logical shape + dtype of a chunked file WITHOUT loading
+    pixels (reference analog: load_3D_efficient_files shape discovery,
+    data_3D_manipulation.py)."""
+    arr, fh = open_lazy(path, data_path)
+    try:
+        disk_shape = tuple(int(s) for s in arr.shape)
+        dtype = np.dtype(arr.dtype)
+    finally:
+        if fh is not None:
+            fh.close()
+    nd = 3 if is_3d else 2
+    order = (_fit_axes_order(axes_order, len(disk_shape)) if axes_order
+             else _default_axes_order(disk_shape, nd))
+    want = ("ZYXC" if is_3d else "YXC")
+    out = []
+    for a in want:
+        out.append(disk_shape[order.index(a)] if a in order else 1)
+    return tuple(out), dtype
+
+
+class LazyCanonicalView:
+    """Channels-last lazy view over a chunked array with arbitrary on-disk
+    axes order (``DATA.*.INPUT_IMG_AXES_ORDER``): exposes a canonical
+    (z,)y,x,c ``shape`` and translates canonical slices to on-disk slices on
+    access, so by-chunks streaming never materialises the volume (reference
+    analog: the order_dimensions slice translation in
+    chunked_test_pair_data_generator.py:194,524)."""
+
+    def __init__(self, arr, is_3d: bool = True, axes_order: Optional[str] = None):
+        disk_shape = tuple(int(s) for s in arr.shape)
+        self.arr = arr
+        self.nd = 3 if is_3d else 2
+        self.order = (_fit_axes_order(axes_order, len(disk_shape)) if axes_order
+                      else _default_axes_order(disk_shape, self.nd))
+        want = "ZYXC" if is_3d else "YXC"
+        self.shape = tuple(disk_shape[self.order.index(a)] if a in self.order else 1
+                           for a in want)
+        self.dtype = np.dtype(arr.dtype)
+
+    def __getitem__(self, key):
+        if not isinstance(key, tuple):
+            key = (key,)
+        key = tuple(key) + (slice(None),) * (self.nd + 1 - len(key))
+        spatial = "ZYX" if self.nd == 3 else "YX"
+        sl = []
+        for a in self.order:
+            if a in spatial:
+                sl.append(key[spatial.index(a)])
+            elif a == "C":
+                sl.append(key[self.nd])
+            else:  # T: first frame
+                sl.append(slice(0, 1))
+        region = np.asarray(self.arr[tuple(sl)])
+        return ensure_channels_last(region, self.nd, axes_order=self.order)
+
+
+def read_patch_lazy(path: str, starts, ends, is_3d: bool = False,
+                    data_path: Optional[str] = None,
+                    axes_order: Optional[str] = None) -> np.ndarray:
+    """Read only a spatial region of a chunked (zarr/h5) file, returned
+    channels-last. ``starts``/``ends`` are (y,x) or (z,y,x) in logical
+    channels-last space and must be in-bounds (callers handle padding).
+
+    Reference analog: extract_patch_from_efficient_file
+    (data_3D_manipulation.py:210)."""
+    arr, fh = open_lazy(path, data_path)
+    try:
+        disk_shape = tuple(int(s) for s in arr.shape)
+        nd = 3 if is_3d else 2
+        order = (_fit_axes_order(axes_order, len(disk_shape)) if axes_order
+                 else _default_axes_order(disk_shape, nd))
+        spatial = "ZYX" if is_3d else "YX"
+        sl = []
+        for a in order:
+            if a in spatial:
+                i = spatial.index(a)
+                sl.append(slice(int(starts[i]), int(ends[i])))
+            else:  # C or T
+                sl.append(slice(None))
+        region = arr[tuple(sl)]
+    finally:
+        if fh is not None:
+            fh.close()
+    return ensure_channels_last(np.asarray(region), nd, axes_order=order)
+
+
+_LAZY_SHAPE_CACHE: dict = {}
+
+
+def read_patch_as_ndarray(path: str, coords, is_3d: bool = False,
+                          data_path: Optional[str] = None,
+                          axes_order: Optional[str] = None,
+                          pad_type: str = "reflect") -> np.ndarray:
+    """Lazy patch read honoring out-of-bounds ``PatchCoords`` (negative
+    starts / ends beyond the volume): the in-bounds region is read from disk
+    and the overhang is filled by padding, matching ``extract_patch``."""
+    # the logical shape is constant per file — cache it so the training
+    # hot loop doesn't open/parse every chunked file twice per patch
+    key = (path, data_path, is_3d, axes_order)
+    shape = _LAZY_SHAPE_CACHE.get(key)
+    if shape is None:
+        shape, _ = lazy_image_shape(path, is_3d=is_3d, data_path=data_path,
+                                    axes_order=axes_order)
+        if len(_LAZY_SHAPE_CACHE) > 4096:
+            _LAZY_SHAPE_CACHE.clear()
+        _LAZY_SHAPE_CACHE[key] = shape
+    nd = 3 if is_3d else 2
+    starts, ends, pads = [], [], []
+    for d in range(nd):
+        s, e = int(coords.starts[d]), int(coords.ends[d])
+        pads.append((max(0, -s), max(0, e - shape[d])))
+        starts.append(max(0, s))
+        ends.append(min(shape[d], e))
+    region = read_patch_lazy(path, starts, ends, is_3d=is_3d,
+                             data_path=data_path, axes_order=axes_order)
+    if any(p != (0, 0) for p in pads):
+        region = np.pad(region, pads + [(0, 0)] * (region.ndim - nd), mode=pad_type)
+    return region
+
+
+def imwrite(path: str, data: np.ndarray, data_path: Optional[str] = None) -> None:
+    """Write an ndarray to ``path``, dispatching on extension."""
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    if _is_nifti(path):
+        raise _format_not_ported(path)
+    ext = os.path.splitext(path)[1].lower()
+    if ext in TIFF_EXTS:
+        write_tiff(path, data)
+        return
+    if ext in H5_EXTS:
+        import h5py
+
+        with h5py.File(path, "w") as f:
+            # same dot->slash normalization imread applies, so a
+            # write/read round trip with equal data_path succeeds
+            f.create_dataset(_norm_inner_path(data_path) if data_path else "data",
+                             data=data, compression="gzip")
+        return
+    if ext in ZARR_EXTS:
+        target = path
+        if data_path:
+            target = os.path.join(path, *_norm_inner_path(data_path).split("/"))
+            os.makedirs(path, exist_ok=True)
+            zg = os.path.join(path, ".zgroup")
+            if not os.path.exists(zg):
+                with open(zg, "w") as f:
+                    f.write('{"zarr_format": 2}')
+        arr = ZarrArray.create(
+            target,
+            shape=data.shape,
+            chunks=tuple(min(s, 256) for s in data.shape),
+            dtype=data.dtype,
+            compressor={"id": "zlib", "level": 1},
+            overwrite=True,
+        )
+        arr[tuple(slice(None) for _ in data.shape)] = data
+        return
+    if ext in NPY_EXTS:
+        np.save(path, data)
+        return
+    if ext in PNG_EXTS:
+        raise _format_not_ported(path)
+    raise ValueError(f"Unsupported image extension: {path}")
 
 
 def ensure_channels_last(img: np.ndarray, ndim: int, axes_order: Optional[str] = None) -> np.ndarray:
@@ -131,9 +393,7 @@ def read_img_as_ndarray(path: str, is_3d: bool = False, data_path: Optional[str]
 
 
 def list_image_files(directory: str) -> List[str]:
-    """Sorted list of image files (or zarr dirs) in a directory: the same
-    list as the JAX package's, so that images pair with their masks the
-    same way; the formats not ported yet raise when read."""
+    """Sorted list of readable image files (or zarr dirs) in a directory."""
     out = []
     for name in sorted(os.listdir(directory)):
         p = os.path.join(directory, name)

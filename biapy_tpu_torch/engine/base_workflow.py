@@ -9,15 +9,17 @@ plateau controller, early stopping, ``TRAIN.CHECKPOINT_MONITOR``, the JAX
 package's ``.ckpt`` checkpoints, the loggers, the best checkpoint reloaded
 at the end), ``predict_block_on_device`` (whole-volume sliding-window
 inference on the card, normalisation of the raw volume included),
-``process_test_sample`` on the device path and ``test`` from disk or from an
-in-memory image. Test-time augmentation, the host crop/merge path, ROI
-masks, the by-chunks engine, the profiler hook and the contrastive and
-multi-head training branches are not ported yet (ROADMAP queue 1) and raise
-``NotImplementedError``.
+``process_test_sample`` on the device path, ``process_test_by_chunks`` (the
+by-chunks engine over Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and
+``test`` from disk or from an in-memory image. Test-time augmentation, the
+host crop/merge path, ROI masks on the per-image path, the profiler hook
+and the contrastive and multi-head training branches are not ported yet
+(ROADMAP queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import os
 import time
@@ -31,9 +33,10 @@ from biapy_tpu_torch.data.data_manipulation import (load_and_prepare_test_data,
                                                      load_and_prepare_train_data,
                                                      prepare_in_memory_test_data)
 from biapy_tpu_torch.data.generators import BatchLoader, PairDataset
-from biapy_tpu_torch.data.io import read_img_as_ndarray, save_tif
+from biapy_tpu_torch.data.io import list_image_files, open_lazy, read_img_as_ndarray, save_tif
 from biapy_tpu_torch.data.norm import build_norm_dict, compute_norm_stats, stats_to_affine
 from biapy_tpu_torch.data.patching import extract_patch
+from biapy_tpu_torch.engine.chunked import ChunkedInference, dequant_pred
 from biapy_tpu_torch.engine.schedulers import (PlateauController, build_multihead_optimizer,
                                                 build_optimizer, load_optax_state_dict,
                                                 optax_state_dict, set_learning_rate)
@@ -42,6 +45,7 @@ from biapy_tpu_torch.engine.train_engine import (TrainState, make_eval_step, mak
 from biapy_tpu_torch.models import build_model
 from biapy_tpu_torch.models.flax_import import apply_checkpoint_params, export_flax_variables
 from biapy_tpu_torch.ops.stitch import sliding_window_inference
+from biapy_tpu_torch.parallel import barrier, is_main_process, process_count, process_index
 from biapy_tpu_torch.utils.callbacks import EarlyStopping
 from biapy_tpu_torch.utils.misc import (JsonLogger, MetricLogger, TensorboardLogger,
                                         get_checkpoint_path, load_checkpoint, save_model,
@@ -76,6 +80,7 @@ def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
 
 LEFT_OUT = "queue 1 item 1, left out of the serving slice"
 AUGMENT = "queue 1 item 5, augmentors, pre-processing and generator checks"
+RUNTIME = "queue 1 item 8, runtime"
 
 
 def _not_ported(what: str, item: str = LEFT_OUT) -> NotImplementedError:
@@ -109,6 +114,8 @@ class Base_Workflow(metaclass=ABCMeta):
         self.define_metrics()
 
         self.model: Optional[torch.nn.Module] = None
+        # the inference copy of one test()/predict() pass (_inference_pass)
+        self._pass_model: Optional[torch.nn.Module] = None
         self.state: Optional[TrainState] = None
         self.plateau: Optional[PlateauController] = None
         self.model_build_kwargs: Dict = {}
@@ -134,6 +141,10 @@ class Base_Workflow(metaclass=ABCMeta):
 
     def after_all_images(self) -> None:
         """Post-hook after the whole test set."""
+
+    def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
+        """Workflow hook after the raw-prediction Zarr exists (the instance
+        workflow runs the tile watershed and merge here)."""
 
     # ------------------------------------------------------------- model
     def prepare_model(self):
@@ -398,30 +409,60 @@ class Base_Workflow(metaclass=ABCMeta):
                     print(f"Loaded checkpoint {path} for inference")
 
     # ------------------------------------------------------------- inference
-    def predict_block_on_device(self, block_n: np.ndarray,
+    def _inference_model(self) -> torch.nn.Module:
+        """The model the stitch runs, in eval mode (running statistics, no
+        dropout, no buffer written; a train step leaves it in training
+        mode): a bf16 copy under TEST.REDUCE_MEMORY."""
+        self.model.eval()
+        if bool(self.cfg.TEST.REDUCE_MEMORY):
+            return copy.deepcopy(self.model).to(torch.bfloat16)
+        return self.model
+
+    @contextlib.contextmanager
+    def _inference_pass(self):
+        """One test()/predict() pass: the inference copy is built once, at
+        its start, and dropped at its end (the model is updated in place by
+        training, so a copy kept across passes would go stale)."""
+        self._ensure_model_for_test()
+        self._pass_model = self._inference_model()
+        try:
+            yield
+        finally:
+            self._pass_model = None
+
+    def predict_block_on_device(self, block_n, batch_size: Optional[int] = None,
                                 overlap: Optional[Sequence[float]] = None,
                                 padding: Optional[Sequence[int]] = None,
-                                norm_stats=None) -> Optional[np.ndarray]:
+                                device=None, sync: bool = True, out_splits=None,
+                                norm_stats=None, pre_padded=False, grid_overrides=None):
         """Whole-block sliding-window inference on the workflow's device:
-        the block is uploaded once, the patch grid runs the model (bf16
-        weights and activations under TEST.REDUCE_MEMORY) and blended cores
-        accumulate in place; one result comes back. Returns None when the
-        device path does not apply (test-time augmentation).
+        the block (a numpy array or a host tensor, pinned for an
+        asynchronous copy) is uploaded once, the patch grid runs the model
+        (bf16 weights and activations under TEST.REDUCE_MEMORY) and blended
+        cores accumulate in place. Returns the result as a float32 numpy
+        array, or with ``sync=False`` the device tensor (a tuple of them with
+        ``out_splits``) without waiting for it; None when the device path
+        does not apply (test-time augmentation).
 
         ``norm_stats`` (a ``compute_norm_stats`` dict) moves normalisation
         onto the device: the RAW block ships (uint8 at 1 byte/voxel) and
         ``(clip(x, lo, hi) - sub) / div`` runs there in float32 before the
-        cast to the compute dtype — ``normalize_image``'s transform."""
+        cast to the compute dtype — ``normalize_image``'s transform.
+        ``out_splits``, ``pre_padded`` and ``grid_overrides`` are
+        ``sliding_window_inference``'s. ``device``: the workflow's own (one
+        card; tiles across cards come with the runtime)."""
         if self.cfg.TEST.AUGMENTATION:
             return None
+        if device is not None:
+            dev = torch.device(device)
+            if dev.type != self.device.type or (dev.index or 0) != (self.device.index or 0):
+                raise _not_ported(f"predicting on {dev}, another device than the workflow's "
+                                  f"{self.device}", RUNTIME)
         self._ensure_model_for_test()
         cfg = self.cfg
         chans = self.output_channels
         reduce_mem = bool(cfg.TEST.REDUCE_MEMORY)
-        # eval mode: running statistics, no dropout, no buffer is written
-        # (a train step leaves the model in training mode)
-        self.model.eval()
-        model = copy.deepcopy(self.model).to(torch.bfloat16) if reduce_mem else self.model
+        model = self._pass_model if self._pass_model is not None else self._inference_model()
         acts = self.activations
 
         def apply_fn(x):
@@ -429,7 +470,7 @@ class Base_Workflow(metaclass=ABCMeta):
                 x = x.to(torch.bfloat16)
             return apply_activations(model(x).float(), acts, chans, training=False)
 
-        bs = max(int(cfg.TRAIN.BATCH_SIZE), 1)
+        bs = batch_size or max(int(cfg.TRAIN.BATCH_SIZE), 1)
         patch = tuple(cfg.DATA.PATCH_SIZE)[: self.nd]
         ov = tuple(overlap) if overlap is not None else tuple(cfg.DATA.TEST.OVERLAP)
         pad = tuple(padding) if padding is not None else tuple(cfg.DATA.TEST.PADDING)
@@ -438,9 +479,11 @@ class Base_Workflow(metaclass=ABCMeta):
         pad_mode = "median" if cfg.DATA.TEST.MEDIAN_PADDING else "reflect"
         vol_dt = torch.bfloat16 if reduce_mem else torch.float32
         with torch.inference_mode():
-            blk = torch.from_numpy(np.ascontiguousarray(block_n)).to(self.device)
+            blk = (block_n if isinstance(block_n, torch.Tensor)
+                   else torch.from_numpy(np.ascontiguousarray(block_n)))
+            blk = blk.to(self.device, non_blocking=True)
             if norm_stats is not None:
-                c = block_n.shape[-1]
+                c = blk.shape[-1]
                 lo, hi, sub, div = (torch.as_tensor(np.broadcast_to(
                     np.asarray(a, np.float32), (c,)).copy(), device=self.device)
                     for a in stats_to_affine(norm_stats))
@@ -450,8 +493,13 @@ class Base_Workflow(metaclass=ABCMeta):
                 x = blk.to(vol_dt)
             out = sliding_window_inference(
                 apply_fn, x, patch, ov, pad, out_channels=sum(chans), batch_size=bs,
-                out_dtype=out_dt, pad_mode=pad_mode, quant_uint8=quant)
-            return out.float().cpu().numpy()
+                out_dtype=out_dt, pad_mode=pad_mode, out_splits=out_splits,
+                pre_padded=pre_padded, grid_overrides=grid_overrides, quant_uint8=quant)
+        if not sync:
+            return out
+        if out_splits is not None:
+            return np.concatenate([c.float().cpu().numpy() for c in out], axis=0)
+        return out.float().cpu().numpy()
 
     def process_test_sample(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str,
                             sample=None):
@@ -485,16 +533,19 @@ class Base_Workflow(metaclass=ABCMeta):
 
     def test(self, image: Optional[np.ndarray] = None, gt: Optional[np.ndarray] = None):
         """Inference on every image of DATA.TEST.PATH (or the validation split
-        with DATA.TEST.USE_VAL_AS_TEST), or on an in-memory image (the
-        ``predict()`` surface); results written unless ``save_to_disk`` is
-        off."""
-        cfg = self.cfg
+        with DATA.TEST.USE_VAL_AS_TEST), by chunks with TEST.BY_CHUNKS, or on
+        an in-memory image (the ``predict()`` surface); results written
+        unless ``save_to_disk`` is off."""
         self._predictions = []
         self.metrics_per_test_file = []
-        self._ensure_model_for_test()
-        if image is None and cfg.TEST.BY_CHUNKS.ENABLE and self.is_3d:
-            raise _not_ported("TEST.BY_CHUNKS (the by-chunks engine)",
-                              "queue 1 item 6, by-chunks engine")
+        with self._inference_pass():
+            if image is None and self.cfg.TEST.BY_CHUNKS.ENABLE and self.is_3d:
+                self.process_test_by_chunks()
+            else:
+                self._test_images(image, gt)
+
+    def _test_images(self, image: Optional[np.ndarray], gt: Optional[np.ndarray]):
+        cfg = self.cfg
         if image is not None:
             ds = prepare_in_memory_test_data(image, gt, self.is_3d)
         elif cfg.DATA.TEST.USE_VAL_AS_TEST:
@@ -508,13 +559,20 @@ class Base_Workflow(metaclass=ABCMeta):
         if self.verbose:
             print("###############\n#  INFERENCE  #\n###############")
             print(f"Processing {len(ds.sample_list)} test images")
+        if not is_main_process():
+            # the per-image path runs on rank 0 only (only by-chunks shares
+            # inference out); concurrent ranks would race on the same files
+            barrier("per_image_test")
+            return
         for i, s in enumerate(ds.sample_list):
             f = ds.dataset_info[s.fid]
             img, g = s.img, s.gt
             if img is None:
-                img = read_img_as_ndarray(f.path, is_3d=self.is_3d)
+                img = read_img_as_ndarray(f.path, is_3d=self.is_3d,
+                                          data_path=f.data_path, axes_order=f.input_axes)
                 if f.gt_path:
-                    g = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d)
+                    g = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d,
+                                            data_path=f.gt_data_path, axes_order=f.gt_input_axes)
                 if s.coords is not None:  # patch sample (e.g. USE_VAL_AS_TEST)
                     img = extract_patch(img, s.coords)
                     if g is not None:
@@ -526,12 +584,77 @@ class Base_Workflow(metaclass=ABCMeta):
             self.process_test_sample(img, g, fname, s)
         self.after_all_images()
         self.print_stats()
+        barrier("per_image_test")  # pairs with the non-main early return
+
+    def process_test_by_chunks(self):
+        """Tile-streamed inference over Zarr/N5/HDF5 volumes (reference:
+        process_test_sample_by_chunks, base_workflow.py:2469; the JAX
+        package's base_workflow.py:1252-1317): one ``raw_pred.zarr`` per
+        volume under ``PER_IMAGE/<name>_chunks/``, Z_START / Z_END sub-jobs,
+        the ROI mask (tiles without an ROI voxel are skipped), the whole
+        prediction as a TIFF with SAVE_OUT_TIF."""
+        cfg = self.cfg
+        if cfg.TEST.AUGMENTATION:
+            raise _not_ported("test-time augmentation under TEST.BY_CHUNKS (the host crop/merge "
+                              "path)")
+        bc = cfg.TEST.BY_CHUNKS
+        files = list_image_files(cfg.DATA.TEST.PATH)
+        out_ch = sum(self.output_channels)
+        phases = [str(p) for p in bc.PHASES]
+        data_path = (str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None
+                     if cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA else None)
+        for f in files:
+            base = os.path.splitext(os.path.basename(f))[0]
+            out_dir = os.path.join(cfg.PATHS.RESULT_DIR.PER_IMAGE, base + "_chunks")
+            ci = ChunkedInference(
+                self, tuple(cfg.DATA.PATCH_SIZE)[: self.nd], tuple(cfg.DATA.TEST.OVERLAP),
+                tuple(cfg.DATA.TEST.PADDING), tuple(bc.WORKFLOW_PROCESS.PATCHES_PER_TILE),
+                out_ch, out_dir, rank=process_index(), world=process_count(),
+            )
+            raw_path = os.path.join(out_dir, "raw_pred.zarr")
+            if "prediction" in phases:
+                roi = roi_handle = None
+                roi_cfg = cfg.DATA.TEST.ROI_MASK
+                if roi_cfg.ENABLE:
+                    # by-chunks skips tiles with no ROI overlap instead of
+                    # zeroing after the fact (reference: config.py:934)
+                    rpath = str(roi_cfg.PATH)
+                    cands = list_image_files(rpath) if os.path.isdir(rpath) else [rpath]
+                    match = [c for c in cands if os.path.basename(c) == os.path.basename(f)]
+                    if not match and len(cands) == 1:
+                        match = cands  # a single mask file serves every volume
+                    elif not match and cands:
+                        print(f"WARNING: no ROI mask named {os.path.basename(f)} in {rpath} and "
+                              "several candidates exist — skipping the ROI for this volume")
+                    if match:
+                        roi, roi_handle = open_lazy(match[0])
+                ao = str(cfg.DATA.TEST.INPUT_IMG_AXES_ORDER) or None
+                try:
+                    raw_path = ci.predict_volume(
+                        f, z_range=(int(bc.Z_START), int(bc.Z_END)), verbose=self.verbose,
+                        data_path=data_path, roi=roi, axes_order=ao,
+                        axes_order_is_default=(ao == "TZCYX"))
+                finally:
+                    if roi_handle is not None:
+                        roi_handle.close()
+                self.last_chunked = ci
+                if bc.SAVE_OUT_TIF and is_main_process():
+                    # whole-volume TIFF of the raw prediction (reference:
+                    # TEST.BY_CHUNKS.SAVE_OUT_TIF, base_workflow.py:2581)
+                    vol, handle = open_lazy(raw_path)
+                    save_tif(dequant_pred(vol[:])[None], cfg.PATHS.RESULT_DIR.PER_IMAGE,
+                             [base + ".tif"], verbose=False)
+                    if handle is not None:
+                        handle.close()
+            self.after_by_chunks_prediction(ci, raw_path, base)
+        self.after_all_images()
+        self.print_stats()
 
     def print_stats(self):
         """Aggregate and print the per-image metrics; write them as a CSV
         (reference: print_stats :2307 and the metrics_per_test_file CSV,
         base_workflow.py:1534)."""
-        if not self.metrics_per_test_file:
+        if not self.metrics_per_test_file or not is_main_process():
             return None
         keys = self.metrics_per_test_file[0].keys()
         agg = {k: float(np.mean([m[k] for m in self.metrics_per_test_file])) for k in keys}

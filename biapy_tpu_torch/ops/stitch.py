@@ -13,18 +13,20 @@ read-modify-write accumulate). It follows the fold runner's arithmetic:
 the windowed core is rounded to ``out_dtype``, summed in float32, scaled by
 the per-axis inverse weight sums, then cast to ``out_dtype``.
 
-The multi-chip split (``out_splits``) and slab geometry (``pre_padded``,
-``grid_overrides``) belong to the by-chunks engine and are not ported yet.
+``pre_padded`` skips the halo pad for callers whose block already carries
+it (the by-chunks engine's tiles): re-padding an already-extended block
+makes the grid cover halo voxels with full extra patch rows, (k+1)^nd
+patches where k^nd suffice.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Sequence
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from biapy_tpu_torch.data.patching import axis_grid, spline_window, spline_window_1d
+from biapy_tpu_torch.data.patching import AxisGrid, axis_grid, spline_window, spline_window_1d
 
 
 def _axis_weight_sums(grids, core) -> list:
@@ -77,14 +79,29 @@ def sliding_window_inference(
     batch_size: int = 1,
     out_dtype: torch.dtype = torch.float32,
     pad_mode: str = "reflect",
+    out_splits: Optional[Sequence[Tuple[int, int]]] = None,
+    pre_padded=False,
+    grid_overrides: Optional[dict] = None,
     quant_uint8: bool = False,
-) -> torch.Tensor:
+):
     """Stitched prediction for one channels-last volume ``(spatial..., C)``
     on its device. ``apply_fn`` maps a ``(B, *patch, C)`` batch to
     ``(B, *patch, out_channels)`` activated predictions. Returns
     ``(spatial..., out_channels)`` in ``out_dtype``, or uint8
     ``round(clip(p, 0, 1) * 255)`` with ``quant_uint8`` (half to even, as
-    ``jnp.round``)."""
+    ``jnp.round``).
+
+    ``out_splits``: (z0, z1) bounds in output space; the result is then a
+    tuple of the ``out[z0:z1]`` views.
+
+    ``pre_padded``: a bool, or one per axis. A True axis ALREADY carries
+    ``padding[d]`` voxels of real halo per side: the grid covers only that
+    axis's core and the result has the core's extent there.
+
+    ``grid_overrides``: ``{axis: (n, step, last_shift, ov_px)}``, the grid
+    of a larger volume this block is a slab of (same step, shift and
+    window), in place of the grid ``axis_grid`` gives the block's own
+    extent."""
     nd = len(patch)
     dev = volume.device
     if pad_mode == "median":
@@ -93,19 +110,29 @@ def sliding_window_inference(
     else:
         pad_kw = dict(mode=pad_mode)
 
+    pp = (tuple(bool(v) for v in pre_padded) if isinstance(pre_padded, (tuple, list))
+          else (bool(pre_padded),) * nd)
     min_core = tuple(patch[d] - 2 * padding[d] for d in range(nd))
-    orig_spatial = tuple(volume.shape[:nd])
+    orig_spatial = tuple(volume.shape[d] - (2 * padding[d] if pp[d] else 0) for d in range(nd))
+    if any(s <= 0 for s in orig_spatial):
+        raise ValueError(f"pre_padded volume {tuple(volume.shape[:nd])} smaller than twice the "
+                         f"padding {tuple(padding)}")
     # reflect-pad axes shorter than the patch core (undone on return), the
-    # device analog of DATA.REFLECT_TO_COMPLETE_SHAPE
+    # device analog of DATA.REFLECT_TO_COMPLETE_SHAPE; on a pre_padded axis
+    # the pad extends OUTSIDE the real halo, which shifts inward with the core
     deficits = [max(0, min_core[d] - orig_spatial[d]) for d in range(nd)]
     if any(deficits):
         volume = _pad(volume, [(d // 2, d - d // 2) for d in deficits], **pad_kw)
-    spatial = tuple(volume.shape[:nd])
+    spatial = tuple(volume.shape[d] - (2 * padding[d] if pp[d] else 0) for d in range(nd))
+    pad_width = [(0, 0) if pp[d] else (padding[d], padding[d]) for d in range(nd)]
     vol_p = volume
-    if any(padding[d] for d in range(nd)):
-        vol_p = _pad(volume, [(padding[d], padding[d]) for d in range(nd)], **pad_kw)
+    if any(w != (0, 0) for w in pad_width):
+        vol_p = _pad(volume, pad_width, **pad_kw)
 
     grids = [axis_grid(spatial[d], patch[d], overlap[d], padding[d]) for d in range(nd)]
+    for d, (n_, step_, last_, ovpx_) in (grid_overrides or {}).items():
+        grids[d] = AxisGrid(n=n_, step=step_, last_shift=last_, patch=patch[d], pad=padding[d],
+                            length=spatial[d], ov_px=ovpx_)
     axes_starts = [np.array([g.start(i) for i in range(g.n)], np.int64) for g in grids]
     mesh = np.meshgrid(*axes_starts, indexing="ij")
     starts = np.stack([m.reshape(-1) for m in mesh], axis=-1)
@@ -154,4 +181,6 @@ def sliding_window_inference(
     if quant_uint8:
         # TEST.OUTPUT_QUANT_UINT8: probabilities drain as round(p*255) uint8
         out = torch.round(torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
+    if out_splits is not None:
+        return tuple(out[z0:z1] for z0, z1 in out_splits)
     return out

@@ -47,7 +47,16 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    best one predicts the written volume exactly; seconds per epoch, the
    loop's patches/s, the device's idle share over steady steps, checkpoint
    bytes and seconds and the test pass's Mvox/s are printed;
-10. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+10. by-chunks: ``BiaPy(cfg).test()`` with ``TEST.BY_CHUNKS`` on seeded uint8
+    Zarr volumes it writes under ``chiprun_out/chip_smoke_chunks/`` (deleted
+    at the end): (a) a 432^3 volume in 2 x 2 x 2 tiles of 216^3, whose raw
+    prediction must equal ``predict`` on the volume in memory within 1 uint8
+    LSB (the count of differing voxels printed); (b) the bench's 1080 x 648
+    x 648 volume in 45 tiles after a one-tile warm-up: seconds, Mvox/s, Zarr
+    and drain times, peak memory, and the device's idle share over a
+    profiled Z_START / Z_END sub-job of 9 tiles; every run's launch counters
+    checked at phase 4's per-patch counts;
+11. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
@@ -918,19 +927,22 @@ def _write_job_data(root):
     return vols
 
 
-def _steady_idle_share(events, steps):
+def _steady_idle_share(events, per, units, what):
     """Idle share of the device from the first conv3d launch of the second
-    training step to the end of the last event: each step launches conv3d
-    TRAIN_LAUNCHES["conv3d"] times, the first being the stem's forward."""
+    unit (a training step, a tile) to the end of the last event; each unit
+    launches conv3d ``per`` times, the first being the stem's. Busy time is
+    the union of the events' intervals on every stream (a tile's drain copy
+    overlaps the next tile's compute)."""
     convs = [i for i, (_, name, _) in enumerate(events) if "conv3d_k3_" in name]
-    per = TRAIN_LAUNCHES["conv3d"]
-    if len(convs) != per * steps:
-        raise AssertionError(f"profiled epoch: {len(convs)} conv3d events, want {per * steps}")
+    if len(convs) != per * units:
+        raise AssertionError(f"{what}: {len(convs)} conv3d events, want {per * units}")
     t0 = events[convs[per]][0]
-    inside = [(st, ms) for st, _, ms in events if st >= t0]
-    t1 = max(st + ms * 1e3 for st, ms in inside)
-    busy = sum(ms for _, ms in inside)
-    window = (t1 - t0) / 1e3
+    busy, end = 0.0, t0
+    for st, _, ms in sorted(e for e in events if e[0] >= t0):
+        en = st + ms * 1e3
+        busy += max(0.0, en - max(st, end)) / 1e3
+        end = max(end, en)
+    window = (end - t0) / 1e3
     return 1.0 - busy / window, window
 
 
@@ -1041,7 +1053,8 @@ def phase_job(serve, train):
         loop_pps = steps * JOB_BATCH / loop_s
         wall, busy, table, events = _profile_device(
             lambda: wf.train_one_epoch(step, JOB_EPOCHS + 1, gen))
-        idle, window_ms = _steady_idle_share(events, steps)
+        idle, window_ms = _steady_idle_share(events, TRAIN_LAUNCHES["conv3d"], steps,
+                                             "profiled epoch")
 
         # the test phase again, from disk, written again
         torch.cuda.synchronize()
@@ -1083,7 +1096,219 @@ def phase_job(serve, train):
         shutil.rmtree(root, ignore_errors=True)
 
 
-def summarise(rows, serve, train, larger_io, job):
+# the by-chunks phase: (a) a 432^3 volume, tiles = the whole volume; (b) the
+# bench's geometry (bench.py:516-548), 5 x 3 x 3 tiles of 216^3 core
+CHUNK_EQ_SHAPE = (432, 432, 432)
+CHUNK_BENCH_SHAPE = (1080, 648, 648)
+CHUNK_TILE = 216  # (128 - 2 * 10) * 2: PATCHES_PER_TILE (2, 2, 2)
+
+
+def _chunks_cfg(test_dir, norm=None):
+    cfg = _main_cfg()
+    cfg["DATA"]["TEST"]["PATH"] = str(test_dir)
+    if norm:
+        cfg["DATA"]["NORMALIZATION"] = {"TYPE": norm}
+    cfg["TEST"]["BY_CHUNKS"] = {"ENABLE": True,
+                                "WORKFLOW_PROCESS": {"PATCHES_PER_TILE": [2, 2, 2]}}
+    return cfg
+
+
+def _chunks_job(test_dir, name, norm=None):
+    from biapy_tpu_torch import BiaPy
+
+    job = BiaPy(_chunks_cfg(test_dir, norm), result_dir=str(test_dir.parent / "results"),
+                name=name, silent=True, check_data_paths=False)
+    job._build_workflow()
+    job.workflow.prepare_model()
+    _random_bn_stats(job.workflow.model, seed=0)
+    return job
+
+
+def _write_chunked_volume(path, shape, seed):
+    """A seeded uint8 Zarr (216^3 chunks, zlib level 1) of random voxels, one
+    chunk per thread (zlib releases the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    from itertools import product
+
+    import numpy as np
+
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+
+    z = ZarrArray.create(str(path), shape=shape + (1,), chunks=(CHUNK_TILE,) * 3 + (1,),
+                         dtype="u1", compressor={"id": "zlib", "level": 1})
+    starts = list(product(*(range(0, n, CHUNK_TILE) for n in shape)))
+
+    def write(i):
+        sl = tuple(slice(s0, min(s0 + CHUNK_TILE, n)) for s0, n in zip(starts[i], shape))
+        rng = np.random.default_rng((seed, i))
+        z[sl] = rng.integers(0, 256, size=tuple(e.stop - e.start for e in sl) + (1,),
+                             dtype=np.uint8)
+
+    with ThreadPoolExecutor(max_workers=8) as pool:
+        list(pool.map(write, range(len(starts))))
+
+
+def _chunk_launches(fn, n_patches, what):
+    """Run ``fn`` with the launch counters set to 0, check them against phase
+    4's per-patch counts, return them."""
+    from biapy_tpu_torch.ops.kernels import build
+
+    build.reset_launches()
+    fn()
+    launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
+    _check_launches(launches, SERVE_LAUNCHES, n_patches, what, "patches")
+    _check_launches(routes, SERVE_ROUTES, n_patches, what + ", conv3d routes", "patches")
+    return launches
+
+
+def phase_by_chunks():
+    """The by-chunks engine (``TEST.BY_CHUNKS``) through ``BiaPy(cfg).test()``
+    at the bench's full width, on seeded uint8 Zarr volumes written under
+    ``chiprun_out/chip_smoke_chunks/`` (deleted at the end).
+
+    (a) Tiles = the whole volume: a 432^3 volume (2 x 2 x 2 tiles, 64
+    patches) with ``DATA.NORMALIZATION.TYPE: div``, whose statistics do not
+    depend on the tile; with overlap 0 and real halos the tile grid is the
+    whole-volume grid, so the raw prediction must equal ``predict`` on the
+    volume in memory: at most 1 uint8 LSB anywhere, the count printed.
+    (b) The bench's scale: 1080 x 648 x 648 (45 tiles of 216^3, 360 patches)
+    with the bench's normalisation after a one-tile warm-up; the seconds,
+    Mvox/s, Zarr read / prepare / write seconds (thread time), the drain's
+    bytes and seconds, the peak memory; then a Z_START / Z_END sub-job of one
+    z row of tiles (9) under the profiler for the device's idle share over
+    its steady tiles (the second onwards)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+    from biapy_tpu_torch.engine.chunked import ChunkedInference
+
+    root = OUT_DIR / "chip_smoke_chunks"
+    shutil.rmtree(root, ignore_errors=True)
+    per_tile = 8  # (2, 2, 2) patches of 128^3 (core 108) per 216^3 tile
+    res = {}
+    try:
+        # ---- (a) tiles = the whole volume
+        t0 = time.perf_counter()
+        eq_dir = root / "eq" / "test"
+        eq_dir.mkdir(parents=True)
+        _write_chunked_volume(eq_dir / "vol.zarr", CHUNK_EQ_SHAPE, seed=5)
+        job = _chunks_job(eq_dir, "chunks_eq", norm="div")
+        n_eq = per_tile * int(np.prod([n // CHUNK_TILE for n in CHUNK_EQ_SHAPE]))
+        t1 = time.perf_counter()
+        launches_a = _chunk_launches(job.test, n_eq, "by-chunks (a)")
+        eq_s = time.perf_counter() - t1
+        per_image = Path(job.workflow.cfg.PATHS.RESULT_DIR.PER_IMAGE)
+        got = np.asarray(ZarrArray(str(per_image / "vol_chunks/raw_pred.zarr")))
+        vol = np.asarray(ZarrArray(str(eq_dir / "vol.zarr")))
+        want = job.predict(vol)[0]["pred"]
+        if got.shape != want.shape or got.dtype != np.uint8:
+            raise AssertionError(f"by-chunks (a): {got.shape} {got.dtype} vs predict {want.shape}")
+        diff = np.abs(got.astype(np.int16) - want.astype(np.int16))
+        n_off = int(np.count_nonzero(diff))
+        print(f"[chunks] (a) {CHUNK_EQ_SHAPE} uint8 Zarr, {n_eq} patches in "
+              f"{n_eq // per_tile} tiles of {CHUNK_TILE}^3: "
+              f"by-chunks test() {eq_s:.2f} s; vs predict() in memory: max diff "
+              f"{int(diff.max())} uint8 LSB, {n_off} of {diff.size} voxels differ by 1 LSB; "
+              f"p mean {got.mean() / 255:.4f}; launches {launches_a} (written in "
+              f"{t1 - t0:.1f} s with the model)")
+        if diff.max() > 1:
+            raise AssertionError(f"by-chunks (a): {int(diff.max())} LSB from predict()")
+        res["eq"] = dict(shape=CHUNK_EQ_SHAPE, seconds=eq_s, max_diff_lsb=int(diff.max()),
+                         voxels_off_by_one=n_off, launches=launches_a)
+        del got, vol, want, diff, job
+        shutil.rmtree(root / "eq")
+
+        # ---- (b) the bench's scale
+        bench_dir = root / "bench" / "test"
+        bench_dir.mkdir(parents=True)
+        t0 = time.perf_counter()
+        _write_chunked_volume(bench_dir / "vol.zarr", CHUNK_BENCH_SHAPE, seed=7)
+        _write_chunked_volume(root / "warm.zarr", (CHUNK_TILE,) * 3, seed=8)
+        data_s = time.perf_counter() - t0
+        job = _chunks_job(bench_dir, "chunks_bench")
+        wf = job.workflow
+        n_tiles = int(np.prod([n // CHUNK_TILE for n in CHUNK_BENCH_SHAPE]))
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        timed = {}
+
+        def warm_and_timed():
+            ChunkedInference(wf, (128, 128, 128), (0.0,) * 3, (10, 10, 10), (2, 2, 2), 1,
+                             str(root)).predict_volume(str(root / "warm.zarr"),
+                                                       out_name="warm_pred.zarr", verbose=False)
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            job.test()  # ends when the last tile is written
+            timed["s"] = time.perf_counter() - t
+
+        launches_b = _chunk_launches(warm_and_timed, (n_tiles + 1) * per_tile, "by-chunks (b)")
+        peak = torch.cuda.max_memory_allocated()
+        secs = timed["s"]
+        st = dict(wf.last_chunked.last_drain_stats)
+        mvox = float(np.prod(CHUNK_BENCH_SHAPE)) / secs / 1e6
+        raw_path = Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE) / "vol_chunks"
+        raw = ZarrArray(str(raw_path / "raw_pred.zarr"))
+        chunk_files = [p for p in (raw_path / "raw_pred.zarr").iterdir()
+                       if not p.name.startswith(".")]
+        if (raw.shape != CHUNK_BENCH_SHAPE + (1,) or raw.dtype != np.uint8
+                or len(chunk_files) != n_tiles or st["tiles"] != n_tiles):
+            raise AssertionError(f"by-chunks (b): {raw.shape} {raw.dtype}, {len(chunk_files)} "
+                                 f"chunk files, {st['tiles']} tiles, want {n_tiles}")
+        tile = raw[CHUNK_TILE:2 * CHUNK_TILE, CHUNK_TILE:2 * CHUNK_TILE, CHUNK_TILE:2 * CHUNK_TILE]
+        if not 0 < tile.std():
+            raise AssertionError("by-chunks (b): a constant tile")
+
+        # the profiled stretch: the second z row of tiles as a Z_START/Z_END
+        # sub-job (9 tiles), rewriting the same chunks
+        cfg = wf.cfg
+        cfg.defrost()
+        cfg.TEST.BY_CHUNKS.Z_START, cfg.TEST.BY_CHUNKS.Z_END = CHUNK_TILE, 2 * CHUNK_TILE
+        cfg.freeze()
+        row = CHUNK_BENCH_SHAPE[1] // CHUNK_TILE * (CHUNK_BENCH_SHAPE[2] // CHUNK_TILE)
+        prof = {}
+
+        def profiled():
+            prof["wall"], _, prof["table"], prof["events"] = _profile_device(job.test)
+
+        launches_p = _chunk_launches(profiled, row * per_tile, "by-chunks (profiled sub-job)")
+        events = prof["events"]
+        idle, window_ms = _steady_idle_share(events, SERVE_LAUNCHES["conv3d"] * per_tile, row,
+                                             "profiled sub-job")
+        d2h = sum(ms for _, name, ms in events if "DtoH" in name or "Device -> Pinned" in name)
+
+        print(f"[chunks] (b) {CHUNK_BENCH_SHAPE} uint8 Zarr (216^3 chunks, zlib 1; written with "
+              f"the warm-up volume in {data_s:.1f} s), {n_tiles} tiles of {CHUNK_TILE}^3, "
+              f"{n_tiles * per_tile} patches of 128^3, halo 10, bf16, uint8 store: "
+              f"{secs:.3f} s, {mvox:.3f} Mvox/s end to end (test(), after a one-tile warm-up); "
+              f"peak memory {peak / 2**30:.2f} GiB")
+        print(f"[chunks] (b) thread seconds: Zarr read {st['read_seconds']:.3f}, tile prepare "
+              f"(pad, statistics, pin) {st['prep_seconds']:.3f}, Zarr write "
+              f"{st['write_seconds']:.3f}; drain {st['bytes']} bytes in {st['seconds']:.4f} s "
+              f"of D2H ({st['mb_per_s']:.0f} MB/s)")
+        print(f"[chunks] (b) profiled Z_START/Z_END sub-job of {row} tiles: wall "
+              f"{prof['wall']:.3f} s, device idle {100 * idle:.1f}% of tiles 2-{row} "
+              f"({window_ms:.1f} ms), D2H {d2h:.2f} ms")
+        for key, ms, cnt in prof["table"][:8]:
+            print(f"[chunks] {ms:10.2f} ms  {cnt:6d}x  {key[:90]}")
+        print(f"[chunks] (b) launches, warm-up + {n_tiles} tiles: {launches_b}")
+        res["bench"] = dict(shape=CHUNK_BENCH_SHAPE, tiles=n_tiles, seconds=secs,
+                            mvox_per_s=mvox, data_seconds=data_s, peak_bytes=peak, drain=st,
+                            launches=launches_b, profile=dict(
+                                tiles=row, wall_s=prof["wall"], idle_share=idle,
+                                window_ms=window_ms, d2h_ms=d2h, launches=launches_p,
+                                top=[dict(name=k, ms=m, count=c)
+                                     for k, m, c in prof["table"][:30]]))
+        res["launches"] = {k: launches_a[k] + launches_b[k] + launches_p[k] for k in launches_a}
+        return res
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def summarise(rows, serve, train, larger_io, job, chunks):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -1091,8 +1316,8 @@ def summarise(rows, serve, train, larger_io, job):
     kernels (conv3d also carries the sums over one training step, forward +
     dx, under ``train_step_*``), one training step at batch 1 for the four
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
-    up the runs of the paths (serving, training, LARGER_IO, the job), each
-    counted from zero."""
+    up the runs of the paths (serving, training, LARGER_IO, the job, the
+    by-chunks runs), each counted from zero."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -1131,7 +1356,8 @@ def summarise(rows, serve, train, larger_io, job):
     for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
         by_path = {"serve": serve["launches"].get(name, 0), "train": train["launches"][name],
-                   "train_larger_io": larger_io["launches"][name], "job": job["launches"][name]}
+                   "train_larger_io": larger_io["launches"][name], "job": job["launches"][name],
+                   "by_chunks": chunks["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -1167,11 +1393,12 @@ def main():
     larger_io = phase_train_larger_io()
     grads = phase_grads_vs_plain()
     job = phase_job(serve, train)
-    kernels = summarise(rows, serve, train, larger_io, job)
+    chunks = phase_by_chunks()
+    kernels = summarise(rows, serve, train, larger_io, job, chunks)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
-        train_larger_io=larger_io, job=job, whole_vs_plain_max_abs=diff,
+        train_larger_io=larger_io, job=job, by_chunks=chunks, whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
@@ -1181,7 +1408,8 @@ def main():
     print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
           "call, host work included) are sums over each kernel's launches in one serving patch "
           "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
-          "train_step_* too), bf16; launches add up the main paths' runs, the job's included)")
+          "train_step_* too), bf16; launches add up the main paths' runs, the job's and the "
+          "by-chunks runs' included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -231,7 +231,7 @@ def test_resume_from_epoch_0_reproduces_the_run(runs, tmp_path):
             np.testing.assert_allclose(g[k], w[k], rtol=0, atol=1e-6, err_msg=k)
 
 
-@pytest.mark.parametrize("what", ["augment", "h5"])
+@pytest.mark.parametrize("what", ["augment", "nifti"])
 def test_inputs_not_ported_name_the_roadmap(what, tmp_path):
     root = str(tmp_path)
     cfg = _cfg(root)
@@ -243,8 +243,8 @@ def test_inputs_not_ported_name_the_roadmap(what, tmp_path):
         os.makedirs(f"{root}/train/x")
         os.makedirs(f"{root}/train/y")
         for d in ("x", "y"):
-            open(f"{root}/train/{d}/000.h5", "wb").close()
-        match = "ROADMAP queue 1 item 6"
+            open(f"{root}/train/{d}/000.nii.gz", "wb").close()
+        match = "ROADMAP queue 1 item 5"
     job = biapy_tpu_torch.BiaPy(cfg, result_dir=root, name=NAME, silent=True, device="cpu",
                                 check_data_paths=False)
     with pytest.raises(NotImplementedError, match=match):

@@ -162,7 +162,7 @@ def test_shuffle_wrappers_reject_shapes_they_do_not_take(call):
 _FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack")
 # optional dependencies of the port: imported only inside the functions
 # that use them, where they are optional
-_LAZY_ONLY = ("cv2", "matplotlib", "yaml", "PIL")
+_LAZY_ONLY = ("cv2", "matplotlib", "yaml", "PIL", "h5py")
 
 
 def _imports(path: Path, top_level_only: bool = False):
@@ -186,7 +186,9 @@ def test_port_imports_nothing_of_jax():
     names = {str(f.relative_to(REPO)) for f in files}
     assert {"biapy_tpu_torch/engine/train_engine.py", "biapy_tpu_torch/engine/schedulers.py",
             "biapy_tpu_torch/engine/metrics.py", "biapy_tpu_torch/utils/flax_msgpack.py",
-            "biapy_tpu_torch/utils/misc.py"} <= names
+            "biapy_tpu_torch/utils/misc.py", "biapy_tpu_torch/engine/chunked.py",
+            "biapy_tpu_torch/data/zarr_store.py", "biapy_tpu_torch/data/io.py",
+            "biapy_tpu_torch/parallel/__init__.py"} <= names
     bad = []
     for f in files:
         for mod in _imports(f):
