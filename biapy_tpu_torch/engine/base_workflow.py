@@ -80,7 +80,6 @@ def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
 
 LEFT_OUT = "queue 1 item 1, left out of the serving slice"
 AUGMENT = "queue 1 item 5, augmentors, pre-processing and generator checks"
-RUNTIME = "queue 1 item 8, runtime"
 
 
 def _not_ported(what: str, item: str = LEFT_OUT) -> NotImplementedError:
@@ -114,7 +113,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self.define_metrics()
 
         self.model: Optional[torch.nn.Module] = None
-        # the inference copy of one test()/predict() pass (_inference_pass)
+        # the model of the current inference pass (inference_pass)
         self._pass_model: Optional[torch.nn.Module] = None
         self.state: Optional[TrainState] = None
         self.plateau: Optional[PlateauController] = None
@@ -409,60 +408,54 @@ class Base_Workflow(metaclass=ABCMeta):
                     print(f"Loaded checkpoint {path} for inference")
 
     # ------------------------------------------------------------- inference
-    def _inference_model(self) -> torch.nn.Module:
-        """The model the stitch runs, in eval mode (running statistics, no
-        dropout, no buffer written; a train step leaves it in training
-        mode): a bf16 copy under TEST.REDUCE_MEMORY."""
-        self.model.eval()
-        if bool(self.cfg.TEST.REDUCE_MEMORY):
-            return copy.deepcopy(self.model).to(torch.bfloat16)
-        return self.model
-
     @contextlib.contextmanager
-    def _inference_pass(self):
-        """One test()/predict() pass: the inference copy is built once, at
-        its start, and dropped at its end (the model is updated in place by
-        training, so a copy kept across passes would go stale)."""
+    def inference_pass(self):
+        """One inference pass (a ``test()``/``predict()`` call, or one
+        by-chunks volume): the model the stitch runs is built once, at its
+        start, and dropped at its end, since training updates the model in
+        place and a copy kept across passes would go stale. That model is in
+        eval mode (running statistics, no dropout, no buffer written; a
+        train step leaves it in training mode), and a bf16 copy under
+        TEST.REDUCE_MEMORY. A pass opened inside another reuses the outer
+        one's model."""
+        if self._pass_model is not None:
+            yield
+            return
         self._ensure_model_for_test()
-        self._pass_model = self._inference_model()
+        self.model.eval()
+        self._pass_model = (copy.deepcopy(self.model).to(torch.bfloat16)
+                            if bool(self.cfg.TEST.REDUCE_MEMORY) else self.model)
         try:
             yield
         finally:
             self._pass_model = None
 
-    def predict_block_on_device(self, block_n, batch_size: Optional[int] = None,
-                                overlap: Optional[Sequence[float]] = None,
-                                padding: Optional[Sequence[int]] = None,
-                                device=None, sync: bool = True, out_splits=None,
-                                norm_stats=None, pre_padded=False, grid_overrides=None):
-        """Whole-block sliding-window inference on the workflow's device:
-        the block (a numpy array or a host tensor, pinned for an
-        asynchronous copy) is uploaded once, the patch grid runs the model
-        (bf16 weights and activations under TEST.REDUCE_MEMORY) and blended
-        cores accumulate in place. Returns the result as a float32 numpy
-        array, or with ``sync=False`` the device tensor (a tuple of them with
-        ``out_splits``) without waiting for it; None when the device path
-        does not apply (test-time augmentation).
+    def predict_block_on_device(self, block_n, overlap: Optional[Sequence[float]] = None,
+                                padding: Optional[Sequence[int]] = None, sync: bool = True,
+                                norm_stats=None, pre_padded=False):
+        """Whole-block sliding-window inference on the workflow's device,
+        inside an ``inference_pass``: the block (a numpy array or a host
+        tensor, pinned for an asynchronous copy) is uploaded once, the patch
+        grid runs the pass's model (bf16 weights and activations under
+        TEST.REDUCE_MEMORY) and blended cores accumulate in place. Returns
+        the result as a float32 numpy array, or with ``sync=False`` the
+        device tensor without waiting for it; None when the device path does
+        not apply (test-time augmentation).
 
         ``norm_stats`` (a ``compute_norm_stats`` dict) moves normalisation
         onto the device: the RAW block ships (uint8 at 1 byte/voxel) and
         ``(clip(x, lo, hi) - sub) / div`` runs there in float32 before the
         cast to the compute dtype — ``normalize_image``'s transform.
-        ``out_splits``, ``pre_padded`` and ``grid_overrides`` are
-        ``sliding_window_inference``'s. ``device``: the workflow's own (one
-        card; tiles across cards come with the runtime)."""
+        ``pre_padded`` is ``sliding_window_inference``'s."""
         if self.cfg.TEST.AUGMENTATION:
             return None
-        if device is not None:
-            dev = torch.device(device)
-            if dev.type != self.device.type or (dev.index or 0) != (self.device.index or 0):
-                raise _not_ported(f"predicting on {dev}, another device than the workflow's "
-                                  f"{self.device}", RUNTIME)
-        self._ensure_model_for_test()
+        model = self._pass_model
+        if model is None:
+            raise RuntimeError("predict_block_on_device runs inside an inference pass: "
+                               "`with workflow.inference_pass(): ...`")
         cfg = self.cfg
         chans = self.output_channels
         reduce_mem = bool(cfg.TEST.REDUCE_MEMORY)
-        model = self._pass_model if self._pass_model is not None else self._inference_model()
         acts = self.activations
 
         def apply_fn(x):
@@ -470,7 +463,7 @@ class Base_Workflow(metaclass=ABCMeta):
                 x = x.to(torch.bfloat16)
             return apply_activations(model(x).float(), acts, chans, training=False)
 
-        bs = batch_size or max(int(cfg.TRAIN.BATCH_SIZE), 1)
+        bs = max(int(cfg.TRAIN.BATCH_SIZE), 1)
         patch = tuple(cfg.DATA.PATCH_SIZE)[: self.nd]
         ov = tuple(overlap) if overlap is not None else tuple(cfg.DATA.TEST.OVERLAP)
         pad = tuple(padding) if padding is not None else tuple(cfg.DATA.TEST.PADDING)
@@ -493,12 +486,9 @@ class Base_Workflow(metaclass=ABCMeta):
                 x = blk.to(vol_dt)
             out = sliding_window_inference(
                 apply_fn, x, patch, ov, pad, out_channels=sum(chans), batch_size=bs,
-                out_dtype=out_dt, pad_mode=pad_mode, out_splits=out_splits,
-                pre_padded=pre_padded, grid_overrides=grid_overrides, quant_uint8=quant)
+                out_dtype=out_dt, pad_mode=pad_mode, pre_padded=pre_padded, quant_uint8=quant)
         if not sync:
             return out
-        if out_splits is not None:
-            return np.concatenate([c.float().cpu().numpy() for c in out], axis=0)
         return out.float().cpu().numpy()
 
     def process_test_sample(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str,
@@ -538,7 +528,7 @@ class Base_Workflow(metaclass=ABCMeta):
         unless ``save_to_disk`` is off."""
         self._predictions = []
         self.metrics_per_test_file = []
-        with self._inference_pass():
+        with self.inference_pass():
             if image is None and self.cfg.TEST.BY_CHUNKS.ENABLE and self.is_3d:
                 self.process_test_by_chunks()
             else:

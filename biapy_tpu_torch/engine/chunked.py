@@ -1,7 +1,7 @@
 """By-chunks inference engine: volumes larger than memory, tile by tile.
 
 Counterpart of ``biapy_tpu/engine/chunked.py`` (``dequant_pred``, ``Tile``,
-``tile_grid``, ``owned_tiles``, ``core_keep_mask``, ``ChunkedInference``).
+``tile_grid``, ``ChunkedInference``).
 The volume streams from a Zarr/N5/HDF5 file one tile (its core plus the
 halo) at a time; each tile runs the on-device sliding-window stitch
 (``ops/stitch.py``) and its core is written into a shared output Zarr of
@@ -19,14 +19,20 @@ compressing a tile's chunk takes longer than predicting it when the values
 compress badly, and zlib releases the GIL. A reader or drain error reaches
 the caller.
 
+The tile loop runs on the workflow's card (``torch.cuda.device``) inside
+one inference pass of the workflow, so the model's inference copy is built
+once per volume, or once per ``test()`` when that is the caller.
+
 Not ported yet, each raising ``NotImplementedError`` that names the
 roadmap: the host crop/merge path that test-time augmentation takes
 (``_predict_block``, ROADMAP queue 1 item 1) and the cross-tile instance
-merge (``create_and_merge_instances``, item 9 with the instance workflow).
+merge (``create_and_merge_instances``, item 9 with the instance workflow;
+the JAX engine's ``owned_tiles`` and ``core_keep_mask`` come with it).
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
 import os
 import threading
@@ -83,24 +89,6 @@ def tile_grid(vol_shape: Sequence[int], tile_size: Sequence[int], halo: Sequence
         he = tuple(min(vol_shape[d], ce[d] + halo[d]) for d in range(nd))
         tiles.append(Tile(idx, cs, ce, hs, he))
     return tiles
-
-
-def owned_tiles(ci: "ChunkedInference", spatial: Sequence[int]):
-    """Tile grid over ``spatial`` plus this rank's round-robin share;
-    ownership delegates to the same predicate the predictor uses."""
-    tiles = tile_grid(tuple(spatial), ci.tile_size, ci.halo)
-    return tiles, [(i, t) for i, t in enumerate(tiles) if ci.owns(i)]
-
-
-def core_keep_mask(coords: np.ndarray, tile: Tile, nd: int) -> np.ndarray:
-    """Boolean mask of local-coordinate points whose global position falls in
-    the tile CORE — halo context sharpens extraction near edges while core
-    ownership keeps per-tile point sets disjoint (no double counting)."""
-    keep = np.ones(len(coords), bool)
-    for d in range(nd):
-        g = coords[:, d] + tile.halo_start[d]
-        keep &= (g >= tile.core_start[d]) & (g < tile.core_end[d])
-    return keep
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -287,37 +275,42 @@ class ChunkedInference:
         reader = ThreadPoolExecutor(max_workers=1)
         drainer = ThreadPoolExecutor(max_workers=2)
         pending: deque = deque()
+        # the workflow's card is the current device for the whole loop, so
+        # the tile's event is recorded on the stream its work was queued on
+        on_card = torch.cuda.device(device) if on_cuda else contextlib.nullcontext()
         try:
-            nxt = reader.submit(read, mine[0]) if mine else None
-            for ti, t in enumerate(mine):
-                item = nxt.result()
-                nxt = reader.submit(read, mine[ti + 1]) if ti + 1 < len(mine) else None
-                if item is None:
-                    stats["skipped"] += 1
-                    continue
-                blk, norm, roi_core = item
-                # at most two tiles in flight: tile i-2's drain has finished
-                # (and re-raised its error, if any) before tile i launches
-                while len(pending) >= 2:
+            with on_card, self.wf.inference_pass():
+                nxt = reader.submit(read, mine[0]) if mine else None
+                for ti, t in enumerate(mine):
+                    item = nxt.result()
+                    nxt = reader.submit(read, mine[ti + 1]) if ti + 1 < len(mine) else None
+                    if item is None:
+                        stats["skipped"] += 1
+                        continue
+                    blk, norm, roi_core = item
+                    # at most two tiles in flight: tile i-2's drain has
+                    # finished (and re-raised its error, if any) before
+                    # tile i launches
+                    while len(pending) >= 2:
+                        pending.popleft().result()
+                    pred = self.wf.predict_block_on_device(
+                        blk, overlap=self.overlap, padding=self.padding, sync=False,
+                        norm_stats=norm, pre_padded=(True,) * self.nd)
+                    if pred is None:
+                        self._predict_block(blk)  # raises: the host path is not ported
+                    done = None
+                    if on_cuda:
+                        done = torch.cuda.Event()
+                        done.record(torch.cuda.current_stream(device))
+                    pending.append(drainer.submit(drain, t, pred, done, roi_core))
+                    stats["tiles"] += 1
+                    if verbose:
+                        print(f"[by-chunks] rank {self.rank}: tile {ti + 1}/{len(mine)} dispatched")
+                if stats["skipped"] and verbose:
+                    print(f"[by-chunks] rank {self.rank}: {stats['skipped']} tiles outside the "
+                          "ROI skipped")
+                while pending:
                     pending.popleft().result()
-                pred = self.wf.predict_block_on_device(
-                    blk, overlap=self.overlap, padding=self.padding, sync=False,
-                    norm_stats=norm, pre_padded=(True,) * self.nd)
-                if pred is None:
-                    self._predict_block(blk)  # raises: the host path is not ported
-                done = None
-                if on_cuda:
-                    done = torch.cuda.Event()
-                    done.record()
-                pending.append(drainer.submit(drain, t, pred, done, roi_core))
-                stats["tiles"] += 1
-                if verbose:
-                    print(f"[by-chunks] rank {self.rank}: tile {ti + 1}/{len(mine)} dispatched")
-            if stats["skipped"] and verbose:
-                print(f"[by-chunks] rank {self.rank}: {stats['skipped']} tiles outside the ROI "
-                      "skipped")
-            while pending:
-                pending.popleft().result()
         finally:
             reader.shutdown(wait=True, cancel_futures=True)
             drainer.shutdown(wait=True)

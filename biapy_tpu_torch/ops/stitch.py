@@ -21,12 +21,12 @@ patches where k^nd suffice.
 
 from __future__ import annotations
 
-from typing import Callable, Optional, Sequence, Tuple
+from typing import Callable, Sequence
 
 import numpy as np
 import torch
 
-from biapy_tpu_torch.data.patching import AxisGrid, axis_grid, spline_window, spline_window_1d
+from biapy_tpu_torch.data.patching import axis_grid, spline_window, spline_window_1d
 
 
 def _axis_weight_sums(grids, core) -> list:
@@ -79,11 +79,9 @@ def sliding_window_inference(
     batch_size: int = 1,
     out_dtype: torch.dtype = torch.float32,
     pad_mode: str = "reflect",
-    out_splits: Optional[Sequence[Tuple[int, int]]] = None,
     pre_padded=False,
-    grid_overrides: Optional[dict] = None,
     quant_uint8: bool = False,
-):
+) -> torch.Tensor:
     """Stitched prediction for one channels-last volume ``(spatial..., C)``
     on its device. ``apply_fn`` maps a ``(B, *patch, C)`` batch to
     ``(B, *patch, out_channels)`` activated predictions. Returns
@@ -91,17 +89,9 @@ def sliding_window_inference(
     ``round(clip(p, 0, 1) * 255)`` with ``quant_uint8`` (half to even, as
     ``jnp.round``).
 
-    ``out_splits``: (z0, z1) bounds in output space; the result is then a
-    tuple of the ``out[z0:z1]`` views.
-
     ``pre_padded``: a bool, or one per axis. A True axis ALREADY carries
     ``padding[d]`` voxels of real halo per side: the grid covers only that
-    axis's core and the result has the core's extent there.
-
-    ``grid_overrides``: ``{axis: (n, step, last_shift, ov_px)}``, the grid
-    of a larger volume this block is a slab of (same step, shift and
-    window), in place of the grid ``axis_grid`` gives the block's own
-    extent."""
+    axis's core and the result has the core's extent there."""
     nd = len(patch)
     dev = volume.device
     if pad_mode == "median":
@@ -130,9 +120,6 @@ def sliding_window_inference(
         vol_p = _pad(volume, pad_width, **pad_kw)
 
     grids = [axis_grid(spatial[d], patch[d], overlap[d], padding[d]) for d in range(nd)]
-    for d, (n_, step_, last_, ovpx_) in (grid_overrides or {}).items():
-        grids[d] = AxisGrid(n=n_, step=step_, last_shift=last_, patch=patch[d], pad=padding[d],
-                            length=spatial[d], ov_px=ovpx_)
     axes_starts = [np.array([g.start(i) for i in range(g.n)], np.int64) for g in grids]
     mesh = np.meshgrid(*axes_starts, indexing="ij")
     starts = np.stack([m.reshape(-1) for m in mesh], axis=-1)
@@ -181,6 +168,4 @@ def sliding_window_inference(
     if quant_uint8:
         # TEST.OUTPUT_QUANT_UINT8: probabilities drain as round(p*255) uint8
         out = torch.round(torch.clamp(out.float(), 0.0, 1.0) * 255.0).to(torch.uint8)
-    if out_splits is not None:
-        return tuple(out[z0:z1] for z0, z1 in out_splits)
     return out

@@ -1,17 +1,14 @@
-"""Process-level helpers of the runtime: rank, world size, barrier and
-object gather.
+"""Process-level helpers of the runtime: rank, world size and barrier.
 
 Counterpart of ``biapy_tpu/parallel/__init__.py:138-190``
-(``is_main_process``, ``process_count``, ``barrier``,
-``all_gather_objects``; ``process_index`` is ``jax.process_index``). Over
-``torch.distributed`` when a process group is initialised, a single process
-otherwise. The by-chunks engine shares its tiles out by these; distributed
-training (DDP) is not ported yet (ROADMAP queue 1 item 8).
+(``is_main_process``, ``process_count``, ``barrier``; ``process_index`` is
+``jax.process_index``). Over ``torch.distributed`` when a process group is
+initialised, a single process otherwise. The by-chunks engine shares its
+tiles out by these; distributed training (DDP) and the object gather of the
+instance merge are not ported yet (ROADMAP queue 1 items 8 and 9).
 """
 
 from __future__ import annotations
-
-from typing import Any
 
 import torch.distributed as dist
 
@@ -38,11 +35,3 @@ def barrier(name: str = "barrier") -> None:
     if process_count() > 1:
         dist.barrier()
 
-
-def all_gather_objects(obj: Any) -> list:
-    """Gather a picklable object from every process, in rank order."""
-    if process_count() <= 1:
-        return [obj]
-    out = [None] * process_count()
-    dist.all_gather_object(out, obj)
-    return out

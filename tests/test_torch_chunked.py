@@ -1,8 +1,8 @@
 """The by-chunks engine and the chunked-file readers, the port against the
 JAX package.
 
-Zarr/N5/HDF5 bytes in both directions, the tile grid, the stitch's
-``pre_padded`` / ``out_splits`` / ``grid_overrides``, ``predict_volume``
+Zarr/N5/HDF5 bytes in both directions, the tile grid and its ownership,
+the stitch's ``pre_padded``, ``predict_volume``
 with identity stub workflows (ROI, axes orders, uint8 storage, Z ranges,
 ranks), a by-chunks ``run_job`` in both packages from one JAX-written
 checkpoint on a Zarr volume whose last tile is ragged on every axis, Zarr
@@ -11,6 +11,7 @@ training samples, and the parts that raise. ``_write_zarr`` and
 patches per tile).
 """
 
+import contextlib
 import copy
 import os
 
@@ -44,6 +45,9 @@ NAME = "chunks"
 # core (12): the stitch's deficit path on a pre-padded axis; 40 = 24 + 16
 # leaves one wider than a core (a shifted last patch)
 VOL_SHAPE = (30, 40, 52)
+# the by-chunks job's volume: 20 < 24 is one short tile in z (a shifted last
+# patch), y and x as above; one z extent keeps the JAX job to one program
+JOB_SHAPE = (20, 40, 52)
 
 
 def _write_zarr(path, data, chunks, pkg=tzs):
@@ -95,22 +99,23 @@ def test_chunked_files_are_mutually_readable_and_byte_identical(fmt, tmp_path):
     (VOL_SHAPE, (24, 24, 24), (2, 2, 2)),
     ((7, 50, 33), (5, 16, 32), (3, 0, 5)),
 ], ids=["even", "ragged", "ragged-uneven-halo"])
-def test_tile_grid_ownership_and_core_mask_match_jax(shape, tile, halo):
-    assert tch.tile_grid(shape, tile, halo) == [tch.Tile(*vars(t).values())
-                                                for t in jch.tile_grid(shape, tile, halo)]
-    pts = np.random.default_rng(1).integers(0, 40, (200, 3))
+def test_tile_grid_and_ownership_match_jax(shape, tile, halo):
+    jtiles = jch.tile_grid(shape, tile, halo)
+    ttiles = tch.tile_grid(shape, tile, halo)
+    assert ttiles == [tch.Tile(*vars(t).values()) for t in jtiles]
+    owned = []
     for world in (1, 2, 3):
         for rank in range(world):
-            cis = [pkg.ChunkedInference(None, (tile[0] + 2 * halo[0],) * 3, (0,) * 3, halo,
-                                        (1, 1, 1), 1, "", rank=rank, world=world)
-                   for pkg in (jch, tch)]
-            for ci in cis:
-                ci.tile_size = tuple(tile)
-            (jt, jo), (tt, to) = (pkg.owned_tiles(ci, shape) for pkg, ci in zip((jch, tch), cis))
-            assert [i for i, _ in to] == [i for i, _ in jo]
-            for (_, a), (_, b) in zip(jo, to):
-                np.testing.assert_array_equal(tch.core_keep_mask(pts, b, 3),
-                                              jch.core_keep_mask(pts, a, 3))
+            ci, jci = (pkg.ChunkedInference(None, (tile[0] + 2 * halo[0],) * 3, (0,) * 3, halo,
+                                            (1, 1, 1), 1, "", rank=rank, world=world)
+                       for pkg in (tch, jch))
+            mine = ci.my_tiles(ttiles)
+            assert mine == [tch.Tile(*vars(t).values()) for t in jci.my_tiles(jtiles)]
+            assert [ci.owns(i) for i in range(len(ttiles))] == [
+                jci.owns(i) for i in range(len(jtiles))]
+            owned += [(world, t.index) for t in mine]
+    # each world size shares out every tile exactly once
+    assert sorted(owned) == sorted((w, t.index) for w in (1, 2, 3) for t in ttiles)
 
 
 # ------------------------------------------------------------------ stitch
@@ -128,21 +133,17 @@ def _apply_jax(_, x):
 @pytest.mark.parametrize("case", [
     dict(pre_padded=True),
     dict(pre_padded=(True, False, True), overlap=(0.5, 0.0, 0.25)),
-    dict(pre_padded=True, out_splits=((0, 5), (5, 13), (13, 14))),
-    dict(pre_padded=(False, True, True), grid_overrides={1: (3, 8, 2, 4)}),
+    dict(pre_padded=True, overlap=(0.25, 0.5, 0.0), pad_mode="median"),
+    dict(pre_padded=(False, False, True), batch_size=4),
     dict(pre_padded=True, quant_uint8=True, batch_size=3),
-], ids=["pre_padded", "per-axis+overlap", "out_splits", "grid_overrides", "uint8"])
+], ids=["pre_padded", "per-axis+overlap", "median-deficit", "batch-duplicates", "uint8"])
 def test_stitch_slab_arguments_match_jax(case):
     case = dict(case)
     overlap = case.pop("overlap", (0.0, 0.0, 0.0))
     vol = np.random.default_rng(2).random((18, 28, 9, 1)).astype(np.float32)
     kw = dict(patch=(12, 12, 12), overlap=overlap, padding=(2, 2, 2), out_channels=2, **case)
     got = torch_swi(_apply_torch, torch.from_numpy(vol), **kw)
-    want = jax_swi(_apply_jax, {}, jnp.asarray(vol), **kw)
-    if "out_splits" in case:
-        assert len(got) == len(want) == 3
-        got, want = torch.cat(got), jnp.concatenate(want)
-    want = np.asarray(want)
+    want = np.asarray(jax_swi(_apply_jax, {}, jnp.asarray(vol), **kw))
     assert tuple(got.shape) == want.shape
     if case.get("quant_uint8"):
         assert got.dtype == torch.uint8
@@ -166,7 +167,7 @@ class _Stub:
     norm_spec = {"type": "none", "percentile_clip": False, "out_dtype": "float32"}
 
     def __init__(self, torch_side, quant=False):
-        self.calls = 0
+        self.calls = self.passes = 0
         self.torch_side = torch_side
         self.quant = quant
         if quant:
@@ -174,6 +175,11 @@ class _Stub:
 
             self.cfg = Config("", "x").get_cfg_defaults()
             self.cfg.merge_from_dict({"TEST": {"OUTPUT_QUANT_UINT8": True}})
+
+    @contextlib.contextmanager
+    def inference_pass(self):
+        self.passes += 1
+        yield
 
     def predict_block_on_device(self, block, overlap=None, padding=None, device=None,
                                 sync=False, norm_stats=None, out_splits=None, pre_padded=False):
@@ -196,6 +202,8 @@ def _run_volume(pkg, torch_side, vol_path, out_dir, quant=False, ranks=((0, 1),)
         ci = pkg.ChunkedInference(stub, (16, 16, 16), (0.0,) * 3, (2, 2, 2), (2, 2, 2), 2,
                                   out_dir, rank=rank, world=world)
         out_path = ci.predict_volume(vol_path, verbose=False, **kw)
+    # the port's engine opens one inference pass per volume
+    assert stub.passes == (len(ranks) if torch_side else 0)
     return np.asarray(jzs.ZarrArray(out_path)), stub.calls
 
 
@@ -269,7 +277,7 @@ def chunk_jobs(tmp_path_factory):
     rng = np.random.default_rng(4)
     os.makedirs(f"{root}/test")
     _write_zarr(f"{root}/test/vol.zarr",
-                rng.integers(0, 256, VOL_SHAPE + (1,), dtype=np.uint8), (24, 24, 24, 1))
+                rng.integers(0, 256, JOB_SHAPE + (1,), dtype=np.uint8), (24, 24, 24, 1))
     # the shared starting point: a seeded model with non-trivial BatchNorm
     # statistics, written by the JAX package
     init = biapy_tpu_torch.BiaPy(_chunks_cfg(root, None, False), result_dir=f"{root}/init",
@@ -316,17 +324,17 @@ def test_by_chunks_job_matches_jax(chunk_jobs, store):
         tif[side] = read_tiff(f"{per_image}/vol.tif")
     t, j = raw["torch"], raw["jax"]
     assert (t.shape, t.chunks, t.dtype) == (j.shape, j.chunks, j.dtype)
-    assert t.shape == VOL_SHAPE + (1,) and t.chunks == (24, 24, 24, 1)
+    assert t.shape == JOB_SHAPE + (1,) and t.chunks == (24, 24, 24, 1)
     assert t.dtype == (np.uint8 if store == "uint8" else np.float32)
     tol = 1 if store == "uint8" else 1e-4
     got, want = np.asarray(t).astype(np.float64), np.asarray(j).astype(np.float64)
     assert np.abs(got - want).max() <= tol
     assert 0.0 < got.std()  # a real prediction, not a constant
-    assert tif["torch"].shape == tif["jax"].shape == VOL_SHAPE
+    assert tif["torch"].shape == tif["jax"].shape == JOB_SHAPE
     assert np.abs(tif["torch"] - tif["jax"]).max() <= (1 / 255 if store == "uint8" else 1e-4)
     stats = chunk_jobs["jobs"][store]["torch"].workflow.last_chunked.last_drain_stats
-    assert stats["tiles"] == 12 and stats["skipped"] == 0
-    assert stats["bytes"] == int(np.prod(VOL_SHAPE)) * (1 if store == "uint8" else 4)
+    assert stats["tiles"] == 6 and stats["skipped"] == 0
+    assert stats["bytes"] == int(np.prod(JOB_SHAPE)) * (1 if store == "uint8" else 4)
 
 
 def test_by_chunks_equals_the_whole_volume_predict(chunk_jobs, tmp_path):
@@ -334,13 +342,45 @@ def test_by_chunks_equals_the_whole_volume_predict(chunk_jobs, tmp_path):
     grid is the whole-volume grid: by-chunks equals ``predict`` on the
     volume in memory (up to float sums in another order)."""
     job = chunk_jobs["jobs"]["f32"]["torch"]
-    vol = np.asarray(jzs.ZarrArray(f"{chunk_jobs['root']}/test/vol.zarr"))[:24, :36, :48]
+    vol = np.random.default_rng(7).integers(0, 256, (24, 36, 48, 1), dtype=np.uint8)
     _write_zarr(str(tmp_path / "vol.zarr"), vol, (24, 24, 24, 1))
     ci = tch.ChunkedInference(job.workflow, (16, 16, 16), (0.0,) * 3, (2, 2, 2), (2, 2, 2), 1,
                               str(tmp_path))
     raw = np.asarray(jzs.ZarrArray(ci.predict_volume(str(tmp_path / "vol.zarr"), verbose=False)))
     whole = job.predict(vol)[0]["pred"]
     np.testing.assert_allclose(raw, whole, rtol=0, atol=1e-5)
+
+
+def test_inference_model_is_built_once_per_pass(chunk_jobs, monkeypatch):
+    """The bf16 inference copy (TEST.REDUCE_MEMORY) is made once per pass,
+    a nested pass reuses it, it is dropped when the pass ends, and
+    ``predict_block_on_device`` outside a pass raises."""
+    from biapy_tpu_torch.engine import base_workflow as tbw
+
+    wf = chunk_jobs["jobs"]["f32"]["torch"].workflow
+    block = np.random.default_rng(6).random((16, 16, 16, 1)).astype(np.float32)
+    with pytest.raises(RuntimeError, match="inside an inference pass"):
+        wf.predict_block_on_device(block)
+    copies, deepcopy = [], copy.deepcopy
+    monkeypatch.setattr(tbw.copy, "deepcopy", lambda x, memo=None: (
+        copies.append(x) if x is wf.model else None) or deepcopy(x, memo))
+    wf.cfg.defrost()
+    wf.cfg.TEST.REDUCE_MEMORY = True
+    try:
+        with wf.inference_pass():
+            model = wf._pass_model
+            with wf.inference_pass():
+                assert wf._pass_model is model
+                a = wf.predict_block_on_device(block)
+            b = wf.predict_block_on_device(block)
+        assert copies == [wf.model] and model is not wf.model
+        assert next(model.parameters()).dtype == torch.bfloat16
+        assert wf._pass_model is None
+    finally:
+        wf.cfg.TEST.REDUCE_MEMORY = False
+        wf.cfg.freeze()
+    np.testing.assert_array_equal(a, b)
+    assert a.shape == (16, 16, 16, 1) and np.isfinite(a).all()
 
 
 def test_per_image_test_reads_a_zarr_with_its_inner_path_and_axes(chunk_jobs, tmp_path):

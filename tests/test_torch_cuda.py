@@ -188,3 +188,61 @@ def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
     assert torch.equal(a, b)
     assert build.CONV3D_ROUTES == {"wgmma": 3, "fma": 2}
     assert build.LAUNCHES["conv3d"] == 5
+
+
+def test_by_chunks_on_a_card_other_than_the_current_one(tmp_path):
+    """The by-chunks engine on cuda:1 while cuda:0 is the current device:
+    each tile's event is recorded on the workflow's card, so the drain's
+    copy waits for the tile, and the Zarr equals ``predict`` in memory
+    (overlap 0, whole patch cores, ``div`` normalisation: the tile grid is
+    the whole volume's) within 1 uint8 LSB."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+    from biapy_tpu_torch.engine.chunked import ChunkedInference
+
+    cfg = {
+        "PROBLEM": {"TYPE": "SEMANTIC_SEG", "NDIM": "3D"},
+        "MODEL": {"ARCHITECTURE": "resunet", "FEATURE_MAPS": [16, 32], "DROPOUT_VALUES": [0.0, 0.0],
+                  "Z_DOWN": [2], "YX_DOWN": [2], "CONV_LAYERS": [2, 2], "NORMALIZATION": "bn",
+                  "ACTIVATION": "elu"},
+        "DATA": {"PATCH_SIZE": [32, 32, 32, 1], "NORMALIZATION": {"TYPE": "div"},
+                 "TEST": {"PADDING": [4, 4, 4], "OVERLAP": [0.0, 0.0, 0.0]}},
+        "TRAIN": {"ENABLE": True, "BATCH_SIZE": 1},  # the model's seeded initialisation
+        "TEST": {"ENABLE": True, "REDUCE_MEMORY": True, "OUTPUT_QUANT_UINT8": True},
+    }
+    torch.cuda.set_device(0)
+    job = BiaPy(cfg, result_dir=str(tmp_path), name="card1", silent=True, check_data_paths=False,
+                device="cuda:1")
+    job._build_workflow()
+    vol = np.random.default_rng(0).integers(0, 256, (96, 96, 96, 1), dtype=np.uint8)
+    z = ZarrArray.create(str(tmp_path / "vol.zarr"), shape=vol.shape, chunks=(48, 48, 48, 1),
+                         dtype=vol.dtype, compressor={"id": "zlib", "level": 1})
+    z[:, :, :, :] = vol
+    wf = job.workflow
+
+    def late(*args, **kwargs):
+        # the tile's result lands well after the launch loop moves on: a
+        # drain that does not wait for it on the workflow's card reads
+        # memory not yet written
+        pred = type(wf).predict_block_on_device(wf, *args, **kwargs)
+        with torch.cuda.device(pred.device):
+            torch.cuda._sleep(50_000_000)
+            return pred.clone()
+
+    ci = ChunkedInference(wf, (32, 32, 32), (0.0,) * 3, (4, 4, 4), (2, 2, 2), 1,
+                          str(tmp_path / "out"))
+    wf.predict_block_on_device = late
+    try:
+        raw = np.asarray(ZarrArray(ci.predict_volume(str(tmp_path / "vol.zarr"), verbose=False)))
+    finally:
+        del wf.predict_block_on_device
+    assert torch.cuda.current_device() == 0
+    assert ci.last_drain_stats["tiles"] == 8
+    whole = job.predict(vol)[0]["pred"]  # float32 of the uint8 values
+    assert raw.dtype == np.uint8 and raw.shape == whole.shape == (96, 96, 96, 1)
+    assert np.abs(raw.astype(np.float64) - whole).max() <= 1
+    assert raw.std() > 0

@@ -350,7 +350,8 @@ def test_three_train_steps_match_jax(arch, norm, larger_io, mixed, train, tmp_pa
     _tree_close(stats, jstate.batch_stats, tol, "batch_stats")
     # the updated model still serves: predict runs it in eval mode and
     # writes no statistics
-    twf.predict_block_on_device(batch["x"][0])
+    with twf.inference_pass():
+        twf.predict_block_on_device(batch["x"][0])
     assert not twf.model.training
     _tree_close(export_flax_variables(twf.model)[1], stats, 0.0, "batch_stats after predict")
 
