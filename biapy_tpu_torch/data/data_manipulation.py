@@ -11,10 +11,11 @@ Zarr/N5/HDF5 inputs as in the JAX package: the Zarr multiple-data layout
 (``DATA.*.INPUT_ZARR_MULTIPLE_DATA``, raw and GT at inner paths of one
 file), ``DATA.*.INPUT_IMG_AXES_ORDER`` and, with ``IN_MEMORY: False``, lazy
 samples whose patches stream from disk (``io.read_patch_as_ndarray``).
+``DATA.PREPROCESS`` runs on every image as it is read, before the patch
+grid and the normalisation statistics (``data/pre_processing.py``).
 
-Not ported yet, each raising ``NotImplementedError`` that names the roadmap:
-``DATA.PREPROCESS`` (ROADMAP queue 1 item 5) and the image-to-image
-multiple-raw-one-target layout (item 9).
+Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
+image-to-image multiple-raw-one-target layout (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -30,6 +31,7 @@ from biapy_tpu_torch.data.io import (_is_chunked, lazy_image_shape, list_image_f
                                      read_img_as_ndarray, read_patch_as_ndarray)
 from biapy_tpu_torch.data.norm import normalize_image
 from biapy_tpu_torch.data.patching import compute_patch_grid, extract_patch, pad_to_min_shape
+from biapy_tpu_torch.data.pre_processing import preprocess_image
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -89,6 +91,7 @@ def filter_samples_by_properties(
     save_num: int = 3,
     by_image: bool = False,
     norm_spec: Optional[Dict] = None,
+    preprocess_cfg=None,
     crop_shape: Optional[Sequence[int]] = None,
     reflect: bool = False,
 ) -> BiaPyDataset:
@@ -142,8 +145,14 @@ def filter_samples_by_properties(
                 if f.gt_path:
                     gt = read_img_as_ndarray(f.gt_path, is_3d=is_3d, data_path=f.gt_data_path,
                                              axes_order=f.gt_input_axes)
-                # mirror the geometry the patch grid was computed on (reflect
-                # pad), else coords select the wrong region of the raw image
+                # mirror the geometry the patch grid was computed on
+                # (preprocess + reflect pad), else coords select the wrong
+                # region of the raw image
+                if preprocess_cfg is not None:
+                    img = preprocess_image(preprocess_cfg, img, is_2d=not is_3d)
+                    if gt is not None:
+                        gt = preprocess_image(preprocess_cfg, gt, is_mask=True,
+                                              only_resize=True, is_2d=not is_3d)
                 if reflect and crop_shape is not None:
                     img, _ = pad_to_min_shape(img, crop_shape[: img.ndim - 1])
                     if gt is not None:
@@ -186,6 +195,7 @@ def build_dataset(
     zarr_multiple: bool = False,
     raw_path_in_file: Optional[str] = None,
     gt_path_in_file: Optional[str] = None,
+    preprocess_cfg=None,
 ) -> BiaPyDataset:
     """Scan a directory pair into a BiaPyDataset with patch-grid samples.
 
@@ -196,8 +206,9 @@ def build_dataset(
     DATA.*.INPUT_ZARR_MULTIPLE_DATA, samples_from_zarr
     data_manipulation.py:1850). Chunked files with ``in_memory=False``
     become LAZY: only metadata is read here, pixels stream patch-by-patch
-    at sample time. The super-resolution workflow's GT upscaling comes with
-    that workflow.
+    at sample time. ``preprocess_cfg`` (DATA.PREPROCESS) runs on every
+    image read here, before the grid and the statistics. The
+    super-resolution workflow's GT upscaling comes with that workflow.
     """
     nd = 3 if is_3d else 2
     if zarr_multiple:
@@ -222,6 +233,11 @@ def build_dataset(
         same_file = yp == xp
         gpath = gt_path_in_file if zarr_multiple and same_file else None
         if not in_memory and _is_chunked(xp):
+            if preprocess_cfg is not None and preprocess_cfg.RESIZE.ENABLE:
+                raise ValueError(
+                    "DATA.PREPROCESS.RESIZE cannot be combined with lazy Zarr/H5 "
+                    "streaming (patches are read straight from disk); load the data "
+                    "in memory or resize it offline")
             # Lazy path: metadata only; per-patch normalization at load time.
             g_ax = input_axes if same_file else None
             shape, _ = lazy_image_shape(xp, is_3d=is_3d, data_path=dpath, axes_order=input_axes)
@@ -246,6 +262,13 @@ def build_dataset(
         if convert_to_rgb and img.shape[-1] == 1:
             img = np.repeat(img, 3, axis=-1)
         gt = read_img_as_ndarray(yp, is_3d=is_3d, data_path=gpath, axes_order=g_ax) if yp else None
+        if preprocess_cfg is not None:
+            # before grid/stats: resize changes geometry (reference:
+            # preprocess_data at load, pre_processing.py:3872)
+            img = preprocess_image(preprocess_cfg, img, is_2d=not is_3d)
+            if gt is not None:
+                gt = preprocess_image(preprocess_cfg, gt, is_mask=True, only_resize=True,
+                                      is_2d=not is_3d)
         if reflect_to_complete_shape:
             img, _ = pad_to_min_shape(img, crop_shape[:nd])
             if gt is not None:
@@ -300,15 +323,12 @@ def split_train_val(
     return tr, va
 
 
-def _check_ported(cfg, split: str) -> None:
-    """Raise for the data options of ``split`` this module does not port."""
+def _check_ported(cfg) -> None:
+    """Raise for the data options this module does not port."""
     if cfg.PROBLEM.TYPE == "IMAGE_TO_IMAGE" and bool(
             cfg.PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER):
         raise _not_ported("PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER",
                           "queue 1 item 9, other workflows")
-    if bool(getattr(cfg.DATA.PREPROCESS, split)):
-        raise _not_ported(f"DATA.PREPROCESS.{split} (pre-processing)",
-                          "queue 1 item 5, augmentors, pre-processing and generator checks")
 
 
 def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
@@ -319,7 +339,8 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
     crop_shape = tuple(cfg.DATA.PATCH_SIZE)
     random_crops = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
     use_gt = _needs_gt(cfg)
-    _check_ported(cfg, "TRAIN")
+    pre = cfg.DATA.PREPROCESS
+    _check_ported(cfg)
 
     train = build_dataset(
         cfg.DATA.TRAIN.PATH,
@@ -337,6 +358,7 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
         zarr_multiple=bool(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA),
         raw_path_in_file=str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
         gt_path_in_file=(str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
+        preprocess_cfg=pre if pre.TRAIN else None,
     )
     fs = cfg.DATA.TRAIN.FILTER_SAMPLES
     if fs.ENABLE:
@@ -346,11 +368,11 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
             save_num=int(cfg.DATA.SAVE_FILTERED_IMAGES_NUM),
             by_image=bool(cfg.DATA.FILTER_BY_IMAGE),
             norm_spec=(norm_spec if fs.NORM_BEFORE else None),
+            preprocess_cfg=pre if pre.TRAIN else None,
             crop_shape=crop_shape,
             reflect=bool(cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or random_crops)
 
     if not cfg.DATA.VAL.FROM_TRAIN:
-        _check_ported(cfg, "VAL")
         val = build_dataset(
             cfg.DATA.VAL.PATH,
             cfg.DATA.VAL.GT_PATH if use_gt else None,
@@ -367,6 +389,7 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
             zarr_multiple=bool(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA),
             raw_path_in_file=str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
             gt_path_in_file=(str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
+            preprocess_cfg=pre if pre.VAL else None,
         )
         vfs = cfg.DATA.VAL.FILTER_SAMPLES
         if vfs.ENABLE:
@@ -394,7 +417,7 @@ def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDa
     load_and_prepare_test_data, data_manipulation.py:955)."""
     is_3d = cfg.PROBLEM.NDIM == "3D"
     use_gt = bool(cfg.DATA.TEST.LOAD_GT)
-    _check_ported(cfg, "TEST")
+    _check_ported(cfg)
     ds = build_dataset(
         cfg.DATA.TEST.PATH,
         cfg.DATA.TEST.GT_PATH if use_gt else None,
@@ -411,6 +434,7 @@ def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDa
         zarr_multiple=bool(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA),
         raw_path_in_file=str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
         gt_path_in_file=(str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
+        preprocess_cfg=cfg.DATA.PREPROCESS if cfg.DATA.PREPROCESS.TEST else None,
     )
     tfs = cfg.DATA.TEST.FILTER_SAMPLES
     if tfs.ENABLE:

@@ -1,17 +1,15 @@
 """Training/eval data generators: the host-side input pipeline, copied from
-the JAX package's ``data/generators.py`` (``PairDataset``, ``BatchLoader``).
+the JAX package's ``data/generators.py`` (``PairDataset``, ``BatchLoader``,
+``save_aug_samples``, ``check_generator_consistence``).
 
 A deterministic sample pipeline (seeded per (seed, epoch, position)) feeds a
 background prefetch thread; batches are channels-last numpy arrays, padded
-to the batch size; the workflow moves them to its device. The shuffle is
-the JAX package's, numpy for numpy, so both packages see the same batches
-in the same order.
-
-Augmentation (``AUGMENTOR.ENABLE``, CutMix) is not ported yet: the JAX
-package's augmentors need OpenCV, which the port does not depend on;
-the workflow raises ``NotImplementedError`` for it before it builds the
-datasets (ROADMAP queue 1 item 5). Multi-process sharding comes with the
-runtime (item 8).
+to the batch size; the workflow moves them to its device. The shuffle, the
+``DATA.PREPROCESS`` ops and the augmentations (``AUGMENTOR.*``, CutMix) are
+the JAX package's, numpy draw for numpy draw, so both packages see the same
+batches in the same order. The loader's threads each resample with at most
+two torch threads (``AUG_THREADS``). Multi-process sharding comes with the
+runtime (ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -22,19 +20,26 @@ import threading
 from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
+import torch
 
+from biapy_tpu_torch.data.augmentors import AugmentorPipeline
 from biapy_tpu_torch.data.dataset import BiaPyDataset
 from biapy_tpu_torch.data.io import _is_chunked, read_img_as_ndarray, read_patch_as_ndarray
 from biapy_tpu_torch.data.norm import normalize_image, normalize_mask
 from biapy_tpu_torch.data.patching import extract_patch
+from biapy_tpu_torch.data.pre_processing import preprocess_image
 
 PREFETCH = 2  # batches the loader's thread prepares ahead
+AUG_THREADS = 2  # torch threads of each loader thread (the warps' grid_sample)
 
 
 class PairDataset:
-    """Image+mask sample source with normalization. ``augment`` marks the
-    training set, whose random crops follow ``DATA.TRAIN.PROBABILITY_MAP``
-    (the augmentations themselves are not ported)."""
+    """Image+mask sample source with pre-processing, normalization and
+    augmentation. ``augment`` marks the training set: its samples take
+    ``AUGMENTOR.*`` (when enabled) and ``DATA.PREPROCESS.TRAIN``, and its
+    random crops follow ``DATA.TRAIN.PROBABILITY_MAP``. ``channel_handler``
+    is the instance workflows' (``data/tta.py`` in the JAX package); semantic
+    segmentation passes None."""
 
     def __init__(
         self,
@@ -44,6 +49,7 @@ class PairDataset:
         augment: bool = True,
         random_crop: bool = False,
         n_classes: int = 2,
+        channel_handler=None,
     ):
         self.ds = ds
         self.cfg = cfg
@@ -51,7 +57,9 @@ class PairDataset:
         self.nd = 3 if self.is_3d else 2
         self.crop_shape = tuple(cfg.DATA.PATCH_SIZE)
         self.norm_spec = norm_spec
-        self.augment = augment
+        self.aug = (AugmentorPipeline(cfg, self.nd, channel_handler=channel_handler)
+                    if augment else None)
+        self._grid_overlay = False  # save_aug_samples draws a grid on its samples
         self.random_crop = random_crop
         self.n_classes = n_classes
 
@@ -62,6 +70,10 @@ class PairDataset:
         s = self.ds.sample_list[idx]
         f = self.ds.dataset_info[s.fid]
         img, gt = s.img, s.gt
+        # DATA.PREPROCESS for samples materialized here (in-memory samples
+        # were preprocessed at dataset build, before the patch grid)
+        pre = self.cfg.DATA.PREPROCESS
+        pre = pre if (pre.TRAIN if self.aug is not None else pre.VAL) else None
         if img is None:
             if s.coords is not None and _is_chunked(f.path):
                 # Lazy Zarr/H5: stream only this patch's region from disk.
@@ -73,10 +85,12 @@ class PairDataset:
                                                axes_order=f.gt_input_axes)
                 if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
                     img = np.repeat(img, 3, axis=-1)
+                if pre is not None:  # per-patch ops (resize rejected at build)
+                    img = preprocess_image(pre, img, is_2d=not self.is_3d)
                 return img, gt
             # disk-backed sample: mirror EXACTLY the geometry the dataset
-            # build computed its patch grid on (FORCE_RGB, reflect pad) —
-            # coords live in that processed space
+            # build computed its patch grid on (FORCE_RGB, preprocess,
+            # reflect pad) — coords live in that processed space
             img = read_img_as_ndarray(f.path, is_3d=self.is_3d, data_path=f.data_path,
                                       axes_order=f.input_axes)
             if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
@@ -86,6 +100,11 @@ class PairDataset:
                 gt_full = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d,
                                               data_path=f.gt_data_path,
                                               axes_order=f.gt_input_axes)
+            if pre is not None:
+                img = preprocess_image(pre, img, is_2d=not self.is_3d)
+                if gt_full is not None:
+                    gt_full = preprocess_image(pre, gt_full, is_mask=True, only_resize=True,
+                                               is_2d=not self.is_3d)
             if bool(self.cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or self.random_crop:
                 from biapy_tpu_torch.data.patching import pad_to_min_shape
 
@@ -140,7 +159,7 @@ class PairDataset:
 
     def _random_crop(self, img, gt, rng, idx=None):
         ps = self.crop_shape[: self.nd]
-        if self.cfg.DATA.TRAIN.PROBABILITY_MAP and gt is not None and self.augment:
+        if self.cfg.DATA.TRAIN.PROBABILITY_MAP and gt is not None and self.aug is not None:
             # sample the crop center from the foreground-weighted map, then
             # clamp the window inside the image
             cdf, shape = self._prob_map_cdf(-1 if idx is None else int(idx), gt)
@@ -163,6 +182,20 @@ class PairDataset:
         img, _ = normalize_image(img, self.norm_spec, stats=f.norm_stats)
         if gt is not None and gt.dtype.kind != "f":
             gt = normalize_mask(gt, self.n_classes)
+        if self.aug is not None:
+            if self.aug.uses_cutmix and len(self) > 1:
+                j = int(rng.integers(0, len(self)))
+                img_b, gt_b = self._load(j)
+                if self.random_crop:
+                    img_b, gt_b = self._random_crop(img_b, gt_b, rng, j)
+                f_b = self.ds.dataset_info[self.ds.sample_list[j].fid]
+                img_b, _ = normalize_image(img_b, self.norm_spec, stats=f_b.norm_stats)
+                if gt_b is not None and gt_b.dtype.kind != "f":
+                    gt_b = normalize_mask(gt_b, self.n_classes)
+                img, gt = self.aug.maybe_cutmix(img, gt, img_b, gt_b, rng)
+            if self._grid_overlay:
+                img = _draw_grid(img)
+            img, gt = self.aug(img, gt, rng)
         out = {"x": np.ascontiguousarray(img, dtype=np.float32)}
         if gt is not None:
             out["y"] = np.ascontiguousarray(gt, dtype=np.float32)
@@ -220,7 +253,7 @@ class BatchLoader:
     def _get_one(self, pos_and_idx):
         pos, i = pos_and_idx
         # rng keyed on the EPOCH POSITION, not the dataset index, so
-        # REPLICATE'd walks of the same sample draw different crops
+        # REPLICATE'd walks of the same sample draw different augmentations
         rng = np.random.default_rng((self.seed, self.epoch, int(pos)))
         return self.dataset.get(int(i), rng)
 
@@ -229,8 +262,12 @@ class BatchLoader:
             if self._pool is None:
                 from concurrent.futures import ThreadPoolExecutor
 
+                # torch.set_num_threads in a thread sizes that thread's
+                # OpenMP team: the workers do not each start a full pool
                 self._pool = ThreadPoolExecutor(max_workers=self.num_workers,
-                                                thread_name_prefix="loader")
+                                                thread_name_prefix="loader",
+                                                initializer=torch.set_num_threads,
+                                                initargs=(AUG_THREADS,))
             samples = list(self._pool.map(self._get_one, indices))
         else:
             samples = [self._get_one(i) for i in indices]
@@ -268,3 +305,54 @@ class BatchLoader:
         t.join()
         if err:
             raise err[0]
+
+
+def _draw_grid(img: np.ndarray, spacing: Optional[int] = None) -> np.ndarray:
+    """Overlay bright grid lines so geometric augmentations (elastic, shear,
+    rotation) are visible in saved samples (reference: draw_grid option of
+    get_transformed_samples, generators/__init__.py:404-412)."""
+    img = img.copy()
+    v = float(img.max()) if img.size else 1.0
+    sp = spacing or max(8, img.shape[-2] // 5)
+    # lines along the last two spatial axes (works for 2D and 3D stacks)
+    img[..., ::sp, :, :] = v
+    img[..., :, ::sp, :] = v
+    return img
+
+
+def save_aug_samples(dataset: PairDataset, out_dir: str, n: int = 10,
+                     draw_grid: bool = True, seed: int = 0):
+    """Save ``n`` augmented training samples (with their un-augmented
+    originals) for visual inspection (reference: AUGMENTOR.AUG_SAMPLES,
+    generators/__init__.py:404-412)."""
+    from biapy_tpu_torch.data.io import save_tif
+
+    os.makedirs(out_dir, exist_ok=True)
+    rng = np.random.default_rng(seed)
+    n = min(n, len(dataset))
+    try:
+        if draw_grid:
+            dataset._grid_overlay = True
+        for i in range(n):
+            idx = int(rng.integers(0, len(dataset)))
+            out = dataset.get(idx, rng)
+            save_tif(out["x"][None], out_dir, [f"aug_{i}_x.tif"], verbose=False)
+            if "y" in out:
+                save_tif(out["y"][None], out_dir, [f"aug_{i}_y.tif"], verbose=False)
+    finally:
+        dataset._grid_overlay = False
+
+
+def check_generator_consistence(loader: BatchLoader, out_dir: str, n: int = 3,
+                                mask_dir: Optional[str] = None):
+    """Dump generator output for visual inspection (reference:
+    DATA.CHECK_GENERATORS, generators/__init__.py:884; masks go to
+    PATHS.GEN_MASK_CHECKS when given)."""
+    from biapy_tpu_torch.data.io import save_tif
+
+    os.makedirs(out_dir, exist_ok=True)
+    it = iter(loader)
+    batch = next(it)
+    save_tif(batch["x"][:n], os.path.join(out_dir, "x"), verbose=False)
+    if "y" in batch:
+        save_tif(batch["y"][:n], mask_dir or os.path.join(out_dir, "y"), verbose=False)

@@ -1,14 +1,13 @@
 """Image IO, copied from the JAX package's ``data/io.py``: TIFF, ``.npy``,
-Zarr v2 / N5 (``data/zarr_store.py``, numpy and zlib only) and HDF5
-(``h5py``, optional: imported only inside the functions that open an
-``.h5`` file) — ``imread``, ``imwrite``, ``read_img_as_ndarray``,
+NIfTI (``data/nifti.py``, numpy and gzip only), Zarr v2 / N5
+(``data/zarr_store.py``, numpy and zlib only), HDF5 (``h5py``, optional:
+imported only inside the functions that open an ``.h5`` file) and PNG/JPG
+(``imageio``, optional likewise) — ``imread``, ``imwrite``, ``read_img_as_ndarray``,
 ``list_image_files``, ``save_tif``, the lazy readers the by-chunks engine
 and the lazy training samples stream from (``open_lazy``,
 ``lazy_image_shape``, ``LazyCanonicalView``, ``read_patch_lazy``,
 ``read_patch_as_ndarray``) and the layout helpers
-(``ensure_channels_last`` and its ``_fit_axes_order``). NIfTI and PNG/JPG
-raise ``NotImplementedError``: their readers come with ROADMAP queue 1
-item 5.
+(``ensure_channels_last`` and its ``_fit_axes_order``).
 
 Convention preserved from the reference: images are channels-last ndarrays —
 ``(y, x, c)`` in 2D, ``(z, y, x, c)`` in 3D.
@@ -39,10 +38,16 @@ def _is_nifti(path: str) -> bool:
     return p.endswith(".nii") or p.endswith(".nii.gz")
 
 
-def _format_not_ported(path: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"reading or writing {path!r}: NIfTI and PNG/JPG files are not ported to "
-        "biapy_tpu_torch yet (ROADMAP queue 1 item 5); TIFF, .npy, Zarr, N5 and HDF5 are")
+def _imageio(path: str):
+    """``imageio.v2``, which PNG/JPG files need; a clear error without it."""
+    try:
+        import imageio.v2 as iio
+    except ImportError as e:
+        raise ImportError(
+            f"reading or writing {path!r}: PNG/JPG files need the optional package "
+            "'imageio', which is not installed; TIFF, NIfTI, .npy, Zarr, N5 and HDF5 "
+            "files need nothing beyond numpy") from e
+    return iio
 
 
 def _norm_inner_path(data_path: str) -> str:
@@ -91,7 +96,9 @@ def _first_zarr_array(z: Union[ZarrArray, ZarrGroup], data_path: Optional[str] =
 def imread(path: str, data_path: Optional[str] = None) -> np.ndarray:
     """Read an image file into an ndarray (no axis normalization applied)."""
     if _is_nifti(path):
-        raise _format_not_ported(path)
+        from biapy_tpu_torch.data.nifti import read_nifti
+
+        return read_nifti(path)
     ext = os.path.splitext(path)[1].lower()
     if ext in TIFF_EXTS:
         return read_tiff(path)
@@ -108,7 +115,7 @@ def imread(path: str, data_path: Optional[str] = None) -> np.ndarray:
     if ext in NPY_EXTS:
         return np.load(path)
     if ext in PNG_EXTS:
-        raise _format_not_ported(path)
+        return np.asarray(_imageio(path).imread(path))
     raise ValueError(f"Unsupported image extension: {path}")
 
 
@@ -297,7 +304,10 @@ def imwrite(path: str, data: np.ndarray, data_path: Optional[str] = None) -> Non
     """Write an ndarray to ``path``, dispatching on extension."""
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     if _is_nifti(path):
-        raise _format_not_ported(path)
+        from biapy_tpu_torch.data.nifti import write_nifti
+
+        write_nifti(path, data)
+        return
     ext = os.path.splitext(path)[1].lower()
     if ext in TIFF_EXTS:
         write_tiff(path, data)
@@ -334,7 +344,8 @@ def imwrite(path: str, data: np.ndarray, data_path: Optional[str] = None) -> Non
         np.save(path, data)
         return
     if ext in PNG_EXTS:
-        raise _format_not_ported(path)
+        _imageio(path).imwrite(path, data)
+        return
     raise ValueError(f"Unsupported image extension: {path}")
 
 

@@ -1,0 +1,268 @@
+"""Channel bookkeeping and the DATA.PREPROCESS pipeline, copied from the
+JAX package's ``data/pre_processing.py``: ``affinity_offsets`` and
+``channels_per_code`` (which the TTA spec reads), and ``resize_image``,
+``apply_gaussian_blur``, ``apply_median_blur``, ``match_histogram``,
+``apply_clahe``, ``detect_edges`` and ``preprocess_image``. The GT ->
+channel-representation compiler (``labels_into_channels`` and its helpers)
+needs the native distance transform and comes with the instance workflow
+(ROADMAP queue 1 item 9).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Sequence, Tuple
+
+import numpy as np
+from scipy import ndimage
+
+
+def affinity_offsets(extra: Dict, nd: int) -> List[Tuple[int, int]]:
+    """Single source of truth for the 'A' block: (axis, distance) pairs in
+    grouped-by-axis order (z first in 3D). Each axis list defaults to [1]
+    (the reference defaults all three to [1], affinity_channel_names
+    pre_processing.py:987); an explicitly-empty list emits no channel for
+    that axis. Shared by the target compiler, channels_per_code and the
+    TTA spec so they can never drift apart."""
+    a = extra.get("A", {})
+    keys = (["z_affinities"] if nd == 3 else []) + ["y_affinities", "x_affinities"]
+    out: List[Tuple[int, int]] = []
+    for d, key in enumerate(keys):
+        dists = a.get(key, [1])
+        if not dists:
+            continue
+        out.extend((d, int(x)) for x in dists)
+    return out
+
+
+def channels_per_code(code: str, extra: Dict, nd: int = 2) -> int:
+    if code == "E":
+        return 2 * nd + 1
+    if code in ("E_offset", "E_sigma"):
+        return nd
+    if code == "E_seediness":
+        return 1
+    if code == "R":
+        return int(extra.get("R", {}).get("nrays", 32))
+    if code == "A":
+        return len(affinity_offsets(extra, nd))
+    return 1
+
+
+# ---------------------------------------------------------------------------
+# DATA.PREPROCESS pipeline (reference: preprocess_data, pre_processing.py:3872
+# and the per-op helpers :3657-3870). Pure NumPy/SciPy host code applied once
+# per image at load time (train/val/test gated by DATA.PREPROCESS.{TRAIN,VAL,
+# TEST}); skimage-free implementations of CLAHE / Canny / histogram matching.
+# ---------------------------------------------------------------------------
+
+
+def resize_image(img: np.ndarray, output_shape: Sequence[int], order: int = 1,
+                 mode: str = "reflect", cval: float = 0.0, clip: bool = True,
+                 preserve_range: bool = True, anti_aliasing: bool = False) -> np.ndarray:
+    """Resize spatial axes to ``output_shape`` (reference: resize_images ->
+    skimage.transform.resize). Channels-last; channel axis untouched."""
+    nd = len(output_shape)
+    factors = [output_shape[d] / img.shape[d] for d in range(nd)] + [1.0] * (img.ndim - nd)
+    out = img.astype(np.float32)
+    if anti_aliasing and any(f < 1 for f in factors[:nd]):
+        sig = [max(0.0, (1 / f - 1) / 2) if f < 1 else 0.0 for f in factors]
+        out = ndimage.gaussian_filter(out, sig, mode=mode, cval=cval)
+    sc_mode = {"reflect": "mirror", "symmetric": "reflect", "edge": "nearest",
+               "wrap": "grid-wrap", "constant": "constant"}.get(mode, mode)
+    out = ndimage.zoom(out, factors, order=order, mode=sc_mode, cval=cval, grid_mode=True)
+    # zoom rounding can land one pixel off the target; fix exactly
+    sl = tuple(slice(0, s) for s in output_shape) + (slice(None),) * (img.ndim - nd)
+    pads = [(0, max(0, output_shape[d] - out.shape[d])) for d in range(nd)] + \
+           [(0, 0)] * (img.ndim - nd)
+    if any(p[1] for p in pads):
+        out = np.pad(out, pads, mode="edge")
+    out = out[sl]
+    if clip:
+        out = np.clip(out, img.min(), img.max())
+    if not preserve_range:
+        # skimage semantics: scale by the DTYPE range (img_as_float), so
+        # inter-image brightness relations survive; per-image min-max would
+        # contrast-stretch each image independently
+        if np.issubdtype(img.dtype, np.integer):
+            info = np.iinfo(img.dtype)
+            out = (out - info.min) / float(info.max - info.min)
+    return out.astype(img.dtype if preserve_range else np.float32)
+
+
+def apply_gaussian_blur(img: np.ndarray, sigma: float = 1.0, mode: str = "nearest",
+                        channel_axis=-1) -> np.ndarray:
+    sig = [float(sigma)] * img.ndim
+    if channel_axis is not None:
+        sig[channel_axis] = 0.0
+    return ndimage.gaussian_filter(img.astype(np.float32), sig, mode=mode).astype(img.dtype)
+
+
+def apply_median_blur(img: np.ndarray, kernel_size: Sequence[int] = (3, 3, 1)) -> np.ndarray:
+    ks = list(kernel_size) + [1] * (img.ndim - len(kernel_size))
+    return ndimage.median_filter(img, size=tuple(ks)).astype(img.dtype)
+
+
+def match_histogram(img: np.ndarray, reference: np.ndarray) -> np.ndarray:
+    """Per-channel quantile mapping of ``img`` onto ``reference``'s intensity
+    distribution (reference: _histogram_matching via skimage
+    match_histograms)."""
+    out = np.empty_like(img, dtype=np.float32)
+    for c in range(img.shape[-1]):
+        src = img[..., c].ravel()
+        ref = reference[..., min(c, reference.shape[-1] - 1)].ravel()
+        s_vals, s_inv, s_cnt = np.unique(src, return_inverse=True, return_counts=True)
+        r_vals, r_cnt = np.unique(ref, return_counts=True)
+        s_q = np.cumsum(s_cnt).astype(np.float64) / src.size
+        r_q = np.cumsum(r_cnt).astype(np.float64) / ref.size
+        mapped = np.interp(s_q, r_q, r_vals.astype(np.float64))
+        out[..., c] = mapped[s_inv].reshape(img.shape[:-1])
+    return out.astype(img.dtype)
+
+
+def _clahe_2d(plane: np.ndarray, kernel_size: Tuple[int, int], clip_limit: float,
+              nbins: int = 256) -> np.ndarray:
+    """CLAHE on one 2D float plane in [0,1] (reference: skimage
+    equalize_adapthist): per-tile clipped-histogram CDF mappings, bilinearly
+    interpolated between tile centers."""
+    h, w = plane.shape
+    th, tw = kernel_size
+    ny, nx = max(1, int(np.ceil(h / th))), max(1, int(np.ceil(w / tw)))
+    ph, pw = ny * th, nx * tw
+    p = np.pad(plane, ((0, ph - h), (0, pw - w)), mode="reflect")
+    q = np.clip((p * (nbins - 1)).astype(np.int32), 0, nbins - 1)
+    # per-tile clipped histogram -> CDF lookup tables
+    luts = np.empty((ny, nx, nbins), np.float32)
+    clip_cnt = max(1.0, clip_limit * th * tw)
+    for i in range(ny):
+        for j in range(nx):
+            tile = q[i * th:(i + 1) * th, j * tw:(j + 1) * tw]
+            hist = np.bincount(tile.ravel(), minlength=nbins).astype(np.float64)
+            excess = np.maximum(hist - clip_cnt, 0).sum()
+            hist = np.minimum(hist, clip_cnt) + excess / nbins
+            cdf = np.cumsum(hist)
+            cdf = (cdf - cdf[0]) / max(cdf[-1] - cdf[0], 1e-12)
+            luts[i, j] = cdf.astype(np.float32)
+    # bilinear interpolation between the 4 surrounding tile mappings
+    yy, xx = np.mgrid[0:ph, 0:pw]
+    fy = (yy + 0.5) / th - 0.5
+    fx = (xx + 0.5) / tw - 0.5
+    y0 = np.clip(np.floor(fy).astype(np.int32), 0, ny - 1)
+    x0 = np.clip(np.floor(fx).astype(np.int32), 0, nx - 1)
+    y1 = np.minimum(y0 + 1, ny - 1)
+    x1 = np.minimum(x0 + 1, nx - 1)
+    wy = np.clip(fy - y0, 0, 1)
+    wx = np.clip(fx - x0, 0, 1)
+    v00 = luts[y0, x0, q]
+    v01 = luts[y0, x1, q]
+    v10 = luts[y1, x0, q]
+    v11 = luts[y1, x1, q]
+    out = (v00 * (1 - wy) * (1 - wx) + v01 * (1 - wy) * wx +
+           v10 * wy * (1 - wx) + v11 * wy * wx)
+    return out[:h, :w]
+
+
+def apply_clahe(img: np.ndarray, kernel_size=None, clip_limit: float = 0.01) -> np.ndarray:
+    """CLAHE over the last two spatial axes (per z-slice for 3D stacks),
+    preserving dtype/range like the reference (pre_processing.py:3838)."""
+    lo, hi = float(img.min()), float(img.max())
+    scale = max(hi - lo, 1e-12)
+    norm = ((img.astype(np.float32) - lo) / scale)
+    sp = norm.shape[:-1]
+    ks = tuple(kernel_size) if kernel_size else (max(1, sp[-2] // 8), max(1, sp[-1] // 8))
+    out = np.empty_like(norm)
+    planes = norm.reshape((-1,) + sp[-2:] + (norm.shape[-1],))
+    op = out.reshape(planes.shape)
+    for i in range(planes.shape[0]):
+        for c in range(planes.shape[-1]):
+            op[i, ..., c] = _clahe_2d(planes[i, ..., c], ks, clip_limit)
+    out = op.reshape(norm.shape)
+    if np.issubdtype(img.dtype, np.integer):
+        return (out * np.iinfo(img.dtype).max).astype(img.dtype)
+    return out.astype(img.dtype)
+
+
+def detect_edges(img: np.ndarray, low_threshold=None, high_threshold=None,
+                 sigma: float = 1.0) -> np.ndarray:
+    """Canny edges over the last two spatial axes (reference: detect_edges ->
+    skimage.feature.canny): gaussian smooth, Sobel gradients, 4-sector
+    non-max suppression, hysteresis linking. Returns the input dtype with
+    edges at max-range."""
+    sp = img.shape[:-1]
+    planes = img.reshape((-1,) + sp[-2:] + (img.shape[-1],)).astype(np.float32)
+    out = np.zeros_like(planes)
+    for i, ci in [(i, ci) for i in range(planes.shape[0])
+                  for ci in range(planes.shape[-1])]:
+        g = planes[i, ..., ci]
+        rng = max(float(g.max() - g.min()), 1e-12)
+        g = (g - g.min()) / rng
+        g = ndimage.gaussian_filter(g, sigma)
+        gy = ndimage.sobel(g, axis=0, mode="nearest")
+        gx = ndimage.sobel(g, axis=1, mode="nearest")
+        mag = np.hypot(gy, gx)
+        lo = low_threshold if low_threshold is not None else 0.1 * float(mag.max())
+        hi = high_threshold if high_threshold is not None else 0.2 * float(mag.max())
+        ang = np.mod(np.arctan2(gy, gx), np.pi)
+        sector = ((ang + np.pi / 8) // (np.pi / 4)).astype(np.int32) % 4
+        offs = {0: (0, 1), 1: (1, 1), 2: (1, 0), 3: (1, -1)}
+        nms = np.zeros_like(mag, bool)
+        for s, (dy, dx) in offs.items():
+            m = sector == s
+            n1 = np.roll(np.roll(mag, dy, 0), dx, 1)
+            n2 = np.roll(np.roll(mag, -dy, 0), -dx, 1)
+            nms |= m & (mag >= n1) & (mag >= n2)
+        strong = nms & (mag >= hi)
+        weak = nms & (mag >= lo)
+        lab, n = ndimage.label(weak, structure=np.ones((3, 3)))
+        keep = np.zeros(n + 1, bool)
+        keep[np.unique(lab[strong])] = True
+        keep[0] = False
+        out[i, ..., ci] = keep[lab].astype(np.float32)
+    out = out.reshape(img.shape)
+    if np.issubdtype(img.dtype, np.integer):
+        return (out * np.iinfo(img.dtype).max).astype(img.dtype)
+    return out.astype(img.dtype)
+
+
+def preprocess_image(pre_cfg, img: np.ndarray, is_mask: bool = False,
+                     only_resize: bool = False, is_2d: bool = True,
+                     _ref_cache: Dict = {}) -> np.ndarray:
+    """Apply the enabled DATA.PREPROCESS ops to one channels-last image
+    (reference: preprocess_data, pre_processing.py:3872). Targets get only
+    the resize — nearest-neighbour when they are masks (is_y_mask there)."""
+    if pre_cfg.RESIZE.ENABLE:
+        img = resize_image(
+            img, tuple(pre_cfg.RESIZE.OUTPUT_SHAPE),
+            order=0 if is_mask else int(pre_cfg.RESIZE.ORDER),
+            mode=str(pre_cfg.RESIZE.MODE), cval=float(pre_cfg.RESIZE.CVAL),
+            clip=bool(pre_cfg.RESIZE.CLIP),
+            preserve_range=bool(pre_cfg.RESIZE.PRESERVE_RANGE),
+            anti_aliasing=bool(pre_cfg.RESIZE.ANTI_ALIASING))
+    if is_mask or only_resize:
+        return img
+    if pre_cfg.GAUSSIAN_BLUR.ENABLE:
+        img = apply_gaussian_blur(img, sigma=float(pre_cfg.GAUSSIAN_BLUR.SIGMA),
+                                  mode=str(pre_cfg.GAUSSIAN_BLUR.MODE),
+                                  channel_axis=(-1 if pre_cfg.GAUSSIAN_BLUR.CHANNEL_AXIS
+                                                is None else pre_cfg.GAUSSIAN_BLUR.CHANNEL_AXIS))
+    if pre_cfg.MEDIAN_BLUR.ENABLE:
+        img = apply_median_blur(img, tuple(pre_cfg.MEDIAN_BLUR.KERNEL_SIZE))
+    if pre_cfg.MATCH_HISTOGRAM.ENABLE:
+        ref_path = str(pre_cfg.MATCH_HISTOGRAM.REFERENCE_PATH)
+        ref = _ref_cache.get(ref_path)
+        if ref is None:
+            from biapy_tpu_torch.data.io import list_image_files, read_img_as_ndarray
+
+            files = list_image_files(ref_path)
+            if not files:
+                raise FileNotFoundError(
+                    f"DATA.PREPROCESS.MATCH_HISTOGRAM.REFERENCE_PATH '{ref_path}' has no images")
+            ref = read_img_as_ndarray(files[0], is_3d=not is_2d)
+            _ref_cache[ref_path] = ref
+        img = match_histogram(img, ref)
+    if pre_cfg.CLAHE.ENABLE:
+        img = apply_clahe(img, pre_cfg.CLAHE.KERNEL_SIZE,
+                          float(pre_cfg.CLAHE.CLIP_LIMIT))
+    if pre_cfg.CANNY.ENABLE:
+        img = detect_edges(img, pre_cfg.CANNY.LOW_THRESHOLD,
+                           pre_cfg.CANNY.HIGH_THRESHOLD)
+    return img

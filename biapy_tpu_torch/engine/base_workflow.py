@@ -4,17 +4,20 @@ inference.
 Counterpart of ``biapy_tpu/engine/base_workflow.py``: ``apply_activations``,
 ``prepare_model`` (model, optimizer and ``TrainState``, which
 ``engine/train_engine.py::make_train_step`` advances; checkpoint loading and
-resume), ``train`` (data from disk, the epoch loop with validation, the
-plateau controller, early stopping, ``TRAIN.CHECKPOINT_MONITOR``, the JAX
-package's ``.ckpt`` checkpoints, the loggers, the best checkpoint reloaded
-at the end), ``predict_block_on_device`` (whole-volume sliding-window
-inference on the card, normalisation of the raw volume included),
-``process_test_sample`` on the device path, ``process_test_by_chunks`` (the
-by-chunks engine over Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and
-``test`` from disk or from an in-memory image. Test-time augmentation, the
-host crop/merge path, ROI masks on the per-image path, the profiler hook
-and the contrastive and multi-head training branches are not ported yet
-(ROADMAP queue 1) and raise ``NotImplementedError``.
+resume), ``train`` (data from disk with pre-processing and augmentation,
+the generator checks, the epoch loop with validation, the plateau
+controller, early stopping, ``TRAIN.CHECKPOINT_MONITOR``, the JAX package's
+``.ckpt`` checkpoints, the loggers, the best checkpoint reloaded at the
+end), ``predict_block_on_device`` (whole-volume sliding-window inference on
+the card, normalisation of the raw volume included), ``predict_patches``
+(patch batches through the model on the card, with test-time augmentation
+when TEST.AUGMENTATION is on), ``process_test_sample`` (the device path, or
+the host crop/merge path under test-time augmentation; ROI masks;
+TEST.REUSE_PREDICTIONS), ``process_test_by_chunks`` (the by-chunks engine
+over Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and ``test`` from disk or
+from an in-memory image. The profiler hook and the contrastive and
+multi-head training branches are not ported yet (ROADMAP queue 1) and raise
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -32,10 +35,15 @@ import torch
 from biapy_tpu_torch.data.data_manipulation import (load_and_prepare_test_data,
                                                      load_and_prepare_train_data,
                                                      prepare_in_memory_test_data)
-from biapy_tpu_torch.data.generators import BatchLoader, PairDataset
+from biapy_tpu_torch.data.generators import (BatchLoader, PairDataset,
+                                             check_generator_consistence, save_aug_samples)
 from biapy_tpu_torch.data.io import list_image_files, open_lazy, read_img_as_ndarray, save_tif
-from biapy_tpu_torch.data.norm import build_norm_dict, compute_norm_stats, stats_to_affine
-from biapy_tpu_torch.data.patching import extract_patch
+from biapy_tpu_torch.data.norm import (build_norm_dict, compute_norm_stats, normalize_image,
+                                       stats_to_affine)
+from biapy_tpu_torch.data.patching import (crop_data_with_overlap, extract_patch,
+                                           merge_data_with_overlap)
+from biapy_tpu_torch.data.pre_processing import preprocess_image
+from biapy_tpu_torch.data.tta import ensemble_predictions
 from biapy_tpu_torch.engine.chunked import ChunkedInference, dequant_pred
 from biapy_tpu_torch.engine.schedulers import (PlateauController, build_multihead_optimizer,
                                                 build_optimizer, load_optax_state_dict,
@@ -78,11 +86,7 @@ def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
     return torch.cat(outs, dim=-1)
 
 
-LEFT_OUT = "queue 1 item 1, left out of the serving slice"
-AUGMENT = "queue 1 item 5, augmentors, pre-processing and generator checks"
-
-
-def _not_ported(what: str, item: str = LEFT_OUT) -> NotImplementedError:
+def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to biapy_tpu_torch yet (ROADMAP: {item})")
 
 
@@ -144,6 +148,11 @@ class Base_Workflow(metaclass=ABCMeta):
     def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
         """Workflow hook after the raw-prediction Zarr exists (the instance
         workflow runs the tile watershed and merge here)."""
+
+    def tta_spec(self):
+        """Channel-semantics spec for TTA; None = all scalars. Instance seg
+        overrides with its representation spec."""
+        return None
 
     # ------------------------------------------------------------- model
     def prepare_model(self):
@@ -225,10 +234,6 @@ class Base_Workflow(metaclass=ABCMeta):
         (reference: prepare_train_generators); sets ``train_loader``,
         ``val_loader`` and the steps per epoch the schedules read."""
         cfg = self.cfg
-        if cfg.AUGMENTOR.ENABLE or cfg.AUGMENTOR.CUTMIX:
-            raise _not_ported("AUGMENTOR.ENABLE / AUGMENTOR.CUTMIX (data augmentation)", AUGMENT)
-        if cfg.DATA.CHECK_GENERATORS:
-            raise _not_ported("DATA.CHECK_GENERATORS (generator checks)", AUGMENT)
         train_ds, val_ds = load_and_prepare_train_data(cfg, self.norm_spec)
         n_classes = int(cfg.DATA.N_CLASSES)
         random_crop = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
@@ -247,6 +252,17 @@ class Base_Workflow(metaclass=ABCMeta):
                                       shuffle=bool(cfg.AUGMENTOR.SHUFFLE_VAL_DATA_EACH_EPOCH),
                                       seed=seed)
         self._steps_per_epoch = len(self.train_loader)
+        # runtime self-checks (reference: DATA.CHECK_GENERATORS dumps
+        # generator output, generators/__init__.py:884; AUGMENTOR.AUG_SAMPLES
+        # saves augmented examples, :404-412) — rank 0 only
+        if is_main_process():
+            if cfg.DATA.CHECK_GENERATORS and cfg.PATHS.GEN_CHECKS:
+                check_generator_consistence(self.train_loader, cfg.PATHS.GEN_CHECKS,
+                                            mask_dir=cfg.PATHS.GEN_MASK_CHECKS or None)
+            if cfg.AUGMENTOR.ENABLE and cfg.AUGMENTOR.AUG_SAMPLES and cfg.PATHS.DA_SAMPLES:
+                save_aug_samples(self.train_data, cfg.PATHS.DA_SAMPLES,
+                                 n=int(cfg.AUGMENTOR.AUG_NUM_SAMPLES),
+                                 draw_grid=bool(cfg.AUGMENTOR.DRAW_GRID))
         if self.verbose:
             print(f"Train samples: {len(self.train_data)}, val samples: {len(self.val_data)}, "
                   f"batch: {bs} on {self.device}")
@@ -439,8 +455,9 @@ class Base_Workflow(metaclass=ABCMeta):
         grid runs the pass's model (bf16 weights and activations under
         TEST.REDUCE_MEMORY) and blended cores accumulate in place. Returns
         the result as a float32 numpy array, or with ``sync=False`` the
-        device tensor without waiting for it; None when the device path does
-        not apply (test-time augmentation).
+        device tensor without waiting for it; None under test-time
+        augmentation, which runs on the host crop/merge path
+        (``predict_patches``).
 
         ``norm_stats`` (a ``compute_norm_stats`` dict) moves normalisation
         onto the device: the RAW block ships (uint8 at 1 byte/voxel) and
@@ -491,23 +508,92 @@ class Base_Workflow(metaclass=ABCMeta):
             return out
         return out.float().cpu().numpy()
 
+    def predict_patches(self, patches: np.ndarray) -> np.ndarray:
+        """The pass's model over ``patches`` (n, *patch, c; normalised
+        float32) in batches of TRAIN.BATCH_SIZE on the workflow's device,
+        activations applied;
+        float32 numpy out. With TEST.AUGMENTATION each patch is predicted in
+        every orientation of TEST.AUGMENTATION_GROUP and the inverted
+        predictions reduced by TEST.AUGMENTATION_MODE (``ensemble_predictions``).
+        Runs inside an ``inference_pass`` (bf16 under TEST.REDUCE_MEMORY)."""
+        model = self._pass_model
+        if model is None:
+            raise RuntimeError("predict_patches runs inside an inference pass: "
+                               "`with workflow.inference_pass(): ...`")
+        bs = max(int(self.cfg.TRAIN.BATCH_SIZE), 1)
+        dt = torch.bfloat16 if bool(self.cfg.TEST.REDUCE_MEMORY) else torch.float32
+        pin = self.device.type == "cuda"
+
+        def run_batches(p):
+            outs = []
+            with torch.inference_mode():
+                for i in range(0, len(p), bs):
+                    x = torch.from_numpy(np.ascontiguousarray(p[i:i + bs], dtype=np.float32))
+                    if pin:
+                        x = x.pin_memory()
+                    x = x.to(self.device, non_blocking=True).to(dt)
+                    y = apply_activations(model(x).float(), self.activations,
+                                          self.output_channels, training=False)
+                    outs.append(y.cpu().numpy())
+            return np.concatenate(outs, axis=0)
+
+        if self.cfg.TEST.AUGMENTATION:
+            # representation-aware TTA (reference: ensemble_predictions,
+            # post_processing.py:1371; tta.py)
+            mode = (self.cfg.TEST.AUGMENTATION_MODE or "mean").lower()
+            return ensemble_predictions(run_batches, patches, spec=self.tta_spec(),
+                                        ndim=self.nd, mode=mode,
+                                        group_level=str(self.cfg.TEST.AUGMENTATION_GROUP or "full"))
+        return run_batches(patches)
+
     def process_test_sample(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str,
                             sample=None):
-        """Sliding-window inference on one image, on the device path."""
+        """Sliding-window inference on one image (reference:
+        process_test_sample, base_workflow.py:1840): on the device path, or
+        under test-time augmentation on the host crop/merge path with the
+        same normalisation statistics; then the ROI mask. With
+        TEST.REUSE_PREDICTIONS the saved prediction is read back instead."""
         cfg = self.cfg
         if cfg.TEST.REUSE_PREDICTIONS:
-            raise _not_ported("TEST.REUSE_PREDICTIONS")
-        if cfg.DATA.TEST.ROI_MASK.ENABLE:
-            raise _not_ported("DATA.TEST.ROI_MASK")
+            # Skip the model entirely: reload this image's saved prediction
+            # and re-run only metrics + workflow post-processing (reference:
+            # TEST.REUSE_PREDICTIONS, config.py:1861, base_workflow.py:1850) —
+            # the recovery path for tweaking post-proc without re-predicting.
+            prev = os.path.join(cfg.PATHS.RESULT_DIR.PER_IMAGE, fname)
+            if not os.path.exists(prev):
+                prev = os.path.join(cfg.PATHS.RESULT_DIR.FULL_IMAGE, fname)
+            if not os.path.exists(prev):
+                raise FileNotFoundError(
+                    f"TEST.REUSE_PREDICTIONS: no saved prediction for '{fname}' under "
+                    f"{cfg.PATHS.RESULT_DIR.PER_IMAGE} — run a prediction pass first")
+            merged = read_img_as_ndarray(prev, is_3d=self.is_3d).astype(np.float32)
+            m = self.metric_calculation(merged, gt) if gt is not None else {}
+            if m:
+                self.metrics_per_test_file.append(m)
+                if self.verbose:
+                    print(f"  {fname} (reused): " + " ".join(f"{k}={v:.4f}" for k, v in m.items()))
+            self.after_merge_patches(merged, sample, fname)
+            self._predictions.append({"role": "raw", "pred": merged, "file": fname, "metrics": m})
+            return {"pred": merged}
         ov = tuple(cfg.DATA.TEST.OVERLAP)
         pad = tuple(cfg.DATA.TEST.PADDING)
         # stats from the raw bytes; the device normalises (uint8 ships at
-        # 1 byte/voxel)
+        # 1 byte/voxel); the host path normalises with the same stats
         stats = compute_norm_stats(img, self.test_norm_spec)
         # one card: the JAX package's multi-chip z-slabbing does not apply
         merged = self.predict_block_on_device(img, overlap=ov, padding=pad, norm_stats=stats)
         if merged is None:
-            raise _not_ported("test-time augmentation (the host crop/merge path)")
+            # float32 on the host; predict_patches casts to the pass's dtype
+            img_n = normalize_image(img, dict(self.test_norm_spec, out_dtype="float32"),
+                                    stats=stats)[0]
+            patches, _ = crop_data_with_overlap(
+                img_n[None], tuple(cfg.DATA.PATCH_SIZE), overlap=ov, padding=pad,
+                pad_type="median" if cfg.DATA.TEST.MEDIAN_PADDING else "reflect")
+            preds = self.predict_patches(patches)
+            merged = merge_data_with_overlap(
+                preds, (1,) + img.shape[: self.nd] + (preds.shape[-1],), overlap=ov,
+                padding=pad)[0]
+        merged = self.apply_roi_mask(merged, fname)
         m = self.metric_calculation(merged, gt) if gt is not None else {}
         if m:
             self.metrics_per_test_file.append(m)
@@ -563,6 +649,11 @@ class Base_Workflow(metaclass=ABCMeta):
                 if f.gt_path:
                     g = read_img_as_ndarray(f.gt_path, is_3d=self.is_3d,
                                             data_path=f.gt_data_path, axes_order=f.gt_input_axes)
+                if cfg.DATA.PREPROCESS.TEST:
+                    img = preprocess_image(cfg.DATA.PREPROCESS, img, is_2d=not self.is_3d)
+                    if g is not None:
+                        g = preprocess_image(cfg.DATA.PREPROCESS, g, is_mask=True,
+                                             only_resize=True, is_2d=not self.is_3d)
                 if s.coords is not None:  # patch sample (e.g. USE_VAL_AS_TEST)
                     img = extract_patch(img, s.coords)
                     if g is not None:
@@ -576,6 +667,38 @@ class Base_Workflow(metaclass=ABCMeta):
         self.print_stats()
         barrier("per_image_test")  # pairs with the non-main early return
 
+    def apply_roi_mask(self, pred: np.ndarray, fname: str) -> np.ndarray:
+        """Restrict inference to a region-of-interest mask (reference:
+        apply_roi_mask, base_workflow.py:1801; data/roi_mask.py): the
+        prediction is zeroed outside the mask."""
+        roi_cfg = self.cfg.DATA.TEST.ROI_MASK
+        if not roi_cfg.ENABLE:
+            return pred
+        path = str(roi_cfg.PATH)
+        candidates = list_image_files(path) if os.path.isdir(path) else [path]
+        # patch samples carry a '_sample{i}' suffix — strip it for matching
+        base = fname
+        stem, ext = os.path.splitext(fname)
+        if "_sample" in stem:
+            base = stem.rsplit("_sample", 1)[0] + ext
+        match = [c for c in candidates if os.path.basename(c) in (fname, base)]
+        if not match and len(candidates) == 1:
+            match = candidates  # a single mask file serves every volume
+        if not match:
+            # same rule as the by-chunks path: never silently apply an
+            # arbitrary mask out of several candidates
+            print(f"WARNING: no ROI mask named {base} in {path} and several "
+                  "candidates exist — skipping the ROI for this image")
+            return pred
+        roi = read_img_as_ndarray(match[0], is_3d=self.is_3d)
+        m = (roi[..., :1] > 0).astype(pred.dtype)
+        if m.shape[: self.nd] != pred.shape[: self.nd]:
+            from scipy import ndimage
+
+            zoom = [pred.shape[d] / m.shape[d] for d in range(self.nd)] + [1.0]
+            m = (ndimage.zoom(m, zoom, order=0) > 0).astype(pred.dtype)
+        return pred * m
+
     def process_test_by_chunks(self):
         """Tile-streamed inference over Zarr/N5/HDF5 volumes (reference:
         process_test_sample_by_chunks, base_workflow.py:2469; the JAX
@@ -584,9 +707,6 @@ class Base_Workflow(metaclass=ABCMeta):
         the ROI mask (tiles without an ROI voxel are skipped), the whole
         prediction as a TIFF with SAVE_OUT_TIF."""
         cfg = self.cfg
-        if cfg.TEST.AUGMENTATION:
-            raise _not_ported("test-time augmentation under TEST.BY_CHUNKS (the host crop/merge "
-                              "path)")
         bc = cfg.TEST.BY_CHUNKS
         files = list_image_files(cfg.DATA.TEST.PATH)
         out_ch = sum(self.output_channels)

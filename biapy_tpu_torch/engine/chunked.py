@@ -23,11 +23,15 @@ The tile loop runs on the workflow's card (``torch.cuda.device``) inside
 one inference pass of the workflow, so the model's inference copy is built
 once per volume, or once per ``test()`` when that is the caller.
 
-Not ported yet, each raising ``NotImplementedError`` that names the
-roadmap: the host crop/merge path that test-time augmentation takes
-(``_predict_block``, ROADMAP queue 1 item 1) and the cross-tile instance
-merge (``create_and_merge_instances``, item 9 with the instance workflow;
-the JAX engine's ``owned_tiles`` and ``core_keep_mask`` come with it).
+Under test-time augmentation a tile takes the JAX engine's host crop/merge
+path instead (``_predict_block``): the block normalised on the host with
+the tile's statistics, its patches through ``predict_patches`` in every
+orientation, merged, the core cut out and quantised like the device path's.
+
+Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
+cross-tile instance merge (``create_and_merge_instances``, ROADMAP queue 1
+item 9 with the instance workflow; the JAX engine's ``owned_tiles`` and
+``core_keep_mask`` come with it).
 """
 
 from __future__ import annotations
@@ -46,7 +50,9 @@ import numpy as np
 import torch
 
 from biapy_tpu_torch.data.io import LazyCanonicalView, open_lazy
-from biapy_tpu_torch.data.norm import compute_norm_stats
+from biapy_tpu_torch.data.norm import compute_norm_stats, normalize_image
+from biapy_tpu_torch.data.patching import (crop_data_with_overlap, merge_data_with_overlap,
+                                           pad_to_min_shape)
 from biapy_tpu_torch.data.zarr_store import ZarrArray
 from biapy_tpu_torch.parallel import barrier, is_main_process
 
@@ -297,7 +303,7 @@ class ChunkedInference:
                         blk, overlap=self.overlap, padding=self.padding, sync=False,
                         norm_stats=norm, pre_padded=(True,) * self.nd)
                     if pred is None:
-                        self._predict_block(blk)  # raises: the host path is not ported
+                        pred = self._host_tile(t, blk, norm, spec, quant)
                     done = None
                     if on_cuda:
                         done = torch.cuda.Event()
@@ -321,11 +327,35 @@ class ChunkedInference:
         barrier("chunked_raw_pred")
         return out_path
 
-    def _predict_block(self, block):
-        """The host crop/merge path, which the JAX engine takes under
+    def _host_tile(self, t: Tile, blk: torch.Tensor, norm, spec, quant: bool) -> torch.Tensor:
+        """A tile on the host crop/merge path (test-time augmentation): the
+        block normalised with its statistics, predicted, its core cut out and
+        quantised as the device path quantises; a host tensor the drain
+        copies like a device result."""
+        spec32 = dict(spec, out_dtype="float32")  # predict_patches casts to the pass's dtype
+        block_n, _ = normalize_image(blk.numpy().astype(np.float32), spec32, stats=norm)
+        pred = self._predict_block(block_n)
+        pred = pred[tuple(slice(self.halo[d], self.halo[d] + t.core_end[d] - t.core_start[d])
+                          for d in range(self.nd))]
+        if quant:
+            pred = np.round(np.clip(pred.astype(np.float32), 0.0, 1.0) * 255.0).astype(np.uint8)
+        return torch.from_numpy(np.ascontiguousarray(pred, dtype=np.uint8 if quant else np.float32))
+
+    def _predict_block(self, block: np.ndarray) -> np.ndarray:
+        """Sliding-window inference over one (halo-extended, normalised)
+        block on the host crop/merge path, the patches through the
+        workflow's ``predict_patches``: the JAX engine's fallback under
         test-time augmentation."""
-        raise _not_ported("test-time augmentation under TEST.BY_CHUNKS (the host crop/merge "
-                          "path)", "queue 1 item 1, left out of the serving slice")
+        block_p, pads = pad_to_min_shape(block, self.patch)
+        patches, _ = crop_data_with_overlap(block_p[None], self.patch + (block.shape[-1],),
+                                            overlap=self.overlap, padding=self.padding)
+        preds = self.wf.predict_patches(patches)
+        merged = merge_data_with_overlap(
+            preds, (1,) + block_p.shape[: self.nd] + (self.out_channels,),
+            overlap=self.overlap, padding=self.padding,
+        )[0]
+        unpad = tuple(slice(p[0], merged.shape[d] - p[1]) for d, p in enumerate(pads))
+        return merged[unpad]
 
     # -- phase 2+3: per-tile instances + cross-tile merge ----------------------
     def create_and_merge_instances(self, raw_pred_path: str, instance_fn, merge_iou_th: float = 0.3,

@@ -2,8 +2,10 @@
 
 Counterpart of ``biapy_tpu/engine/semantic_seg.py``: one head, sigmoid
 (binary) or softmax (multi-class); CE / Dice / CE+Dice losses (LOSS.TYPE)
-and the IoU train metric; foreground IoU per image at test time; the
-binarised prediction written per image (two classes).
+and the IoU train metric; foreground IoU per image at test time;
+``TEST.POST_PROCESSING.MEDIAN_FILTER`` on each prediction (and on the stack
+of 2D predictions with ``TEST.ANALIZE_2D_IMGS_AS_3D_STACK``); the binarised
+prediction written per image (two classes).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ from typing import Dict, Optional
 import numpy as np
 
 from biapy_tpu_torch.data.io import save_tif
+from biapy_tpu_torch.data.post_processing import apply_median_filter
 from biapy_tpu_torch.engine import metrics as M
 from biapy_tpu_torch.engine.base_workflow import Base_Workflow, _not_ported
 
@@ -76,12 +79,32 @@ class Semantic_Segmentation_Workflow(Base_Workflow):
 
     def after_merge_patches(self, pred, sample, fname):
         cfg = self.cfg
-        if cfg.TEST.POST_PROCESSING.MEDIAN_FILTER:
-            raise _not_ported("TEST.POST_PROCESSING.MEDIAN_FILTER")
+        pp = cfg.TEST.POST_PROCESSING
+        if pp.MEDIAN_FILTER and not (cfg.TEST.ANALIZE_2D_IMGS_AS_3D_STACK and not self.is_3d):
+            pred = apply_median_filter(pred, [str(a) for a in pp.MEDIAN_FILTER_AXIS],
+                                       [int(s) for s in pp.MEDIAN_FILTER_SIZE])
         if self.save_to_disk and cfg.DATA.N_CLASSES <= 2:
             binar = (pred > 0.5).astype(np.uint8)
             save_tif(binar[None], cfg.PATHS.RESULT_DIR.PER_IMAGE_BIN, [fname], verbose=False)
 
-    # after_all_images: the JAX workflow's is the 2D-stack analysis
-    # (TEST.ANALIZE_2D_IMGS_AS_3D_STACK); the port runs 3D models only, so the
-    # base class's no-op stands
+    def after_all_images(self):
+        """2D predictions analysed as one 3D stack, with optional z-median
+        filtering (reference: TEST.ANALIZE_2D_IMGS_AS_3D_STACK +
+        POST_PROCESSING.MEDIAN_FILTER; run_checks Test1)."""
+        cfg = self.cfg
+        if not cfg.TEST.ANALIZE_2D_IMGS_AS_3D_STACK or self.is_3d:
+            return
+        raws = [p for p in self._predictions if p.get("role") == "raw"]
+        if not raws:
+            return
+        try:
+            stack = np.stack([p["pred"] for p in raws], axis=0)
+        except ValueError:
+            return  # ragged shapes: nothing to stack
+        pp = cfg.TEST.POST_PROCESSING
+        if pp.MEDIAN_FILTER:
+            stack = apply_median_filter(stack, [str(a) for a in pp.MEDIAN_FILTER_AXIS],
+                                        [int(s) for s in pp.MEDIAN_FILTER_SIZE])
+        self._predictions.append({"role": "as_3d_stack", "pred": stack})
+        if self.save_to_disk:
+            save_tif(stack[None], cfg.PATHS.RESULT_DIR.AS_3D_STACK, ["stack.tif"], verbose=False)

@@ -56,7 +56,21 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     and drain times, peak memory, and the device's idle share over a
     profiled Z_START / Z_END sub-job of 9 tiles; every run's launch counters
     checked at phase 4's per-patch counts;
-11. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+11. augmentation and test-time augmentation (TTA): (a) phase 9's job with
+    the repository template's augmentations (RANDOM_ROT, VFLIP, HFLIP,
+    ZFLIP) and TTA in its test pass, written under
+    ``chiprun_out/chip_smoke_aug/`` (deleted at the end): seconds per epoch,
+    the loop's patches/s against phase 6's device-resident rate at b = 2,
+    the host's augmentation seconds per sample, the device's idle share
+    over steady steps, the launch counters at phase 6's per step; (b) the
+    test pass again with TTA (mean over 16 orientations) at batch 1: Mvox/s,
+    launches at 16 x phase 4's per patch; (c) TTA at reduced width on the
+    card against the CPU (plain versions), float32 and bf16, as phase 5;
+    (d) ``templates/semantic_segmentation/3d_semantic_segmentation.yaml``
+    as it is but for its data paths (seeded TIFFs under
+    ``chiprun_out/chip_smoke_template/``), EPOCHS 2 and a one-epoch warm-up:
+    trains, writes its checkpoints, tests; seconds and conv3d routes;
+12. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
@@ -387,7 +401,9 @@ def phase_kernels(card, conv3d_only=False):
     if conv3d_only:
         return out.rows
 
-    pools = MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1))]  # odd: ragged, c = 5, window 3x2x1
+    # odd: ragged, c = 5, window 3x2x1; the template's first pool (Z_DOWN 1:
+    # window 1x2x2, 28 channels)
+    pools = MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((40, 128, 128, 28), (1, 2, 2))]
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
         for shape, win in pools:
@@ -930,13 +946,25 @@ def _write_job_data(root):
 def _steady_idle_share(events, per, units, what):
     """Idle share of the device from the first conv3d launch of the second
     unit (a training step, a tile) to the end of the last event; each unit
-    launches conv3d ``per`` times, the first being the stem's. Busy time is
-    the union of the events' intervals on every stream (a tile's drain copy
-    overlaps the next tile's compute)."""
+    launches conv3d ``per`` times, the first being a stem's (on the CUDA
+    cores, the unit's last on the tensor cores). Busy time is the union of
+    the events' intervals on every stream (a tile's drain copy overlaps the
+    next tile's compute).
+
+    The window, units 2 on, must be whole: its ``per * (units - 1)`` conv3d
+    events are the trace's last, and the first of them a stem; a lost event
+    inside it would put a tensor-core conv there. The first unit, outside
+    the window, may lack events: traces of augmented epochs on the card
+    lost a conv3d kernel of the first step that the counters saw launched."""
     convs = [i for i, (_, name, _) in enumerate(events) if "conv3d_k3_" in name]
-    if len(convs) != per * units:
-        raise AssertionError(f"{what}: {len(convs)} conv3d events, want {per * units}")
-    t0 = events[convs[per]][0]
+    steady = per * (units - 1)
+    if not steady < len(convs) <= per * units or "wgmma" in events[convs[-steady]][1]:
+        raise AssertionError(f"{what}: {len(convs)} conv3d events of {per * units}, the window "
+                             f"of units 2-{units} not whole")
+    if len(convs) < per * units:
+        print(f"[profile] {what}: the trace lacks {per * units - len(convs)} of the first "
+              f"unit's {per} conv3d events; units 2-{units} are whole")
+    t0 = events[convs[-steady]][0]
     busy, end = 0.0, t0
     for st, _, ms in sorted(e for e in events if e[0] >= t0):
         en = st + ms * 1e3
@@ -1308,7 +1336,307 @@ def phase_by_chunks():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def summarise(rows, serve, train, larger_io, job, chunks):
+# phase 11: the augmented job (the repository template's augmentations on
+# phase 9's data), its test pass with test-time augmentation, TTA on the
+# card against the CPU, and the repository template itself
+AUG_SET = {"ENABLE": True, "RANDOM_ROT": True, "VFLIP": True, "HFLIP": True, "ZFLIP": True}
+TTA_ORIENTATIONS = 16  # the 3D group (data/tta.py::build_axis_transform_group, "full")
+TEMPLATE = REPO / "templates/semantic_segmentation/3d_semantic_segmentation.yaml"
+TEMPLATE_TRAIN_SHAPE, TEMPLATE_TEST_SHAPE = (80, 256, 256), (80, 256, 256)
+
+
+def _augment_seconds(ds, n=8):
+    """Host seconds per training sample in one loader thread (torch threads
+    as the loader's): ``PairDataset.get`` whole, the augmentation pass alone
+    on the normalised sample, and one rotation of the image and mask
+    (``affine_2d``, the warp RANDOM_ROT takes half of the time)."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch.data import augmentors
+    from biapy_tpu_torch.data.generators import AUG_THREADS
+
+    def run():
+        rng = np.random.default_rng(0)
+        get_s, aug_s, rot_s = [], [], []
+        for i in range(n):
+            t0 = time.perf_counter()
+            s = ds.get(i % len(ds), rng)
+            get_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            ds.aug(s["x"], s["y"], rng)
+            aug_s.append(time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            augmentors.affine_2d(s["x"], s["y"], rng, rot_deg=float(rng.uniform(-180, 180)))
+            rot_s.append(time.perf_counter() - t0)
+        return (statistics.mean(get_s), statistics.mean(aug_s), statistics.mean(rot_s))
+
+    with ThreadPoolExecutor(1, initializer=torch.set_num_threads, initargs=(AUG_THREADS,)) as p:
+        return p.submit(run).result()
+
+
+def phase_augmented(serve, train):
+    """(a) Phase 9's job with the template's augmentations (RANDOM_ROT,
+    VFLIP, HFLIP, ZFLIP at their default probabilities) and test-time
+    augmentation (mean over the 16 orientations) at batch 2, through
+    ``run_job``: seconds per epoch, one more epoch timed (the loop's
+    patches/s against phase 6's device-resident rate at b = 2, launches at
+    phase 6's per step), one profiled (the idle share over steady steps),
+    the host's augmentation seconds per sample. (b) The test pass again at
+    batch 1 with TTA: Mvox/s, launches at 16 x phase 4's per patch."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.tiff import read_tiff
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    root = OUT_DIR / "chip_smoke_aug"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        _write_job_data(root)
+        cfg = _main_cfg()
+        cfg["DATA"]["TRAIN"] = {"PATH": str(root / "train/x"), "GT_PATH": str(root / "train/y"),
+                                "IN_MEMORY": True}
+        cfg["DATA"]["VAL"] = {"FROM_TRAIN": True, "SPLIT_TRAIN": 0.25}
+        cfg["DATA"]["TEST"].update(PATH=str(root / "test/x"), GT_PATH=str(root / "test/y"),
+                                   LOAD_GT=True, IN_MEMORY=False)
+        cfg["TRAIN"].update(EPOCHS=JOB_EPOCHS, BATCH_SIZE=JOB_BATCH, LR=[0.01])
+        cfg["AUGMENTOR"] = dict(AUG_SET)
+        cfg["TEST"].update(AUGMENTATION=True, AUGMENTATION_MODE="mean", AUGMENTATION_GROUP="full")
+        job = BiaPy(cfg, result_dir=str(root / "results"), name="chip_aug", silent=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        job.run_job()
+        torch.cuda.synchronize()
+        job_s = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        peak = torch.cuda.max_memory_allocated()
+        wf = job.workflow
+        hist = wf.history
+        n_steps = len(wf.train_loader) * JOB_EPOCHS
+        n_val = len(wf.val_loader) * JOB_EPOCHS
+        n_patches = int(np.prod([n // 108 for n in JOB_TEST_SHAPE]))  # 108: the core
+        n_tta = TTA_ORIENTATIONS * n_patches // JOB_BATCH  # forward batches of the TTA pass
+        per_step = {k: v // (train["by_batch"][1]["steps"] + 2)
+                    for k, v in train["by_batch"][1]["launches"].items()}
+        per_fwd = {k: serve["launches"].get(k, 0) // 24 for k in per_step}  # 3 calls x 8 patches
+        want = {k: per_step[k] * n_steps + per_fwd[k] * (n_val + n_tta) for k in per_step}
+        if launches != want:
+            raise AssertionError(f"augmented job: launches {launches}, want {want} ({n_steps} "
+                                 f"steps x {per_step} + {n_val} + {n_tta} forward batches x "
+                                 f"{per_fwd})")
+        losses = [h["loss"] for h in hist] + [h["val_loss"] for h in hist]
+        if len(hist) != JOB_EPOCHS or not all(np.isfinite(v) for v in losses):
+            raise AssertionError(f"augmented job: epochs {hist}")
+        aug_dir = Path(wf.cfg.PATHS.DA_SAMPLES)
+        if len(list(aug_dir.glob("aug_*_x.tif"))) != int(wf.cfg.AUGMENTOR.AUG_NUM_SAMPLES):
+            raise AssertionError(f"augmented job: samples in {aug_dir}: {sorted(aug_dir.iterdir())}")
+        get_s, aug_s, rot_s = _augment_seconds(wf.train_data)
+
+        # the loop alone: one more epoch timed, one profiled
+        step = make_train_step(wf.loss, wf.train_metrics,
+                               mixed_precision=resolve_mixed_precision("auto", wf.device))
+        gen = torch.Generator(device=wf.device).manual_seed(1)
+        steps = len(wf.train_loader)
+        build.reset_launches()
+        t0 = time.perf_counter()
+        wf.train_one_epoch(step, JOB_EPOCHS, gen)  # ends on a host read of the last loss
+        loop_s = time.perf_counter() - t0
+        loop_launches = dict(build.LAUNCHES)
+        _check_launches(loop_launches, per_step, steps, "augmented loop")
+        loop_pps = steps * JOB_BATCH / loop_s
+        for attempt in range(1, 4):
+            # this trace has lost conv3d events on the card, mostly of the
+            # first step, which the window leaves out; once, of the window
+            wall, busy, table, events = _profile_device(
+                lambda: wf.train_one_epoch(step, JOB_EPOCHS + attempt, gen))
+            try:
+                idle, window_ms = _steady_idle_share(events, TRAIN_LAUNCHES["conv3d"], steps,
+                                                     "augmented profiled epoch")
+                break
+            except AssertionError as e:
+                if attempt == 3:
+                    raise
+                print(f"[profile] {e} (trace {attempt}); profiling again")
+
+        # (b) the test pass with TTA again, at batch 1 (phase 4's), timed
+        c = wf.cfg
+        c.defrost()
+        c.TRAIN.BATCH_SIZE = 1
+        c.freeze()
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        job.test()
+        test_s = time.perf_counter() - t0
+        tta_launches = dict(build.LAUNCHES)
+        tta_routes = dict(build.CONV3D_ROUTES)
+        _check_launches(tta_launches, SERVE_LAUNCHES, TTA_ORIENTATIONS * n_patches,
+                        "TTA test pass", "patches")
+        _check_launches(tta_routes, SERVE_ROUTES, TTA_ORIENTATIONS * n_patches,
+                        "TTA test pass, conv3d routes", "patches")
+        written = read_tiff(str(root / "results/chip_aug/results/chip_aug/per_image/test_000.tif"))
+        if (written.shape != JOB_TEST_SHAPE or not np.all(np.isfinite(written))
+                or written.min() < 0 or written.max() > 1):
+            raise AssertionError(f"TTA test pass: prediction {written.shape}, "
+                                 f"{written.min()}..{written.max()}")
+        mvox = int(np.prod(JOB_TEST_SHAPE)) / test_s / 1e6
+        device_pps = train["by_batch"][JOB_BATCH]["patches_per_s"]
+        print(f"[aug] run_job with {sorted(k for k in AUG_SET if k != 'ENABLE')} and TTA (mean, "
+              f"{TTA_ORIENTATIONS} orientations): {len(wf.train_data)} train / "
+              f"{len(wf.val_data)} val patches of 128^3, {JOB_EPOCHS} epochs of {steps} steps at "
+              f"batch {JOB_BATCH}: {job_s:.2f} s, peak memory {peak / 2**30:.2f} GiB")
+        print(f"[aug] seconds per epoch (train, validation, checkpoints) "
+              f"{[round(h['time'], 3) for h in hist]}; loss {[round(h['loss'], 5) for h in hist]}, "
+              f"val_loss {[round(h['val_loss'], 5) for h in hist]}")
+        print(f"[aug] host seconds per sample in one loader thread: get {get_s:.4f} (read, crop, "
+              f"normalise, augment), augmentation alone {aug_s:.4f}, one rotation of image and "
+              f"mask {rot_s:.4f}")
+        print(f"[aug] the loop: {loop_pps:.3f} training patches/s ({steps} steps in {loop_s:.3f} "
+              f"s, loader, augmentation and H2D included) vs {device_pps:.3f} device-resident "
+              f"(phase 6, b={JOB_BATCH}): {100 * (1 - loop_pps / device_pps):.1f}% lower; "
+              f"launches {loop_launches} = {steps} x phase 6's per step")
+        print(f"[aug] profiled epoch: device idle {100 * idle:.1f}% of steps 2-{steps} "
+              f"({window_ms:.1f} ms); wall {wall:.3f} s, device busy {busy / 1e3:.3f} s")
+        print(f"[aug] (b) TTA test pass at batch 1: {JOB_TEST_SHAPE} in {test_s:.3f} s, "
+              f"{mvox:.3f} Mvox/s (read, {TTA_ORIENTATIONS} x {n_patches} patches, merge, "
+              f"write); launches {tta_launches} = {TTA_ORIENTATIONS} x {n_patches} x phase 4's "
+              f"per patch; conv3d routes {tta_routes}")
+        return dict(seconds=job_s, epoch_seconds=[h["time"] for h in hist], history=hist,
+                    peak_bytes=peak, launches_run_job=launches, sample_get_s=get_s,
+                    augment_s=aug_s, rotation_s=rot_s, loop_seconds=loop_s,
+                    loop_patches_per_s=loop_pps, device_patches_per_s=device_pps,
+                    loop_launches=loop_launches, idle_share=idle, profile=dict(
+                        wall_s=wall, device_ms=busy,
+                        top=[dict(name=k, ms=m, count=c) for k, m, c in table[:30]]),
+                    tta_test_seconds=test_s, tta_mvox_per_s=mvox, tta_launches=tta_launches,
+                    tta_routes=tta_routes,
+                    launches={k: launches.get(k, 0) + loop_launches.get(k, 0)
+                              + tta_launches.get(k, 0) for k in KERNEL_META})
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def phase_tta_vs_plain():
+    """(c) TTA (mean over the 16 orientations) at reduced width on the card
+    and on the CPU (plain versions), same weights and volume, compared as
+    phase 5 compares ``predict``: float32 at fm 8/16/32, bf16 at 16/32/64."""
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+
+    vol = np.random.default_rng(1).integers(0, 256, (40, 37, 45), dtype=np.uint8)
+    res = {}
+    for dt, fm, reduce_mem in (("float32", [8, 16, 32], False), ("bfloat16", [16, 32, 64], True)):
+        cfg = _main_cfg()
+        cfg["MODEL"]["FEATURE_MAPS"] = fm
+        cfg["DATA"]["PATCH_SIZE"] = [32, 32, 32, 1]
+        cfg["DATA"]["TEST"] = {"PADDING": [4, 4, 4], "OVERLAP": [0.25, 0.25, 0.25]}
+        cfg["TEST"] = {"ENABLE": True, "REDUCE_MEMORY": reduce_mem, "OUTPUT_QUANT_UINT8": False,
+                       "AUGMENTATION": True, "AUGMENTATION_MODE": "mean",
+                       "AUGMENTATION_GROUP": "full"}
+        preds, secs = [], []
+        for dev in ("cuda:0", "cpu"):
+            job = BiaPy(cfg, result_dir=str(OUT_DIR), name=f"chip_smoke_tta_{dt}_{dev[:3]}",
+                        silent=True, check_data_paths=False, device=dev)
+            job._build_workflow()
+            job.workflow.prepare_model()  # seeded init: the same weights on both devices
+            _random_bn_stats(job.workflow.model, seed=1)
+            t0 = time.perf_counter()
+            preds.append(np.asarray(job.predict(vol)[0]["pred"], dtype=np.float32))
+            secs.append(time.perf_counter() - t0)
+        diff = np.abs(preds[0] - preds[1])
+        worst, mean = float(diff.max()), float(diff.mean())
+        # as phase 5: float32 sums in other orders; in bf16 every layer rounds
+        tol_max, tol_mean = (1e-4, 1e-4) if dt == "float32" else (5e-2, 5e-3)
+        print(f"[tta-vs-plain] fm {fm}, patch 32^3, volume (40, 37, 45), {dt}, TTA mean of 16: "
+              f"max |p_card - p_cpu| = {worst:.3g} (tol {tol_max}), mean {mean:.3g} "
+              f"(tol {tol_mean}); card {secs[0]:.2f} s, CPU {secs[1]:.2f} s")
+        if not (worst <= tol_max and mean <= tol_mean):
+            raise AssertionError(f"TTA {dt}: card and CPU differ by max {worst}, mean {mean}")
+        res[dt] = dict(max_abs=worst, mean_abs=mean, card_s=secs[0], cpu_s=secs[1])
+    return res
+
+
+def phase_template():
+    """(d) The repository template
+    (templates/semantic_segmentation/3d_semantic_segmentation.yaml) loaded as
+    it is, with only the data paths (seeded TIFFs: two training volumes and
+    one test volume of 80 x 256 x 256, eight (40, 128, 128) patches each),
+    EPOCHS 2 and WARMUP_COSINE_DECAY_EPOCHS 1 changed: trains (resunet
+    28/36/48/64, Z_DOWN 1: (1, 2, 2) pool windows, AdamW, warm-up cosine,
+    its augmentations), writes its checkpoints and tests to the end."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml  # the template is YAML; PyYAML is optional for the port itself
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.tiff import read_tiff, write_tiff
+    from biapy_tpu_torch.ops.kernels import build
+
+    root = OUT_DIR / "chip_smoke_template"
+    shutil.rmtree(root, ignore_errors=True)
+    try:
+        g = torch.Generator(device=DEVICE).manual_seed(3)
+        for split, n, shape in (("train", 2, TEMPLATE_TRAIN_SHAPE), ("test", 1, TEMPLATE_TEST_SHAPE)):
+            for d in ("x", "y"):
+                (root / split / d).mkdir(parents=True)
+            for i in range(n):
+                img, msk = _job_volume(g, shape, DEVICE)
+                write_tiff(str(root / split / "x" / f"{split}_{i:03d}.tif"), img)
+                write_tiff(str(root / split / "y" / f"{split}_{i:03d}.tif"), msk)
+        with open(TEMPLATE) as f:
+            cfg = yaml.safe_load(f)
+        cfg["DATA"]["TRAIN"].update(PATH=str(root / "train/x"), GT_PATH=str(root / "train/y"))
+        cfg["DATA"]["TEST"].update(PATH=str(root / "test/x"), GT_PATH=str(root / "test/y"))
+        cfg["TRAIN"]["EPOCHS"] = 2
+        cfg["TRAIN"]["LR_SCHEDULER"]["WARMUP_COSINE_DECAY_EPOCHS"] = 1
+        job = BiaPy(cfg, result_dir=str(root / "results"), name="template", silent=True)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        t0 = time.perf_counter()
+        job.run_job()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        launches = dict(build.LAUNCHES)
+        routes = dict(build.CONV3D_ROUTES)
+        wf = job.workflow
+        hist = wf.history
+        ck = sorted(p.name for p in Path(wf.cfg.PATHS.CHECKPOINT).iterdir())
+        written = read_tiff(str(Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE) / "test_000.tif"))
+        if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist)
+                or ck != ["template-checkpoint-1.ckpt", "template-checkpoint-best.ckpt"]
+                or written.shape != TEMPLATE_TEST_SHAPE or not np.all(np.isfinite(written))):
+            raise AssertionError(f"template: epochs {hist}, checkpoints {ck}, prediction "
+                                 f"{written.shape}")
+        if not (launches["pool_max_folded"] and launches["pool_max_folded_bwd"]
+                and launches["zd2s"] == 0 and routes["fma"] and routes["wgmma"]):
+            raise AssertionError(f"template: launches {launches}, conv3d routes {routes}")
+        print(f"[template] {TEMPLATE.relative_to(REPO)}: resunet {list(wf.cfg.MODEL.FEATURE_MAPS)}, "
+              f"Z_DOWN {list(wf.cfg.MODEL.Z_DOWN)}, patch {list(wf.cfg.DATA.PATCH_SIZE)}, "
+              f"{wf.cfg.TRAIN.OPTIMIZER[0]}, {len(wf.train_data)} train / {len(wf.val_data)} val "
+              f"patches, 2 epochs: run_job {secs:.2f} s (seconds per epoch "
+              f"{[round(h['time'], 3) for h in hist]}, loss {[round(h['loss'], 5) for h in hist]}, "
+              f"test IoU {wf.stats['iou']:.4f})")
+        print(f"[template] launches {launches}; conv3d routes {routes} (widths 28 and 36 on the "
+              f"CUDA cores)")
+        return dict(seconds=secs, epoch_seconds=[h["time"] for h in hist], launches=launches,
+                    conv3d_routes=routes, iou=wf.stats["iou"])
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -1317,7 +1645,8 @@ def summarise(rows, serve, train, larger_io, job, chunks):
     dx, under ``train_step_*``), one training step at batch 1 for the four
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
-    by-chunks runs), each counted from zero."""
+    by-chunks runs, the augmented job with its TTA passes, the template),
+    each counted from zero."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -1357,7 +1686,9 @@ def summarise(rows, serve, train, larger_io, job, chunks):
         src, replaces = KERNEL_META[name]
         by_path = {"serve": serve["launches"].get(name, 0), "train": train["launches"][name],
                    "train_larger_io": larger_io["launches"][name], "job": job["launches"][name],
-                   "by_chunks": chunks["launches"].get(name, 0)}
+                   "by_chunks": chunks["launches"].get(name, 0),
+                   "augmented_and_tta": aug["launches"].get(name, 0),
+                   "template": template["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -1394,11 +1725,15 @@ def main():
     grads = phase_grads_vs_plain()
     job = phase_job(serve, train)
     chunks = phase_by_chunks()
-    kernels = summarise(rows, serve, train, larger_io, job, chunks)
+    aug = phase_augmented(serve, train)
+    tta = phase_tta_vs_plain()
+    template = phase_template()
+    kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
-        train_larger_io=larger_io, job=job, by_chunks=chunks, whole_vs_plain_max_abs=diff,
+        train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
+        tta_vs_plain=tta, template=template, whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
@@ -1408,8 +1743,9 @@ def main():
     print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
           "call, host work included) are sums over each kernel's launches in one serving patch "
           "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
-          "train_step_* too), bf16; launches add up the main paths' runs, the job's and the "
-          "by-chunks runs' included)")
+          "train_step_* too), bf16; launches add up the main paths' runs, the job's, the "
+          "by-chunks runs', the augmented job's with its TTA passes and the template's "
+          "included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -70,6 +70,31 @@ def test_cuda_wrappers_count_launches_and_raise_on_bad_input():
         conv3d(x, w[..., :4, :])
 
 
+@pytest.mark.parametrize("channels", [28, 36])
+def test_pool_at_a_window_of_1_2_2_matches_plain_on_the_card(channels):
+    """The pool and its backward at the (1, 2, 2) windows of
+    ``MODEL.Z_DOWN: [1, 1, 1, 1]`` (the 3D semantic-segmentation template)
+    with its odd widths, odd row counts and h, w of odd halves, ties, a NaN
+    and a -0, in float32 and bfloat16."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(channels)
+    win = (1, 2, 2)
+    for dt in (torch.float32, torch.bfloat16):
+        for shape in ((5, 8, 6, channels), (3, 10, 14, channels)):
+            x = torch.randint(-2, 3, shape, generator=g).to(dev, dt) * 0.5  # ties
+            x.view(-1)[7] = float("nan")
+            x.view(-1)[11] = -0.0
+            y, ref = pool_max_folded(x, win), pool_max_folded_plain(x, win)
+            assert torch.equal(y.isnan(), ref.isnan())
+            assert torch.equal(y.nan_to_num(), ref.nan_to_num())
+            gy = torch.randn(ref.shape, generator=g).to(dev, dt)
+            assert torch.equal(pool_max_folded_bwd(x, ref, gy, win),
+                               pool_max_folded_bwd_plain(x, ref, gy, win))
+    torch.cuda.synchronize()
+
+
 def test_cuda_backward_kernels_match_plain_on_the_card():
     """pool backward, zs2d, zcat and zcat backward against their plain
     versions at small odd shapes (ragged h and w, c = 1, kz = 5, two images,

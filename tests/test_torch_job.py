@@ -33,6 +33,7 @@ from biapy_tpu.data.norm import build_norm_dict as jax_norm_dict
 from biapy_tpu.data.tiff import read_tiff, write_tiff
 from biapy_tpu.utils.misc import save_model as jax_save_model
 from biapy_tpu_torch.data import generators as TG
+from biapy_tpu_torch.data import io as tio
 from biapy_tpu_torch.data.data_manipulation import load_and_prepare_train_data
 from biapy_tpu_torch.data.norm import build_norm_dict
 from biapy_tpu_torch.models.flax_import import export_flax_variables, flatten
@@ -233,19 +234,39 @@ def test_resume_from_epoch_0_reproduces_the_run(runs, tmp_path):
 
 @pytest.mark.parametrize("what", ["augment", "nifti"])
 def test_inputs_not_ported_name_the_roadmap(what, tmp_path):
+    """Augmentation and NIfTI inputs, which raised until ROADMAP queue 1
+    item 5 landed, now load: the augmented training batches differ from the
+    plain ones in values, not in shape; a NIfTI dataset gives the samples
+    of the same volumes as TIFF files (their parity with the JAX package:
+    tests/test_torch_augment.py)."""
     root = str(tmp_path)
+    _make_volumes(root, "train", 1, (16, 16, 16), 0)
     cfg = _cfg(root)
     if what == "augment":
-        _make_volumes(root, "train", 1, (16, 16, 16), 0)
-        cfg["AUGMENTOR"] = {"ENABLE": True, "VFLIP": True}
-        match = "ROADMAP: queue 1 item 5"
+        cfg["AUGMENTOR"] = {"ENABLE": True, "VFLIP": True, "HFLIP": True, "AUG_SAMPLES": False}
     else:
-        os.makedirs(f"{root}/train/x")
-        os.makedirs(f"{root}/train/y")
         for d in ("x", "y"):
-            open(f"{root}/train/{d}/000.nii.gz", "wb").close()
-        match = "ROADMAP queue 1 item 5"
+            os.makedirs(f"{root}/nii/{d}")
+            tio.imwrite(f"{root}/nii/{d}/000.nii.gz", read_tiff(f"{root}/train/{d}/000.tif"))
+        cfg["DATA"]["TRAIN"].update(PATH=f"{root}/nii/x", GT_PATH=f"{root}/nii/y")
     job = biapy_tpu_torch.BiaPy(cfg, result_dir=root, name=NAME, silent=True, device="cpu",
                                 check_data_paths=False)
-    with pytest.raises(NotImplementedError, match=match):
-        job.train()
+    job._build_workflow()
+    wf = job.workflow
+    wf.prepare_train_generators()
+    plain = copy.deepcopy(_cfg(root))
+    ref = biapy_tpu_torch.BiaPy(plain, result_dir=root, name=NAME, silent=True, device="cpu",
+                                check_data_paths=False)
+    ref._build_workflow()
+    ref.workflow.prepare_train_generators()
+    got, want = (w.train_data.get(0, np.random.default_rng(1))
+                 for w in (wf, ref.workflow))
+    assert got["x"].shape == want["x"].shape == (16, 16, 16, 1)
+    if what == "augment":
+        assert wf.train_data.aug is not None and ref.workflow.train_data.aug.a.ENABLE is False
+        np.testing.assert_array_equal(np.sort(got["x"], axis=None), np.sort(want["x"], axis=None))
+        assert any(not np.array_equal(wf.train_data.get(0, np.random.default_rng(s))["x"],
+                                      want["x"]) for s in range(4))
+    else:
+        for k in ("x", "y"):
+            np.testing.assert_array_equal(got[k], want[k])

@@ -159,10 +159,10 @@ def test_shuffle_wrappers_reject_shapes_they_do_not_take(call):
         call(torch.zeros(4, 2, 2, 6))
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack")
+_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack", "cv2")
 # optional dependencies of the port: imported only inside the functions
 # that use them, where they are optional
-_LAZY_ONLY = ("cv2", "matplotlib", "yaml", "PIL", "h5py")
+_LAZY_ONLY = ("matplotlib", "yaml", "PIL", "h5py", "imageio")
 
 
 def _imports(path: Path, top_level_only: bool = False):
@@ -198,5 +198,5 @@ def test_port_imports_nothing_of_jax():
         for mod in _imports(f, top_level_only=True):
             if mod.split(".")[0] in _LAZY_ONLY:
                 bad.append(f"{f.relative_to(REPO)}: {mod} at module level")
-    assert not bad, ("the port must not import JAX, the JAX package or msgpack, and imports "
-                     "optional packages inside functions:\n" + "\n".join(bad))
+    assert not bad, ("the port must not import JAX, the JAX package, msgpack or OpenCV, and "
+                     "imports optional packages inside functions:\n" + "\n".join(bad))
