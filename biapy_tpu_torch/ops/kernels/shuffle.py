@@ -11,6 +11,18 @@ of a contiguous NDHWC tensor.
 the forward and the backward are each one kernel on a CUDA tensor and the
 plain version on a CPU tensor (the plain backward, not autograd of the plain
 forward: the pool's tie rule would differ). A tensor anywhere else raises.
+
+The pool forward and zcat take one of three routes, a rule on shape,
+itemsize and pointer alignment (``pool_route``, ``zcat_route``; no setting,
+no ``try``), all in one source: ``"channels16"`` when a position's channels
+are whole 16-byte vectors (``c * itemsize % 16 == 0``; each thread one
+vector of channels, straight from and to device memory), ``"rows16"`` when
+they are not but every contiguous run of the launch lies on the 16-byte grid
+(runs staged in shared memory, or at zcat's c = 1 interleaved in registers:
+16-byte vectors at any channel count), else ``"scalar"`` (the staged kernels
+with one element per access). The wrapper
+passes the route to the C entry, which refuses a launch its route cannot
+serve, and counts it in ``build.SHUFFLE_ROUTES``.
 """
 
 from __future__ import annotations
@@ -23,12 +35,53 @@ from torch.autograd.function import once_differentiable
 from biapy_tpu_torch.ops.kernels import build
 
 
-def _launch(name: str, symbol: str, on: torch.Tensor, *args) -> None:
-    """One kernel launch on ``on``'s device and current stream, counted."""
+ROUTE_CODES = {"channels16": 0, "rows16": 1, "scalar": 2}
+
+
+def _launch(name: str, symbol: str, on: torch.Tensor, *args, route: Optional[str] = None) -> None:
+    """One kernel launch on ``on``'s device and current stream, counted (by
+    route too, when the kernel has routes)."""
+    if route is not None:
+        args = args + (ROUTE_CODES[route],)
     with torch.cuda.device(on.device):
         rc = getattr(build.lib(), symbol)(*args, build.stream_ptr(on))
     build.check_rc(rc, name)
     build.LAUNCHES[name] += 1
+    if route is not None:
+        build.SHUFFLE_ROUTES[name][route] += 1
+
+
+def _on_grid(*values: int) -> bool:
+    """All byte counts and addresses are multiples of 16."""
+    return all(v % 16 == 0 for v in values)
+
+
+def pool_route(shape: Sequence[int], itemsize: int, win: Sequence[int], x_ptr: int,
+               y_ptr: int) -> str:
+    """The pool forward's route for ``(rows, h, w, c)``: ``"channels16"``
+    when c * itemsize and both pointers lie on the 16-byte grid,
+    ``"rows16"`` when an input row (w * c elements), a pooled row
+    ((w / wx) * c) and both pointers do, else ``"scalar"``."""
+    _, _, w, c = shape
+    if not _on_grid(x_ptr, y_ptr):
+        return "scalar"
+    if _on_grid(c * itemsize):
+        return "channels16"
+    row = w * c * itemsize
+    return "rows16" if _on_grid(row, row // int(win[2])) else "scalar"
+
+
+def zcat_route(shape: Sequence[int], itemsize: int, x_ptr: int, out_ptr: int) -> str:
+    """zcat's route for ``(rows, h, w, c)``: ``"channels16"`` when
+    c * itemsize and both pointers lie on the 16-byte grid, ``"rows16"``
+    when a plane (h * w * c elements) and both pointers do, else
+    ``"scalar"``."""
+    _, h, w, c = shape
+    if not _on_grid(x_ptr, out_ptr):
+        return "scalar"
+    if _on_grid(c * itemsize):
+        return "channels16"
+    return "rows16" if _on_grid(h * w * c * itemsize) else "scalar"
 
 
 def _check_same(name: str, ref: torch.Tensor, *others: torch.Tensor) -> None:
@@ -86,8 +139,9 @@ def pool_max_folded_fwd(x: torch.Tensor, win: Sequence[int]) -> torch.Tensor:
     rows, h, w, c = x.shape
     y = torch.empty((rows // wz, h // wy, w // wx, c), dtype=x.dtype, device=x.device)
     if y.numel():
+        route = pool_route(x.shape, x.element_size(), (wz, wy, wx), x.data_ptr(), y.data_ptr())
         _launch(name, "biapy_pool_max_folded", x, x.data_ptr(), y.data_ptr(), code, rows, h, w,
-                c, wz, wy, wx)
+                c, wz, wy, wx, route=route)
     return y
 
 
@@ -264,8 +318,9 @@ def zcat_fwd(x: torch.Tensor, kz: int, depth: Optional[int] = None) -> torch.Ten
     rows, h, w, c = x.shape
     out = torch.empty((rows, h, w, kz * c), dtype=x.dtype, device=x.device)
     if out.numel():
+        route = zcat_route(x.shape, x.element_size(), x.data_ptr(), out.data_ptr())
         _launch(name, "biapy_zcat", x, x.data_ptr(), out.data_ptr(), x.element_size(), rows, h,
-                w, c, kz, depth)
+                w, c, kz, depth, route=route)
     return out
 
 

@@ -10,7 +10,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 2. build: the hand-written kernels from ``biapy_tpu_torch/csrc`` (nvcc,
    sm_90a), with the build seconds;
 3. kernels vs plain: each of the seven kernels at every shape the serving
-   and training paths give it (bf16 and f32, plus odd shapes: ragged sizes,
+   and training paths give it, and the pool and zcat at the template's (its
+   three pools, the zcats of its 14 convs at batch 2) (bf16 and f32, plus
+   odd shapes: ragged sizes,
    c = 1, kz = 5, two images, tied pool windows with a NaN; for conv3d also
    odd shapes on the tensor-core route: overhanging bricks, a channel tail,
    an output-tile loop) against its plain PyTorch version, with the
@@ -69,7 +71,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     (d) ``templates/semantic_segmentation/3d_semantic_segmentation.yaml``
     as it is but for its data paths (seeded TIFFs under
     ``chiprun_out/chip_smoke_template/``), EPOCHS 2 and a one-epoch warm-up:
-    trains, writes its checkpoints, tests; seconds and conv3d routes;
+    trains, writes its checkpoints, tests; seconds and conv3d routes; every
+    pool and zcat launch on a 16-byte route (``build.SHUFFLE_ROUTES``);
 12. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
@@ -101,6 +104,17 @@ MAIN_CONVS = [(128, 1, 32), (128, 32, 32), (64, 32, 64), (64, 64, 64), (32, 64, 
 # kernel with Cin and Cout swapped; the stem's input needs none: 9 launches
 DX_CONVS = [(s, cout, cin) for s, cin, cout in MAIN_CONVS[1:]]
 MAIN_POOLS = [((128, 128, 128, 32), (2, 2, 2)), ((64, 64, 64, 64), (2, 2, 2))]
+# the repository's 3D template (templates/semantic_segmentation/
+# 3d_semantic_segmentation.yaml: resunet 28/36/48/64, Z_DOWN 1, 40 x 128 x 128
+# patches, batch 2): its three pools on folded rows 2 x 40, window 1 x 2 x 2,
+# and its 14 3x3x3 convs (spatial y = x, Cin, Cout) in network order, each
+# of whose weight gradients takes one zcat of its input (rows 80, depth 40)
+TEMPLATE_DEPTH, TEMPLATE_BATCH = 40, 2
+TEMPLATE_POOLS = [((80, 128, 128, 28), (1, 2, 2)), ((80, 64, 64, 36), (1, 2, 2)),
+                  ((80, 32, 32, 48), (1, 2, 2))]
+TEMPLATE_CONVS = [(128, 1, 28), (128, 28, 28), (64, 28, 36), (64, 36, 36), (32, 36, 48),
+                  (32, 48, 48), (16, 48, 64), (16, 64, 64), (32, 112, 48), (32, 48, 48),
+                  (64, 84, 36), (64, 36, 36), (128, 64, 28), (128, 28, 28)]
 MAIN_ZD2S = [((32, 64, 64, 256), 2), ((64, 128, 128, 128), 2)]
 # the LARGER_IO model's two 5x5x5 convs (stem, out block) at batch 1: zcat's
 # input and kz; the out block's input needs a gradient, the stem's does not
@@ -401,9 +415,11 @@ def phase_kernels(card, conv3d_only=False):
     if conv3d_only:
         return out.rows
 
-    # odd: ragged, c = 5, window 3x2x1; the template's first pool (Z_DOWN 1:
-    # window 1x2x2, 28 channels)
-    pools = MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((40, 128, 128, 28), (1, 2, 2))]
+    # odd: ragged, c = 5, window 3x2x1; the template's first pool at batch 1
+    # (Z_DOWN 1: window 1x2x2, 28 channels); the template's three pools at
+    # batch 2
+    pools = (MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((40, 128, 128, 28), (1, 2, 2))]
+             + TEMPLATE_POOLS)
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
         for shape, win in pools:
@@ -448,19 +464,26 @@ def phase_kernels(card, conv3d_only=False):
             del x, gy
 
         # zcat: the dw operand of every 3x3x3 conv (kz = 3), the LARGER_IO
-        # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), and an odd shape
+        # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), an odd shape, and
+        # the template's at batch 2 (depth 40)
         zcats = ([((s, s, s, cin), 3, None) for s, cin in sorted({(s, c) for s, c, _ in MAIN_CONVS})]
                  + [(shape, kz, None) for shape, kz in LARGER_IO_ZCATS]
-                 + [((128, 64, 64, 64), 3, 64), ((6, 5, 7, 1), 5, 3)])
+                 + [((128, 64, 64, 64), 3, 64), ((6, 5, 7, 1), 5, 3)]
+                 + [((TEMPLATE_BATCH * TEMPLATE_DEPTH, s, s, cin), 3, TEMPLATE_DEPTH)
+                    for s, cin in sorted({(s, c) for s, c, _ in TEMPLATE_CONVS})])
         for shape, kz, depth in zcats:
             x = rand(shape, dt)
             hz = kz // 2
-            xp = F.pad(x, (0, 0, 0, 0, 0, 0, hz, hz))
-            taps = [xp[t:t + shape[0]] for t in range(kz)]
+            d = shape[0] if depth is None else depth
+            # each image padded in z on its own; (images, z, h * w, c): torch.cat
+            # keeps its batched copy for up to four dimensions
+            xp = F.pad(x.view(shape[0] // d, d, shape[1] * shape[2], shape[3]),
+                       (0, 0, 0, 0, hz, hz))
+            taps = [xp[:, t:t + d] for t in range(kz)]
             out.add("zcat", dt, shape, zcat_fwd(x, kz, depth), zcat_plain(x, kz, depth), 0.0,
                     lambda: zcat_fwd(x, kz, depth), lambda: zcat_plain(x, kz, depth),
                     # the concatenation alone, of views of an already padded copy
-                    (lambda: torch.cat(taps, dim=-1)) if depth is None else None, "torch.cat",
+                    lambda: torch.cat(taps, dim=-1), "torch.cat",
                     nbytes=(1 + kz) * x.numel() * item, kz=kz, depth=depth)
             del x, xp, taps
         # zcat backward: the LARGER_IO out-block conv's input gradient, and
@@ -720,10 +743,10 @@ def _profile_train_step(run):
         if "conv3d_k3_" in name:  # either route's kernel
             fam["hand conv forward" if n_conv < len(MAIN_CONVS) else "hand conv dx"] += ms
             n_conv += 1
-        elif "zcat_kernel" in name:
+        elif "zcat_" in name and "zcat_bwd" not in name:  # any of zcat's kernels
             fam["zcat"] += ms
-        elif any(k in name for k in ("pool_max_kernel", "pool_bwd_kernel", "zd2s_kernel",
-                                     "zs2d_kernel")):
+        elif any(k in name for k in ("pool_max_kernel", "pool_channels_kernel", "pool_bwd_kernel",
+                                     "zd2s_kernel", "zs2d_kernel")):
             fam["pool fwd+bwd, zd2s, zs2d"] += ms
         elif "wgrad" in low or "cudnn" in low:
             fam["library dw (cuDNN wgrad)"] += ms
@@ -1610,6 +1633,7 @@ def phase_template():
         secs = time.perf_counter() - t0
         launches = dict(build.LAUNCHES)
         routes = dict(build.CONV3D_ROUTES)
+        shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
         wf = job.workflow
         hist = wf.history
         ck = sorted(p.name for p in Path(wf.cfg.PATHS.CHECKPOINT).iterdir())
@@ -1622,6 +1646,11 @@ def phase_template():
         if not (launches["pool_max_folded"] and launches["pool_max_folded_bwd"]
                 and launches["zd2s"] == 0 and routes["fma"] and routes["wgmma"]):
             raise AssertionError(f"template: launches {launches}, conv3d routes {routes}")
+        # every pool and zcat of the template on 16-byte vectors
+        if not all(launches[k] and shuffle_routes[k]["scalar"] == 0
+                   and sum(shuffle_routes[k].values()) == launches[k] for k in shuffle_routes):
+            raise AssertionError(f"template: launches {launches}, shuffle routes "
+                                 f"{shuffle_routes}")
         print(f"[template] {TEMPLATE.relative_to(REPO)}: resunet {list(wf.cfg.MODEL.FEATURE_MAPS)}, "
               f"Z_DOWN {list(wf.cfg.MODEL.Z_DOWN)}, patch {list(wf.cfg.DATA.PATCH_SIZE)}, "
               f"{wf.cfg.TRAIN.OPTIMIZER[0]}, {len(wf.train_data)} train / {len(wf.val_data)} val "
@@ -1629,9 +1658,9 @@ def phase_template():
               f"{[round(h['time'], 3) for h in hist]}, loss {[round(h['loss'], 5) for h in hist]}, "
               f"test IoU {wf.stats['iou']:.4f})")
         print(f"[template] launches {launches}; conv3d routes {routes} (widths 28 and 36 on the "
-              f"CUDA cores)")
+              f"CUDA cores); pool and zcat routes {shuffle_routes}")
         return dict(seconds=secs, epoch_seconds=[h["time"] for h in hist], launches=launches,
-                    conv3d_routes=routes, iou=wf.stats["iou"])
+                    conv3d_routes=routes, shuffle_routes=shuffle_routes, iou=wf.stats["iou"])
     finally:
         shutil.rmtree(root, ignore_errors=True)
 
@@ -1646,7 +1675,9 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
-    each counted from zero."""
+    each counted from zero. The pool and zcat entries also carry
+    ``template_*`` sums: the template's three pools (one forward) and its 14
+    zcats (one training step), at batch 2."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -1681,6 +1712,11 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
         "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in MAIN_POOLS],
         "zs2d": [dict(shape=[r * sz, h, w, c // sz]) for (r, h, w, c), sz in MAIN_ZD2S],
     }
+    per_template = {
+        "pool_max_folded": [dict(shape=list(s)) for s, _ in TEMPLATE_POOLS],
+        "zcat": [dict(shape=[TEMPLATE_BATCH * TEMPLATE_DEPTH, s, s, cin], kz=3,
+                      depth=TEMPLATE_DEPTH) for s, cin, _ in TEMPLATE_CONVS],
+    }
     kernels = []
     for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
@@ -1695,6 +1731,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
                      **sums(pick(name, wants)))
         if name == "conv3d":
             entry.update(sums(pick(name, conv(MAIN_CONVS + DX_CONVS)), "train_step_"))
+        if name in per_template:
+            entry.update(sums(pick(name, per_template[name]), "template_"))
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: no main path launched it")
         kernels.append(entry)
@@ -1743,9 +1781,10 @@ def main():
     print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
           "call, host work included) are sums over each kernel's launches in one serving patch "
           "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
-          "train_step_* too), bf16; launches add up the main paths' runs, the job's, the "
-          "by-chunks runs', the augmented job's with its TTA passes and the template's "
-          "included)")
+          "train_step_* too), bf16; pool_max_folded's and zcat's template_* sums are over the "
+          "template's three pools and its 14 zcats of a training step at batch 2; launches add "
+          "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
+          "TTA passes and the template's included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -16,10 +16,10 @@ from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_fwd, conv3d_plain,
                                                 conv3d_route)
 from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_bwd,
-                                                 pool_max_folded_bwd_plain,
-                                                 pool_max_folded_plain, zcat, zcat_bwd,
-                                                 zcat_bwd_plain, zcat_plain, zd2s, zd2s_plain,
-                                                 zs2d, zs2d_plain)
+                                                 pool_max_folded_bwd_plain, pool_max_folded_fwd,
+                                                 pool_max_folded_plain, pool_route, zcat,
+                                                 zcat_bwd, zcat_bwd_plain, zcat_fwd, zcat_plain,
+                                                 zcat_route, zd2s, zd2s_plain, zs2d, zs2d_plain)
 
 torch.set_num_threads(2)
 
@@ -92,6 +92,98 @@ def test_pool_at_a_window_of_1_2_2_matches_plain_on_the_card(channels):
             gy = torch.randn(ref.shape, generator=g).to(dev, dt)
             assert torch.equal(pool_max_folded_bwd(x, ref, gy, win),
                                pool_max_folded_bwd_plain(x, ref, gy, win))
+    torch.cuda.synchronize()
+
+
+# c * itemsize of the route tests: 2 (the stem's c = 1 in bf16), 4, 8, the
+# template's 56 and 72 (28 and 36 bf16 channels), 64 and 256 bytes
+_CHANNEL_BYTES = (2, 4, 8, 56, 72, 64, 256)
+
+
+def _at_element_offset(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous copy of ``t`` whose ``data_ptr`` lies one element past
+    the allocator's 16-byte grid."""
+    out = torch.empty(t.numel() + 1, dtype=t.dtype, device=t.device)[1:].view(t.shape)
+    out.copy_(t)
+    return out
+
+
+def _equal_nan(a: torch.Tensor, b: torch.Tensor) -> bool:
+    """Bit-equal but for the sign of a zero, NaN where the other has NaN."""
+    return (torch.equal(a.isnan(), b.isnan())
+            and torch.equal(a.nan_to_num(), b.nan_to_num()))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_routes_match_plain_on_the_card(dtype):
+    """The pool forward on every route at every channel width of
+    ``_CHANNEL_BYTES``, windows 2x2x2, 1x2x2, 3x2x1 and 1x2x2 on 11 pooled
+    columns, ties, a NaN and a -0, at the allocator's alignment and one
+    element off it; rows wide enough to be cut into column chunks; each
+    launch on the route ``pool_route`` names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    dt = getattr(torch, dtype)
+    item = torch.empty((), dtype=dt).element_size()
+    g = torch.Generator(device="cpu").manual_seed(6)
+    cases = [((4, 6, 8), (2, 2, 2)), ((3, 8, 10), (1, 2, 2)), ((6, 4, 6), (3, 2, 1)),
+             ((2, 6, 22), (1, 2, 2))]
+    shapes = [(rhw + (nbytes // item,), win) for nbytes in _CHANNEL_BYTES if nbytes % item == 0
+              for rhw, win in cases]
+    # rows of more than the 24 KB a block stages: two column chunks
+    shapes += [((2, 2, 472, 56 // item), (1, 2, 2)), ((4, 2, 512, 72 // item), (2, 2, 2))]
+    seen = set()
+    for shape, win in shapes:
+        x = torch.randint(-2, 3, shape, generator=g).to(dev, dt) * 0.5  # ties
+        x.view(-1)[7] = float("nan")
+        x.view(-1)[11] = -0.0
+        ref = pool_max_folded_plain(x, win)
+        for xin in (x, _at_element_offset(x)):
+            build.reset_launches()
+            y = pool_max_folded_fwd(xin, win)
+            route = pool_route(shape, item, win, xin.data_ptr(), y.data_ptr())
+            seen.add(route)
+            assert build.SHUFFLE_ROUTES["pool_max_folded"] == {
+                k: int(route == k) for k in ("channels16", "rows16", "scalar")}
+            assert _equal_nan(y, ref), (shape, win, route)
+    assert seen == {"channels16", "rows16", "scalar"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16", "uint8", "float64"])
+def test_zcat_routes_match_plain_on_the_card(dtype):
+    """zcat on every route at every channel width of ``_CHANNEL_BYTES`` (for
+    the raw 1- and 8-byte dtypes: c = 1, 3, 9 and 16 bytes), two to four
+    images with kz 3 and 5 (images of 1 and 2 planes among them), planes of
+    35, 64 and 320 positions, at the allocator's alignment and one element
+    off it, bit-equal to the plain version; each launch on the route
+    ``zcat_route`` names."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    dt = getattr(torch, dtype)
+    item = torch.empty((), dtype=dt).element_size()
+    g = torch.Generator(device="cpu").manual_seed(7)
+    widths = ([n // item for n in _CHANNEL_BYTES if n % item == 0] if item in (2, 4)
+              else [1, 3, 9, 16 // item])
+    seen = set()
+    for c in widths:
+        for rows, depth, kz in ((8, 4, 3), (9, 3, 5), (12, 4, 5), (30, 10, 3), (4, 1, 3),
+                                (6, 2, 5)):
+            for hw in ((5, 7), (8, 8), (16, 20)):
+                shape = (rows,) + hw + (c,)
+                x = (torch.randn(shape, generator=g) * 50).to(dev, dt)
+                ref = zcat_plain(x, kz, depth)
+                for xin in (x, _at_element_offset(x)):
+                    build.reset_launches()
+                    out = zcat_fwd(xin, kz, depth)
+                    route = zcat_route(shape, item, xin.data_ptr(), out.data_ptr())
+                    seen.add(route)
+                    assert build.SHUFFLE_ROUTES["zcat"] == {
+                        k: int(route == k) for k in ("channels16", "rows16", "scalar")}
+                    assert torch.equal(out, ref), (shape, kz, depth, route)
+    assert seen == {"channels16", "rows16", "scalar"}
     torch.cuda.synchronize()
 
 

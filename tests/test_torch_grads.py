@@ -110,6 +110,50 @@ def test_pool_max_folded_forward_and_vjp_match_pallas(win, ties, dtype):
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("c", [28, 36])
+def test_pool_at_the_template_widths_matches_pallas(c, dtype):
+    """The template's pools (``Z_DOWN: [1, 1, 1, 1]``: window 1x2x2) at its
+    28 and 36 channels, ties, a NaN and a -0, forward and VJP."""
+    rng = np.random.default_rng(c)
+    win = (1, 2, 2)
+    x = rng.integers(-2, 3, (3, 4, 8, c)).astype(np.float32) * 0.5
+    x[1, 2, 3, 5] = -0.0
+    x[0, 0, 1, 2] = np.nan
+    g = rng.standard_normal((3, 2, 4, c)).astype(np.float32)
+    xj, xt = _pair(x, dtype)
+    gj, gt = _pair(g, dtype)
+    ref, vjp = jax.vjp(lambda v: jax_shuffle.pool_max_folded(v, win), xj)
+    got, dx = _torch_vjp(lambda v: pool_max_folded(v, win), xt, gt)
+    np.testing.assert_array_equal(_np(got), _np(ref))  # a max and a select are exact
+    np.testing.assert_array_equal(_np(dx), _np(vjp(gj)[0]))
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_zcat_at_the_template_width_with_depth_matches_pallas(dtype):
+    """zcat at the template's first width (c = 28) on two images of 3 planes
+    (``depth``; kz 3): the single-image Pallas op per image, forward and
+    VJP."""
+    rng = np.random.default_rng(28)
+    x = rng.standard_normal((6, 4, 5, 28)).astype(np.float32)
+    g = rng.standard_normal((6, 4, 5, 84)).astype(np.float32)
+    refs, dxs = [], []
+    for i in range(2):
+        xj, _ = _pair(x[3 * i:3 * i + 3], dtype)
+        gj, _ = _pair(g[3 * i:3 * i + 3], dtype)
+        r, vjp = jax.vjp(lambda v: jax_shuffle.zcat(v, 3), xj)
+        refs.append(_np(r))
+        dxs.append(_np(vjp(gj)[0]))
+    _, xt = _pair(x, dtype)
+    _, gt = _pair(g, dtype)
+    got, dx = _torch_vjp(lambda v: zcat(v, 3, depth=3), xt, gt)
+    np.testing.assert_array_equal(_np(got), np.concatenate(refs))  # a copy is exact
+    # up to 3 terms summed in float32 in tap order, one rounding: 1e-6 in
+    # float32; in bf16 both round the same float32 sum
+    np.testing.assert_allclose(_np(dx), np.concatenate(dxs), rtol=0,
+                               atol=1e-6 if dtype == "float32" else 0)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("sz", [2, 3])
 def test_zd2s_forward_and_vjp_match_pallas(sz, dtype):
     rng = np.random.default_rng(sz)

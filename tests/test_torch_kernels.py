@@ -26,9 +26,9 @@ from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import conv3d, conv3d_plain
 from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_bwd,
                                                  pool_max_folded_bwd_plain,
-                                                 pool_max_folded_plain, zcat, zcat_bwd,
-                                                 zcat_bwd_plain, zcat_plain, zd2s, zd2s_plain,
-                                                 zs2d, zs2d_plain)
+                                                 pool_max_folded_plain, pool_route, zcat,
+                                                 zcat_bwd, zcat_bwd_plain, zcat_plain,
+                                                 zcat_route, zd2s, zd2s_plain, zs2d, zs2d_plain)
 
 torch.set_num_threads(2)
 
@@ -105,6 +105,50 @@ def test_zd2s_matches_pallas(shape, sz, dtype):
     np.testing.assert_array_equal(got, ref)  # a copy is exact
 
 
+# (kernel, (rows, h, w, c), itemsize, pool window, (input, output) pointer, route)
+_ROUTES = {
+    # the bench ResUNet (bf16): its two pools and the zcats of its wgrads
+    "bench-pool-1": ("pool", (128, 128, 128, 32), 2, (2, 2, 2), (0, 512), "channels16"),
+    "bench-pool-2": ("pool", (64, 64, 64, 64), 2, (2, 2, 2), (0, 512), "channels16"),
+    "bench-zcat-stem": ("zcat", (128, 128, 128, 1), 2, None, (0, 512), "rows16"),
+    "bench-zcat-32": ("zcat", (32, 32, 32, 128), 2, None, (0, 512), "channels16"),
+    "larger-io-zcat-f32": ("zcat", (128, 128, 128, 32), 4, None, (0, 512), "channels16"),
+    # the template at batch 2 (bf16, 28 / 36 / 48 channels: 56 / 72 / 96 bytes)
+    "template-pool-1": ("pool", (80, 128, 128, 28), 2, (1, 2, 2), (0, 512), "rows16"),
+    "template-pool-2": ("pool", (80, 64, 64, 36), 2, (1, 2, 2), (0, 512), "rows16"),
+    "template-pool-3": ("pool", (80, 32, 32, 48), 2, (1, 2, 2), (0, 512), "channels16"),
+    "template-zcat-stem": ("zcat", (80, 128, 128, 1), 2, None, (0, 512), "rows16"),
+    "template-zcat-28": ("zcat", (80, 128, 128, 28), 2, None, (0, 512), "rows16"),
+    "template-zcat-84": ("zcat", (80, 64, 64, 84), 2, None, (0, 512), "rows16"),
+    "template-zcat-112": ("zcat", (80, 32, 32, 112), 2, None, (0, 512), "channels16"),
+    # odd: 16-byte channels in rows off the grid, a row of 70 bf16 elements, a
+    # pooled row of 24 bytes, planes of 35 positions, a pointer one element off
+    # the 16-byte grid
+    "odd-pool-channels": ("pool", (4, 6, 6, 8), 2, (2, 2, 2), (0, 512), "channels16"),
+    "odd-pool-row": ("pool", (6, 10, 14, 5), 2, (3, 2, 1), (0, 512), "scalar"),
+    "odd-pool-pooled-row": ("pool", (2, 2, 24, 1), 2, (1, 2, 2), (0, 512), "scalar"),
+    "odd-pool-offset-in": ("pool", (4, 8, 8, 16), 4, (2, 2, 2), (4, 512), "scalar"),
+    "odd-pool-offset-out": ("pool", (80, 128, 128, 28), 2, (1, 2, 2), (0, 514), "scalar"),
+    "odd-zcat-plane": ("zcat", (6, 5, 7, 1), 2, None, (0, 512), "scalar"),
+    "odd-zcat-channels": ("zcat", (6, 5, 7, 8), 2, None, (0, 512), "channels16"),
+    "odd-zcat-offset-in": ("zcat", (8, 8, 8, 3), 2, None, (2, 512), "scalar"),
+    "odd-zcat-offset-out": ("zcat", (128, 64, 64, 64), 2, None, (0, 520), "scalar"),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_ROUTES))
+def test_shuffle_route_rule(case):
+    """The pool forward's and zcat's routes are a rule on shape, itemsize and
+    pointer alignment alone: 16-byte vectors on every main-path shape (of
+    channels where c * itemsize allows, else of staged rows), one element
+    per access where a run leaves the 16-byte grid."""
+    kernel, shape, itemsize, win, (p_in, p_out), want = _ROUTES[case]
+    if kernel == "pool":
+        assert pool_route(shape, itemsize, win, p_in, p_out) == want
+    else:
+        assert zcat_route(shape, itemsize, p_in, p_out) == want
+
+
 def test_cpu_tensors_take_plain_path_and_count_no_launch():
     build.reset_launches()
     x = torch.randn(2, 4, 4, 4, 3)
@@ -124,6 +168,8 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     assert set(build.LAUNCHES) == {"conv3d", "pool_max_folded", "pool_max_folded_bwd", "zd2s",
                                    "zs2d", "zcat", "zcat_bwd"}
     assert all(n == 0 for n in build.LAUNCHES.values())
+    assert build.SHUFFLE_ROUTES == {k: {"channels16": 0, "rows16": 0, "scalar": 0}
+                                    for k in ("pool_max_folded", "zcat")}
 
 
 def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
