@@ -20,10 +20,10 @@
 // reads kz times what it writes. The TPU kernels staged row blocks in VMEM
 // behind clamped index maps.
 //
-// The pool forward and zcat make every global access a full, coalesced
-// 16-byte vector at any channel count (2-byte accesses at the stem's c = 1
-// or 8-byte ones at 56- and 72-byte positions would cut the bandwidth), and
-// read each input byte from device memory about once. Each has three
+// The pool, its backward and zcat make every global access a full,
+// coalesced 16-byte vector at any channel count (2-byte accesses at the
+// stem's c = 1 or at 56- and 72-byte positions would cut the bandwidth),
+// and read each input byte from device memory about once. Each has three
 // routes, picked by the caller from shape, itemsize and pointer alignment
 // (ops/kernels/shuffle.py::pool_route, ::zcat_route) and refused here when
 // the launch does not fit them:
@@ -31,18 +31,28 @@
 //   of channels, no staging and no barrier, so nothing serialises loads
 //   against stores. pool: every slot of its window loaded into registers
 //   before any is reduced (max.NaN); each input vector lies in exactly one
-//   window. zcat: while the input fits the L2 (kZcatScatterBytes) each
+//   window. pool bwd: the same thread mapping; the pooled position's y and g
+//   vectors and every x slot loaded before any is compared, then every dx
+//   slot stored. zcat: while the input fits the L2 (kZcatScatterBytes) each
 //   source vector is read once and stored to the kz output rows whose taps
 //   read it (the image's edge planes also write the zero taps next to
 //   them); a larger input is gathered in output order, so that the stores
 //   run sequentially and the L2 serves a plane's kz reads.
 // - rows16 (a position's channels off the 16-byte grid, every run on it):
-//   contiguous runs staged in shared memory. pool: a pooled row (orow, oy)
+//   16-byte vectors along contiguous runs. pool: a pooled row (orow, oy)
 //   reads wz * wy input rows, each one run of w * c elements; a block reads
 //   those runs with 16-byte vectors, reduces them elementwise in registers,
 //   stages the result, reduces over x in shared memory by element index
 //   (e against e + c, ..., e + (wx-1) * c) and writes the pooled run,
-//   (w / wx) * c contiguous elements, with 16-byte stores. zcat: over a span
+//   (w / wx) * c contiguous elements, with 16-byte stores. pool bwd: nothing
+//   is staged; a thread takes one 16-byte vector offset of a pooled row's
+//   wz * wy input runs (w * c contiguous elements each), reads the y and g
+//   of its pooled elements (e / (wx * c)) * c + e % c once, in the widest
+//   unit that divides c * itemsize (the wx threads of a window read the
+//   same units from the L1), and streams its x vectors to dx through
+//   registers, with no barrier: x and dx each cross device memory once
+//   (staging y and g in shared memory behind a barrier measured slower on
+//   the card). zcat: over a span
 //   of P positions, output row r is one run of P * kz * c elements built
 //   from kz source runs of P * c elements, in planes r - kz/2 ... r + kz/2;
 //   a block takes R consecutive rows, stages their R + kz - 1 source runs
@@ -57,12 +67,11 @@
 //   vectors and stores them through a per-warp transpose in shared memory,
 //   so that every store instruction writes 512 contiguous bytes.
 // - scalar (a run or a pointer off the 16-byte grid: odd shapes, a view at
-//   an element offset): the rows16 staged kernels with one element per
-//   access.
-// The other four give each thread one 16-byte vector of channels (narrower
-// units when c does not allow 16 bytes) and read straight from device
-// memory, neighbouring threads on neighbouring channels; the z taps that
-// zcat's backward reads again come from the L2.
+//   an element offset): the rows16 kernels with one element per access.
+// The other three (zd2s, zs2d, zcat bwd) give each thread one 16-byte
+// vector of channels (narrower units when c does not allow 16 bytes) and
+// read straight from device memory, neighbouring threads on neighbouring
+// channels; the z taps that zcat's backward reads again come from the L2.
 //
 // pool: y[r, i, j, ch] = max over the (wz, wy, wx) window of
 //       x[r*wz + a, i*wy + b, j*wx + c, ch]; a NaN anywhere in the window
@@ -100,7 +109,7 @@ struct alignas(sizeof(T) * V) Vec {
   T v[V];
 };
 
-// the routes of the pool forward and zcat (ops/kernels/shuffle.py::
+// the routes of the pool, its backward and zcat (ops/kernels/shuffle.py::
 // pool_route, ::zcat_route; ROUTE_CODES there)
 constexpr int kRouteChannels16 = 0;
 constexpr int kRouteRows16 = 1;
@@ -118,6 +127,9 @@ constexpr long long kZcatScatterBytes = 16LL << 20;
 constexpr int kZcatStemRows = 4;
 constexpr int kBlocksPerSm = 2;
 constexpr long long kMaxSmem = 227 * 1024;
+// x loads a thread of the pool backward's rows16 and scalar kernel keeps in
+// flight
+constexpr int kPoolBwdBatch = 4;
 
 inline int sm_count() {
   int dev = 0, n = 132;
@@ -133,6 +145,18 @@ inline long long gcd_ll(long long a, long long b) {
     b = t;
   }
   return a;
+}
+
+// calls f with a value of the unsigned type that is `unit` bytes wide
+template <typename F>
+void dispatch_unit(int unit, F&& f) {
+  switch (unit) {
+    case 16: f(uint4{}); break;
+    case 8: f(uint2{}); break;
+    case 4: f(uint32_t{}); break;
+    case 2: f(uint16_t{}); break;
+    default: f(uint8_t{}); break;
+  }
 }
 
 // the larger of a and b, NaN when either is NaN (PTX max.NaN), as jnp.max;
@@ -257,6 +281,44 @@ pool_max_kernel(const T* __restrict__ x, T* __restrict__ y, int h, int w, int c,
   }
 }
 
+// The offsets, in vectors of cv per position, of the NSLOT slots of a
+// (wz, wy, wx) window from its first slot, in (a, b, d) order.
+template <int NSLOT>
+__device__ __forceinline__ void window_offsets(long long (&off)[NSLOT], int h, int w, int cv,
+                                               int wy, int wx) {
+  int a = 0, b = 0, d = 0;
+#pragma unroll
+  for (int s = 0; s < NSLOT; ++s) {
+    off[s] = (((long long)a * h + b) * w + d) * cv;
+    if (++d == wx) {
+      d = 0;
+      if (++b == wy) {
+        b = 0;
+        ++a;
+      }
+    }
+  }
+}
+
+// The channels16 grid of the pool and its backward: `upr` = (w / wx) * cv
+// vectors a pooled row; a block takes `rpb` rows when a row is narrower
+// than the block, else `bpr` blocks take one row; rows gridDim.y apart.
+struct ChannelsGrid {
+  dim3 grid;
+  int upr, rpb, bpr;
+};
+
+inline bool channels_grid(long long n_rows, int wo, int cv, ChannelsGrid& cg) {
+  const long long upr = (long long)wo * cv;
+  if (upr > INT32_MAX) return false;
+  cg.upr = (int)upr;
+  cg.rpb = upr >= kThreads ? 1 : (int)(kThreads / upr);
+  cg.bpr = (int)((upr + kThreads - 1) / kThreads);
+  cg.grid = dim3((unsigned)cg.bpr,
+                 (unsigned)std::min<long long>((n_rows + cg.rpb - 1) / cg.rpb, 65535));
+  return true;
+}
+
 // One thread per 16-byte vector of channels of one pooled position (the
 // channels16 route: c * itemsize a multiple of 16): every window slot's
 // vector is loaded into registers before any is reduced, and each input
@@ -285,19 +347,11 @@ pool_channels_kernel(const Vec<T, V>* __restrict__ x, Vec<T, V>* __restrict__ y,
         x + ((orow * wz * h + (long long)oy * wy) * w + (long long)ox * wx) * cv + ch;
     Vec<T, V> best;
     if constexpr (NSLOT > 0) {
+      long long off[NSLOT];
+      window_offsets(off, h, w, cv, wy, wx);
       Vec<T, V> v[NSLOT];
-      int a = 0, b = 0, d = 0;
 #pragma unroll
-      for (int s = 0; s < NSLOT; ++s) {
-        v[s] = src[(((long long)a * h + b) * w + d) * cv];
-        if (++d == wx) {
-          d = 0;
-          if (++b == wy) {
-            b = 0;
-            ++a;
-          }
-        }
-      }
+      for (int s = 0; s < NSLOT; ++s) v[s] = src[off[s]];
       best = v[0];
 #pragma unroll
       for (int s = 1; s < NSLOT; ++s) max_nan(best, v[s]);
@@ -312,6 +366,13 @@ pool_channels_kernel(const Vec<T, V>* __restrict__ x, Vec<T, V>* __restrict__ y,
   }
 }
 
+// Whether a pool or pool backward launch fits the route rows16 (every
+// pointer, input row and pooled row on the 16-byte grid) or scalar (any).
+inline bool pool_rows_fit(int route, uintptr_t align, long long w, long long wo, long long cb) {
+  return route == kRouteScalar ||
+         (route == kRouteRows16 && align % 16 == 0 && (w * cb) % 16 == 0 && (wo * cb) % 16 == 0);
+}
+
 template <typename T>
 int launch_pool(const void* x, void* y, int rows, int h, int w, int c, int wz, int wy, int wx,
                 int route, cudaStream_t stream) {
@@ -323,16 +384,12 @@ int launch_pool(const void* x, void* y, int rows, int h, int w, int c, int wz, i
   if (route == kRouteChannels16) {
     if (align % 16 || cb % 16) return (int)cudaErrorInvalidValue;
     const int cv = c / V;
-    const long long upr = (long long)wo * cv;
-    if (upr > INT32_MAX) return (int)cudaErrorInvalidValue;
-    const int rpb = upr >= kThreads ? 1 : (int)(kThreads / upr);
-    const long long bpr = (upr + kThreads - 1) / kThreads;
-    const long long gy = std::min<long long>((n_rows + rpb - 1) / rpb, 65535);
-    const dim3 grid((unsigned)bpr, (unsigned)gy);
+    ChannelsGrid cg;
+    if (!channels_grid(n_rows, wo, cv, cg)) return (int)cudaErrorInvalidValue;
     auto launch = [&](auto kernel) {
-      kernel<<<grid, kThreads, 0, stream>>>(static_cast<const Vec<T, V>*>(x),
-                                            static_cast<Vec<T, V>*>(y), n_rows, h, w, cv, wz, wy,
-                                            wx, (int)upr, rpb, (int)bpr);
+      kernel<<<cg.grid, kThreads, 0, stream>>>(static_cast<const Vec<T, V>*>(x),
+                                               static_cast<Vec<T, V>*>(y), n_rows, h, w, cv, wz,
+                                               wy, wx, cg.upr, cg.rpb, cg.bpr);
     };
     const int nslot = wz * wy * wx;
     if (nslot == 8)
@@ -343,15 +400,10 @@ int launch_pool(const void* x, void* y, int rows, int h, int w, int c, int wz, i
       launch(pool_channels_kernel<T, V, 0>);
     return (int)cudaGetLastError();
   }
+  if (!pool_rows_fit(route, align, w, wo, cb)) return (int)cudaErrorInvalidValue;
   // columns per chunk are a multiple of the granule, so every chunk's input
   // and output runs start and end on whole vectors
-  long long granule = wx;
-  if (route == kRouteRows16) {
-    if (align % 16 || (w * cb) % 16 || (wo * cb) % 16) return (int)cudaErrorInvalidValue;
-    granule = wx * (16 / gcd_ll(16, cb));
-  } else if (route != kRouteScalar) {
-    return (int)cudaErrorInvalidValue;
-  }
+  const long long granule = route == kRouteRows16 ? wx * (16 / gcd_ll(16, cb)) : wx;
   long long wc = w;
   if (w * cb > kPoolStageBytes) wc = std::max(granule, kPoolStageBytes / cb / granule * granule);
   const long long n_chunks = (w + wc - 1) / wc;
@@ -417,62 +469,189 @@ template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(flo
   return __float2bfloat16(v);
 }
 
-// one thread per V channels of one POOLED position: reads y and g once, the
-// window's slots of x once, writes every slot of dx
+// dx = (x == y) ? g : 0 over one vector, compared in float32: every tied
+// slot gets the full cotangent, NaN compares false, -0 == +0
 template <typename T, int V>
+__device__ __forceinline__ Vec<T, V> pool_bwd_select(const Vec<T, V>& xv, const float (&yf)[V],
+                                                    const Vec<T, V>& gv) {
+  Vec<T, V> out;
+#pragma unroll
+  for (int i = 0; i < V; ++i) out.v[i] = to_f32(xv.v[i]) == yf[i] ? gv.v[i] : from_f32<T>(0.0f);
+  return out;
+}
+
+// The pool backward's channels16 route: one thread per 16-byte vector of
+// channels of one pooled position, on the forward's grid
+// (pool_channels_kernel). It reads that vector of y and g, loads every slot
+// of the window into registers before any is compared, and writes every
+// slot of dx; NSLOT = wz * wy * wx when it is 4 or 8, else 0 and the window
+// is walked in a loop.
+template <typename T, int V, int NSLOT>
 __global__ void __launch_bounds__(kThreads)
-pool_bwd_kernel(const Vec<T, V>* __restrict__ x, const Vec<T, V>* __restrict__ y,
-                const Vec<T, V>* __restrict__ g, Vec<T, V>* __restrict__ dx, long long total,
-                int h, int w, int cv, int wz, int wy, int wx) {
-  const long long o = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (o >= total) return;
+pool_bwd_channels_kernel(const Vec<T, V>* __restrict__ x, const Vec<T, V>* __restrict__ y,
+                         const Vec<T, V>* __restrict__ g, Vec<T, V>* __restrict__ dx,
+                         long long n_rows, int h, int w, int cv, int wz, int wy, int wx, int upr,
+                         int rpb, int bpr) {
+  int lr = 0, u = blockIdx.x * kThreads + threadIdx.x;
+  if (rpb > 1) {
+    lr = threadIdx.x / upr;
+    u = threadIdx.x - lr * upr;
+    if (lr >= rpb) return;
+  }
+  if (u >= upr) return;
+  const int ho = h / wy;
+  const int ox = u / cv, ch = u - ox * cv;
+  long long off[NSLOT > 0 ? NSLOT : 1];
+  if constexpr (NSLOT > 0) window_offsets(off, h, w, cv, wy, wx);
+  for (long long t = (long long)blockIdx.y * rpb + lr; t < n_rows; t += (long long)gridDim.y * rpb) {
+    const long long orow = t / ho;
+    const int oy = (int)(t - orow * ho);
+    const long long base =
+        ((orow * wz * h + (long long)oy * wy) * w + (long long)ox * wx) * cv + ch;
+    const Vec<T, V> yv = y[t * upr + u], gv = g[t * upr + u];
+    float yf[V];
+#pragma unroll
+    for (int i = 0; i < V; ++i) yf[i] = to_f32(yv.v[i]);
+    if constexpr (NSLOT > 0) {
+      Vec<T, V> v[NSLOT];
+#pragma unroll
+      for (int s = 0; s < NSLOT; ++s) v[s] = x[base + off[s]];
+#pragma unroll
+      for (int s = 0; s < NSLOT; ++s) dx[base + off[s]] = pool_bwd_select(v[s], yf, gv);
+    } else {
+      for (int a = 0; a < wz; ++a)
+        for (int b = 0; b < wy; ++b)
+          for (int d = 0; d < wx; ++d) {
+            const long long o = base + (((long long)a * h + b) * w + d) * cv;
+            dx[o] = pool_bwd_select(x[o], yf, gv);
+          }
+    }
+  }
+}
+
+// The pool backward's rows16 and scalar routes: one thread per (pooled row
+// t = (orow, oy), vector offset vi of its input runs). Each of the wz * wy
+// input runs of t is w * c contiguous elements, and element e of a run
+// belongs to pooled element (e / (wx * c)) * c + e % c, the same in every
+// run: the thread reads that part of t's y and g once, in units S (the
+// widest that divides c * itemsize, at most V elements) that lie within one
+// position's channels, loads the run's x vectors at offset vi (up to
+// kPoolBwdBatch in flight), and stores dx there. Neighbouring threads take
+// neighbouring vectors, so every x load and dx store is coalesced, and the
+// wx threads of a window read the same y and g units, which the L1 serves:
+// no shared memory, no barrier, and x, y, g and dx each cross device memory
+// once.
+template <typename T, int V, typename S>
+__global__ void __launch_bounds__(kThreads)
+pool_bwd_rows_kernel(const T* __restrict__ x, const T* __restrict__ y, const T* __restrict__ g,
+                     T* __restrict__ dx, int h, int w, int c, int wz, int wy, int wx,
+                     long long n_rows, int nvr) {
+  constexpr int EPS = sizeof(S) / sizeof(T);  // elements per unit of y and g
+  constexpr int G = V / EPS;                  // units per vector
+  const long long idx = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (idx >= n_rows * nvr) return;
+  const long long t = idx / nvr;
+  const int vi = (int)(idx - t * nvr);
+  const int e0 = vi * V;
   const int ho = h / wy, wo = w / wx;
-  long long r = o;
-  const int ch = (int)(r % cv); r /= cv;
-  const int ox = (int)(r % wo); r /= wo;
-  const int oy = (int)(r % ho);
-  const long long orow = r / ho;
-  const Vec<T, V> yv = y[o];
-  const Vec<T, V> gv = g[o];
+  const T* yr = y + t * wo * c;
+  const T* gr = g + t * wo * c;
   float yf[V];
+  Vec<T, V> gv;
+  {
+    int j = e0 / c, ch = e0 - j * c;
 #pragma unroll
-  for (int i = 0; i < V; ++i) yf[i] = to_f32(yv.v[i]);
-  for (int a = 0; a < wz; ++a)
-    for (int b = 0; b < wy; ++b)
-      for (int d = 0; d < wx; ++d) {
-        const long long off =
-            (((orow * wz + a) * h + (long long)oy * wy + b) * w + (long long)ox * wx + d) * cv + ch;
-        const Vec<T, V> xv = x[off];
-        Vec<T, V> out;
+    for (int i = 0; i < G; ++i) {
+      const int q = (j / wx) * c + ch;
+      const S yu = *reinterpret_cast<const S*>(yr + q);
+      reinterpret_cast<S*>(&gv)[i] = *reinterpret_cast<const S*>(gr + q);
+      const T* ye = reinterpret_cast<const T*>(&yu);
 #pragma unroll
-        for (int i = 0; i < V; ++i)
-          out.v[i] = (to_f32(xv.v[i]) == yf[i]) ? gv.v[i] : from_f32<T>(0.0f);
-        dx[off] = out;
+      for (int e = 0; e < EPS; ++e) yf[i * EPS + e] = to_f32(ye[e]);
+      ch += EPS;
+      if (ch == c) {
+        ch = 0;
+        ++j;
       }
+    }
+  }
+  const long long in_row = (long long)w * c, in_plane = in_row * h;
+  const long long orow = t / ho;
+  const T* xb = x + orow * wz * in_plane + (t - orow * ho) * wy * in_row + e0;
+  T* db = dx + (xb - x);
+  const int nrun = wz * wy;
+  int a = 0, b = 0;  // run (a, b): input row (orow * wz + a, oy * wy + b)
+  for (int r0 = 0; r0 < nrun; r0 += kPoolBwdBatch) {
+    long long off[kPoolBwdBatch];
+    Vec<T, V> v[kPoolBwdBatch];
+#pragma unroll
+    for (int q = 0; q < kPoolBwdBatch; ++q) {
+      if (r0 + q >= nrun) break;
+      off[q] = a * in_plane + b * in_row;
+      v[q] = *reinterpret_cast<const Vec<T, V>*>(xb + off[q]);
+      if (++b == wy) {
+        b = 0;
+        ++a;
+      }
+    }
+#pragma unroll
+    for (int q = 0; q < kPoolBwdBatch; ++q) {
+      if (r0 + q >= nrun) break;
+      *reinterpret_cast<Vec<T, V>*>(db + off[q]) = pool_bwd_select(v[q], yf, gv);
+    }
+  }
 }
 
 template <typename T>
-void launch_pool_bwd(const void* x, const void* y, const void* g, void* dx, int rows, int h,
-                     int w, int c, int wz, int wy, int wx, cudaStream_t stream) {
+int launch_pool_bwd(const void* x, const void* y, const void* g, void* dx, int rows, int h,
+                    int w, int c, int wz, int wy, int wx, int route, cudaStream_t stream) {
   constexpr int V = 16 / sizeof(T);
+  const long long cb = (long long)c * sizeof(T);
+  const int wo = w / wx;
+  const long long n_rows = (long long)(rows / wz) * (h / wy);
   const uintptr_t align = reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(y) |
                           reinterpret_cast<uintptr_t>(g) | reinterpret_cast<uintptr_t>(dx);
-  const long long outer = (long long)(rows / wz) * (h / wy) * (w / wx);
-  if (c % V == 0 && align % 16 == 0) {
-    const long long total = outer * (c / V);
-    const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-    pool_bwd_kernel<T, V><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const Vec<T, V>*>(x), static_cast<const Vec<T, V>*>(y),
-        static_cast<const Vec<T, V>*>(g), static_cast<Vec<T, V>*>(dx), total, h, w, c / V, wz,
-        wy, wx);
-  } else {
-    const long long total = outer * c;
-    const unsigned blocks = (unsigned)((total + kThreads - 1) / kThreads);
-    pool_bwd_kernel<T, 1><<<blocks, kThreads, 0, stream>>>(
-        static_cast<const Vec<T, 1>*>(x), static_cast<const Vec<T, 1>*>(y),
-        static_cast<const Vec<T, 1>*>(g), static_cast<Vec<T, 1>*>(dx), total, h, w, c, wz, wy,
-        wx);
+  if (route == kRouteChannels16) {
+    ChannelsGrid cg;
+    if (align % 16 || cb % 16 || !channels_grid(n_rows, wo, (int)(cb / 16), cg))
+      return (int)cudaErrorInvalidValue;
+    auto launch = [&](auto kernel) {
+      kernel<<<cg.grid, kThreads, 0, stream>>>(
+          static_cast<const Vec<T, V>*>(x), static_cast<const Vec<T, V>*>(y),
+          static_cast<const Vec<T, V>*>(g), static_cast<Vec<T, V>*>(dx), n_rows, h, w,
+          (int)(cb / 16), wz, wy, wx, cg.upr, cg.rpb, cg.bpr);
+    };
+    const int nslot = wz * wy * wx;
+    if (nslot == 8)
+      launch(pool_bwd_channels_kernel<T, V, 8>);
+    else if (nslot == 4)
+      launch(pool_bwd_channels_kernel<T, V, 4>);
+    else
+      launch(pool_bwd_channels_kernel<T, V, 0>);
+    return (int)cudaGetLastError();
   }
+  if (!pool_rows_fit(route, align, w, wo, cb)) return (int)cudaErrorInvalidValue;
+  const long long nvr = (long long)w * c / (route == kRouteRows16 ? V : 1);  // vectors a run
+  const long long blocks = (n_rows * nvr + kThreads - 1) / kThreads;
+  if (nvr > INT32_MAX || blocks > INT32_MAX) return (int)cudaErrorInvalidValue;
+  auto launch = [&](auto kernel) {
+    kernel<<<(unsigned)blocks, kThreads, 0, stream>>>(
+        static_cast<const T*>(x), static_cast<const T*>(y), static_cast<const T*>(g),
+        static_cast<T*>(dx), h, w, c, wz, wy, wx, n_rows, (int)nvr);
+  };
+  int unit = (int)sizeof(T);  // the unit of y and g: one element on scalar
+  if (route == kRouteRows16)
+    for (unit = 16; cb % unit;) unit /= 2;
+  dispatch_unit(unit, [&](auto s) {
+    using S = decltype(s);
+    if constexpr (sizeof(S) >= sizeof(T)) {
+      if (route == kRouteRows16)
+        launch(pool_bwd_rows_kernel<T, V, S>);
+      else if constexpr (sizeof(S) == sizeof(T))
+        launch(pool_bwd_rows_kernel<T, 1, S>);
+    }
+  });
+  return (int)cudaGetLastError();
 }
 
 // one copy unit of dx per thread; o runs over dx = (row, p, a, j)
@@ -742,18 +921,6 @@ zcat_kernel(const E* __restrict__ x, E* __restrict__ out, int rows, long long hw
   }
 }
 
-// calls f with a value of the unsigned type that is `unit` bytes wide
-template <typename F>
-void dispatch_unit(int unit, F&& f) {
-  switch (unit) {
-    case 16: f(uint4{}); break;
-    case 8: f(uint2{}); break;
-    case 4: f(uint32_t{}); break;
-    case 2: f(uint16_t{}); break;
-    default: f(uint8_t{}); break;
-  }
-}
-
 template <typename E>
 int launch_zcat(const void* x, void* out, int rows, long long hw, int c, int kz, int depth,
                 int route, cudaStream_t stream) {
@@ -925,21 +1092,21 @@ extern "C" int biapy_zd2s(const void* x, void* y, int itemsize, int rows, int h,
 }
 
 // x is (rows, h, w, c); y and g are (rows/wz, h/wy, w/wx, c); dx is x's
-// shape; all of one dtype (0 = float32, 1 = bfloat16). Returns
-// cudaGetLastError() after the launch.
+// shape; all of one dtype (0 = float32, 1 = bfloat16). route: as the
+// pool's, over all four pointers (0 = channels16, 1 = rows16, 2 = scalar);
+// a launch that does not fit its route is refused. Returns the launch's
+// cudaGetLastError(), or cudaErrorInvalidValue when refused.
 extern "C" int biapy_pool_max_folded_bwd(const void* x, const void* y, const void* g, void* dx,
                                          int dtype, int rows, int h, int w, int c, int wz,
-                                         int wy, int wx, void* stream) {
+                                         int wy, int wx, int route, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   const long long total = (long long)(rows / wz) * (h / wy) * (w / wx) * c;
   if (total == 0) return (int)cudaGetLastError();
   if (dtype == 0)
-    launch_pool_bwd<float>(x, y, g, dx, rows, h, w, c, wz, wy, wx, s);
-  else if (dtype == 1)
-    launch_pool_bwd<__nv_bfloat16>(x, y, g, dx, rows, h, w, c, wz, wy, wx, s);
-  else
-    return (int)cudaErrorInvalidValue;
-  return (int)cudaGetLastError();
+    return launch_pool_bwd<float>(x, y, g, dx, rows, h, w, c, wz, wy, wx, route, s);
+  if (dtype == 1)
+    return launch_pool_bwd<__nv_bfloat16>(x, y, g, dx, rows, h, w, c, wz, wy, wx, route, s);
+  return (int)cudaErrorInvalidValue;
 }
 
 // g is (rows*sz, h, w, c) of any dtype of `itemsize` bytes; dx is

@@ -10,7 +10,8 @@ library is never loaded. A failed build raises.
 Every wrapper counts its launches in ``LAUNCHES`` (one per kernel launch,
 nothing else), so a run can show that its path went through the kernels;
 ``CONV3D_ROUTES`` splits conv3d's count by the kernel that ran, and
-``SHUFFLE_ROUTES`` the pool forward's and zcat's by the access width.
+``SHUFFLE_ROUTES`` the pool's, its backward's and zcat's by the access
+width.
 """
 
 from __future__ import annotations
@@ -41,11 +42,13 @@ LAUNCHES: Dict[str, int] = {"conv3d": 0, "pool_max_folded": 0, "pool_max_folded_
 # the two add up to LAUNCHES["conv3d"]
 CONV3D_ROUTES: Dict[str, int] = {"wgmma": 0, "fma": 0}
 
-# the pool forward's and zcat's launches by route (``shuffle.pool_route``,
-# ``shuffle.zcat_route``): "channels16" and "rows16" (16-byte vectors) or
-# "scalar" (one element per access); each adds up to its kernel's LAUNCHES
+# the pool's, its backward's and zcat's launches by route
+# (``shuffle.pool_route``, ``shuffle.zcat_route``): "channels16" and "rows16"
+# (16-byte vectors) or "scalar" (one element per access); each adds up to
+# its kernel's LAUNCHES
 SHUFFLE_ROUTES: Dict[str, Dict[str, int]] = {
-    k: {"channels16": 0, "rows16": 0, "scalar": 0} for k in ("pool_max_folded", "zcat")}
+    k: {"channels16": 0, "rows16": 0, "scalar": 0}
+    for k in ("pool_max_folded", "pool_max_folded_bwd", "zcat")}
 
 _lib: Optional[ctypes.CDLL] = None
 BUILD_INFO: Dict[str, object] = {}
@@ -135,7 +138,7 @@ def lib() -> ctypes.CDLL:
         handle.biapy_conv3d_k3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         handle.biapy_conv3d_k3_wgmma.argtypes = [p, p, p, i, i, i, i, i, i, p]
         handle.biapy_pool_max_folded.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p]
-        handle.biapy_pool_max_folded_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, p]
+        handle.biapy_pool_max_folded_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         handle.biapy_zd2s.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zs2d.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zcat.argtypes = [p, p, i, i, i, i, i, i, i, i, p]

@@ -12,15 +12,16 @@ the forward and the backward are each one kernel on a CUDA tensor and the
 plain version on a CPU tensor (the plain backward, not autograd of the plain
 forward: the pool's tie rule would differ). A tensor anywhere else raises.
 
-The pool forward and zcat take one of three routes, a rule on shape,
-itemsize and pointer alignment (``pool_route``, ``zcat_route``; no setting,
-no ``try``), all in one source: ``"channels16"`` when a position's channels
-are whole 16-byte vectors (``c * itemsize % 16 == 0``; each thread one
-vector of channels, straight from and to device memory), ``"rows16"`` when
-they are not but every contiguous run of the launch lies on the 16-byte grid
-(runs staged in shared memory, or at zcat's c = 1 interleaved in registers:
-16-byte vectors at any channel count), else ``"scalar"`` (the staged kernels
-with one element per access). The wrapper
+The pool, its backward and zcat take one of three routes, a rule on
+shape, itemsize and pointer alignment (``pool_route``, ``zcat_route``; no
+setting, no ``try``), all in one source: ``"channels16"`` when a position's
+channels are whole 16-byte vectors (``c * itemsize % 16 == 0``; each thread
+one vector of channels, straight from and to device memory), ``"rows16"``
+when they are not but every contiguous run of the launch lies on the
+16-byte grid (runs staged in shared memory, streamed through registers by
+the pool backward, or at zcat's c = 1 interleaved in registers: 16-byte
+vectors at any channel count), else ``"scalar"`` (the same kernels with one
+element per access). The wrapper
 passes the route to the C entry, which refuses a launch its route cannot
 serve, and counts it in ``build.SHUFFLE_ROUTES``.
 """
@@ -56,14 +57,14 @@ def _on_grid(*values: int) -> bool:
     return all(v % 16 == 0 for v in values)
 
 
-def pool_route(shape: Sequence[int], itemsize: int, win: Sequence[int], x_ptr: int,
-               y_ptr: int) -> str:
-    """The pool forward's route for ``(rows, h, w, c)``: ``"channels16"``
-    when c * itemsize and both pointers lie on the 16-byte grid,
-    ``"rows16"`` when an input row (w * c elements), a pooled row
-    ((w / wx) * c) and both pointers do, else ``"scalar"``."""
+def pool_route(shape: Sequence[int], itemsize: int, win: Sequence[int], *ptrs: int) -> str:
+    """The route of the pool forward (pointers x, y) or its backward (x, y,
+    g, dx) for ``(rows, h, w, c)``: ``"channels16"`` when c * itemsize and
+    every pointer lie on the 16-byte grid, ``"rows16"`` when an input row
+    (w * c elements), a pooled row ((w / wx) * c) and every pointer do, else
+    ``"scalar"``."""
     _, _, w, c = shape
-    if not _on_grid(x_ptr, y_ptr):
+    if not _on_grid(*ptrs):
         return "scalar"
     if _on_grid(c * itemsize):
         return "channels16"
@@ -156,16 +157,27 @@ def pool_max_folded_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor,
                          f"g {tuple(g.shape)} do not fit window {(wz, wy, wx)}")
     if x.device.type == "cpu":
         return pool_max_folded_bwd_plain(x, y, g, (wz, wy, wx))
+    dx = torch.empty_like(x)
+    _launch_pool_bwd(x, y, g, dx, (wz, wy, wx))
+    return dx
+
+
+def _launch_pool_bwd(x: torch.Tensor, y: torch.Tensor, g: torch.Tensor, dx: torch.Tensor,
+                     win: Sequence[int]) -> None:
+    """The pool backward's kernel into ``dx`` (x's shape), on the route
+    ``pool_route`` gives for the four pointers."""
     name = "pool_max_folded_bwd"
     build.check_cuda(x, name)
-    _check_same(name, x, y, g)
+    _check_same(name, x, y, g, dx)
+    if dx.shape != x.shape:
+        raise ValueError(f"{name}: dx {tuple(dx.shape)} is not x's shape {tuple(x.shape)}")
     code = build.dtype_code(x)
     rows, h, w, c = x.shape
-    dx = torch.empty_like(x)
+    wz, wy, wx = win
     if y.numel():
-        _launch(name, "biapy_pool_max_folded_bwd", x, x.data_ptr(), y.data_ptr(), g.data_ptr(),
-                dx.data_ptr(), code, rows, h, w, c, wz, wy, wx)
-    return dx
+        ptrs = (x.data_ptr(), y.data_ptr(), g.data_ptr(), dx.data_ptr())
+        _launch(name, "biapy_pool_max_folded_bwd", x, *ptrs, code, rows, h, w, c, wz, wy, wx,
+                route=pool_route(x.shape, x.element_size(), win, *ptrs))
 
 
 class PoolMaxFolded(torch.autograd.Function):

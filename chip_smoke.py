@@ -72,7 +72,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     as it is but for its data paths (seeded TIFFs under
     ``chiprun_out/chip_smoke_template/``), EPOCHS 2 and a one-epoch warm-up:
     trains, writes its checkpoints, tests; seconds and conv3d routes; every
-    pool and zcat launch on a 16-byte route (``build.SHUFFLE_ROUTES``);
+    pool, pool backward and zcat launch on a 16-byte route
+    (``build.SHUFFLE_ROUTES``);
 12. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
@@ -415,10 +416,12 @@ def phase_kernels(card, conv3d_only=False):
     if conv3d_only:
         return out.rows
 
-    # odd: ragged, c = 5, window 3x2x1; the template's first pool at batch 1
-    # (Z_DOWN 1: window 1x2x2, 28 channels); the template's three pools at
-    # batch 2
-    pools = (MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((40, 128, 128, 28), (1, 2, 2))]
+    # odd, with ties, a NaN and a -0: ragged, c = 5, window 3x2x1; 28
+    # channels under a 3x2x2 window (the rows16 route in bf16); the template's
+    # first pool at batch 1 (Z_DOWN 1: window 1x2x2, 28 channels); the
+    # template's three pools at batch 2
+    pools = (MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((6, 10, 12, 28), (3, 2, 2)),
+                           ((40, 128, 128, 28), (1, 2, 2))]
              + TEMPLATE_POOLS)
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
@@ -1646,7 +1649,7 @@ def phase_template():
         if not (launches["pool_max_folded"] and launches["pool_max_folded_bwd"]
                 and launches["zd2s"] == 0 and routes["fma"] and routes["wgmma"]):
             raise AssertionError(f"template: launches {launches}, conv3d routes {routes}")
-        # every pool and zcat of the template on 16-byte vectors
+        # every pool, pool backward and zcat of the template on 16-byte vectors
         if not all(launches[k] and shuffle_routes[k]["scalar"] == 0
                    and sum(shuffle_routes[k].values()) == launches[k] for k in shuffle_routes):
             raise AssertionError(f"template: launches {launches}, shuffle routes "
@@ -1675,9 +1678,9 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
-    each counted from zero. The pool and zcat entries also carry
-    ``template_*`` sums: the template's three pools (one forward) and its 14
-    zcats (one training step), at batch 2."""
+    each counted from zero. The pool, pool backward and zcat entries also
+    carry ``template_*`` sums: the template's three pools (one forward or
+    backward) and its 14 zcats (one training step), at batch 2."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -1714,6 +1717,7 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
     }
     per_template = {
         "pool_max_folded": [dict(shape=list(s)) for s, _ in TEMPLATE_POOLS],
+        "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in TEMPLATE_POOLS],
         "zcat": [dict(shape=[TEMPLATE_BATCH * TEMPLATE_DEPTH, s, s, cin], kz=3,
                       depth=TEMPLATE_DEPTH) for s, cin, _ in TEMPLATE_CONVS],
     }
@@ -1781,8 +1785,9 @@ def main():
     print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
           "call, host work included) are sums over each kernel's launches in one serving patch "
           "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
-          "train_step_* too), bf16; pool_max_folded's and zcat's template_* sums are over the "
-          "template's three pools and its 14 zcats of a training step at batch 2; launches add "
+          "train_step_* too), bf16; the template_* sums of pool_max_folded, pool_max_folded_bwd "
+          "and zcat are over the template's three pools and its 14 zcats of a training step at "
+          "batch 2; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
           "TTA passes and the template's included)")
     print(json.dumps({"kernels": kernels}))

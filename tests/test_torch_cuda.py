@@ -15,7 +15,8 @@ import torch
 from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_fwd, conv3d_plain,
                                                 conv3d_route)
-from biapy_tpu_torch.ops.kernels.shuffle import (pool_max_folded, pool_max_folded_bwd,
+from biapy_tpu_torch.ops.kernels.shuffle import (_launch_pool_bwd, pool_max_folded,
+                                                 pool_max_folded_bwd,
                                                  pool_max_folded_bwd_plain, pool_max_folded_fwd,
                                                  pool_max_folded_plain, pool_route, zcat,
                                                  zcat_bwd, zcat_bwd_plain, zcat_fwd, zcat_plain,
@@ -147,6 +148,48 @@ def test_pool_routes_match_plain_on_the_card(dtype):
             assert build.SHUFFLE_ROUTES["pool_max_folded"] == {
                 k: int(route == k) for k in ("channels16", "rows16", "scalar")}
             assert _equal_nan(y, ref), (shape, win, route)
+    assert seen == {"channels16", "rows16", "scalar"}
+    torch.cuda.synchronize()
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_pool_bwd_routes_match_plain_on_the_card(dtype):
+    """The pool backward on every route at every channel width of
+    ``_CHANNEL_BYTES``, windows 2x2x2, 1x2x2, 3x2x1 and 1x2x2 on 11 pooled
+    columns, ties, a NaN and a -0; rows of 472 and 512 positions (which the
+    forward cuts into column chunks); x, y, g and dx each at the allocator's
+    alignment and one element off it; each launch on the route
+    ``pool_route`` names, bit-equal to the plain version."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    dt = getattr(torch, dtype)
+    item = torch.empty((), dtype=dt).element_size()
+    gen = torch.Generator(device="cpu").manual_seed(8)
+    cases = [((4, 6, 8), (2, 2, 2)), ((3, 8, 10), (1, 2, 2)), ((6, 4, 6), (3, 2, 1)),
+             ((2, 6, 22), (1, 2, 2))]
+    shapes = [(rhw + (nbytes // item,), win) for nbytes in _CHANNEL_BYTES if nbytes % item == 0
+              for rhw, win in cases]
+    shapes += [((2, 2, 472, 56 // item), (1, 2, 2)), ((4, 2, 512, 72 // item), (2, 2, 2))]
+    seen = set()
+    for shape, win in shapes:
+        x = torch.randint(-2, 3, shape, generator=gen).to(dev, dt) * 0.5  # ties
+        x.view(-1)[7] = float("nan")
+        x.view(-1)[11] = -0.0
+        y = pool_max_folded_plain(x, win)
+        g = torch.randn(y.shape, generator=gen).to(dev, dt)
+        ref = pool_max_folded_bwd_plain(x, y, g, win)
+        # every operand aligned, then each in turn one element off the grid
+        for off in (None, 0, 1, 2, 3):
+            ops = [_at_element_offset(t) if i == off else t
+                   for i, t in enumerate((x, y, g, torch.empty_like(x)))]
+            build.reset_launches()
+            _launch_pool_bwd(*ops, win)
+            route = pool_route(shape, item, win, *(t.data_ptr() for t in ops))
+            seen.add(route)
+            assert build.SHUFFLE_ROUTES["pool_max_folded_bwd"] == {
+                k: int(route == k) for k in ("channels16", "rows16", "scalar")}
+            assert torch.equal(ops[3], ref), (shape, win, off, route)
     assert seen == {"channels16", "rows16", "scalar"}
     torch.cuda.synchronize()
 

@@ -105,7 +105,8 @@ def test_zd2s_matches_pallas(shape, sz, dtype):
     np.testing.assert_array_equal(got, ref)  # a copy is exact
 
 
-# (kernel, (rows, h, w, c), itemsize, pool window, (input, output) pointer, route)
+# (kernel, (rows, h, w, c), itemsize, pool window, pointers, route); the
+# pointers are (input, output), or (x, y, g, dx) for the pool backward
 _ROUTES = {
     # the bench ResUNet (bf16): its two pools and the zcats of its wgrads
     "bench-pool-1": ("pool", (128, 128, 128, 32), 2, (2, 2, 2), (0, 512), "channels16"),
@@ -133,20 +134,39 @@ _ROUTES = {
     "odd-zcat-channels": ("zcat", (6, 5, 7, 8), 2, None, (0, 512), "channels16"),
     "odd-zcat-offset-in": ("zcat", (8, 8, 8, 3), 2, None, (2, 512), "scalar"),
     "odd-zcat-offset-out": ("zcat", (128, 64, 64, 64), 2, None, (0, 520), "scalar"),
+    # the pool backward: the bench's two pools, the template's three (bf16,
+    # batch 2), a pointer of g or dx one element off the grid, a pooled row
+    # of 24 bytes
+    "bench-pool-bwd-1": ("pool_bwd", (128, 128, 128, 32), 2, (2, 2, 2), (0, 512, 1024, 1536),
+                         "channels16"),
+    "bench-pool-bwd-2": ("pool_bwd", (64, 64, 64, 64), 2, (2, 2, 2), (0, 512, 1024, 1536),
+                         "channels16"),
+    "template-pool-bwd-1": ("pool_bwd", (80, 128, 128, 28), 2, (1, 2, 2), (0, 512, 1024, 1536),
+                            "rows16"),
+    "template-pool-bwd-2": ("pool_bwd", (80, 64, 64, 36), 2, (1, 2, 2), (0, 512, 1024, 1536),
+                            "rows16"),
+    "template-pool-bwd-3": ("pool_bwd", (80, 32, 32, 48), 2, (1, 2, 2), (0, 512, 1024, 1536),
+                            "channels16"),
+    "odd-pool-bwd-offset-g": ("pool_bwd", (80, 128, 128, 28), 2, (1, 2, 2),
+                              (0, 512, 1026, 1536), "scalar"),
+    "odd-pool-bwd-offset-dx": ("pool_bwd", (128, 128, 128, 32), 2, (2, 2, 2),
+                               (0, 512, 1024, 1538), "scalar"),
+    "odd-pool-bwd-pooled-row": ("pool_bwd", (2, 2, 24, 1), 2, (1, 2, 2), (0, 512, 1024, 1536),
+                                "scalar"),
 }
 
 
 @pytest.mark.parametrize("case", sorted(_ROUTES))
 def test_shuffle_route_rule(case):
-    """The pool forward's and zcat's routes are a rule on shape, itemsize and
-    pointer alignment alone: 16-byte vectors on every main-path shape (of
-    channels where c * itemsize allows, else of staged rows), one element
-    per access where a run leaves the 16-byte grid."""
-    kernel, shape, itemsize, win, (p_in, p_out), want = _ROUTES[case]
-    if kernel == "pool":
-        assert pool_route(shape, itemsize, win, p_in, p_out) == want
+    """The routes of the pool, its backward and zcat are a rule on shape,
+    itemsize and pointer alignment alone: 16-byte vectors on every main-path
+    shape (of channels where c * itemsize allows, else of whole rows), one
+    element per access where a run or a pointer leaves the 16-byte grid."""
+    kernel, shape, itemsize, win, ptrs, want = _ROUTES[case]
+    if kernel == "zcat":
+        assert zcat_route(shape, itemsize, *ptrs) == want
     else:
-        assert zcat_route(shape, itemsize, p_in, p_out) == want
+        assert pool_route(shape, itemsize, win, *ptrs) == want
 
 
 def test_cpu_tensors_take_plain_path_and_count_no_launch():
@@ -169,7 +189,7 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
                                    "zs2d", "zcat", "zcat_bwd"}
     assert all(n == 0 for n in build.LAUNCHES.values())
     assert build.SHUFFLE_ROUTES == {k: {"channels16": 0, "rows16": 0, "scalar": 0}
-                                    for k in ("pool_max_folded", "zcat")}
+                                    for k in ("pool_max_folded", "pool_max_folded_bwd", "zcat")}
 
 
 def test_non_cpu_non_cuda_tensor_raises_instead_of_falling_back():
