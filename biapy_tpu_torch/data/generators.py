@@ -38,7 +38,9 @@ class PairDataset:
     augmentation. ``augment`` marks the training set: its samples take
     ``AUGMENTOR.*`` (when enabled) and ``DATA.PREPROCESS.TRAIN``, and its
     random crops follow ``DATA.TRAIN.PROBABILITY_MAP``. ``channel_handler``
-    is the instance workflows' (``data/tta.py`` in the JAX package); semantic
+    is the instance workflows' (``data/tta.py::TrainChannelHandler``): it
+    remaps or regenerates the compiled channels under augmentation, and its
+    label column is dropped before a sample leaves ``get``; semantic
     segmentation passes None."""
 
     def __init__(
@@ -57,6 +59,7 @@ class PairDataset:
         self.nd = 3 if self.is_3d else 2
         self.crop_shape = tuple(cfg.DATA.PATCH_SIZE)
         self.norm_spec = norm_spec
+        self.channel_handler = channel_handler
         self.aug = (AugmentorPipeline(cfg, self.nd, channel_handler=channel_handler)
                     if augment else None)
         self._grid_overlay = False  # save_aug_samples draws a grid on its samples
@@ -196,6 +199,11 @@ class PairDataset:
             if self._grid_overlay:
                 img = _draw_grid(img)
             img, gt = self.aug(img, gt, rng)
+        ch = self.channel_handler
+        if gt is not None and ch is not None and ch.label_col is not None:
+            # the compile cache's raw instance-label column serves only the
+            # train-time regeneration of geometry-derived channels
+            gt = np.delete(gt, ch.label_col, axis=-1)
         out = {"x": np.ascontiguousarray(img, dtype=np.float32)}
         if gt is not None:
             out["y"] = np.ascontiguousarray(gt, dtype=np.float32)

@@ -1,19 +1,38 @@
-"""Channel bookkeeping and the DATA.PREPROCESS pipeline, copied from the
-JAX package's ``data/pre_processing.py``: ``affinity_offsets`` and
-``channels_per_code`` (which the TTA spec reads), and ``resize_image``,
-``apply_gaussian_blur``, ``apply_median_blur``, ``match_histogram``,
-``apply_clahe``, ``detect_edges`` and ``preprocess_image``. The GT ->
-channel-representation compiler (``labels_into_channels`` and its helpers)
-needs the native distance transform and comes with the instance workflow
-(ROADMAP queue 1 item 9).
+"""The GT -> channel-representation compiler, channel bookkeeping and the
+DATA.PREPROCESS pipeline, copied from the JAX package's
+``data/pre_processing.py``: ``labels_into_channels`` and its helpers
+(``_edt`` on the native distance transform, ``_contours``,
+``hover_channels``, ``cellpose_flows``, ``radial_distances``,
+``affinities``), ``affinity_offsets`` and ``channels_per_code`` (which the
+TTA spec reads), and ``resize_image``, ``apply_gaussian_blur``,
+``apply_median_blur``, ``match_histogram``, ``apply_clahe``,
+``detect_edges`` and ``preprocess_image``. The Omnipose and EmbedSeg
+channels raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 from scipy import ndimage
+
+
+def _not_ported(what: str) -> NotImplementedError:
+    return NotImplementedError(f"{what} is not ported to biapy_tpu_torch yet "
+                               "(ROADMAP: queue 1 item 9, other workflows)")
+
+
+def _edt(mask: np.ndarray) -> np.ndarray:
+    """Exact EDT, float32: first-party threaded FH transform (native.edt,
+    the analog of the reference's `edt` C-extension dep, pyproject.toml:28)
+    with a scipy fallback if the native build is unavailable."""
+    try:
+        from biapy_tpu_torch import native
+
+        return native.edt(mask)
+    except Exception:
+        return ndimage.distance_transform_edt(mask).astype(np.float32)
 
 
 def affinity_offsets(extra: Dict, nd: int) -> List[Tuple[int, int]]:
@@ -46,6 +65,309 @@ def channels_per_code(code: str, extra: Dict, nd: int = 2) -> int:
     if code == "A":
         return len(affinity_offsets(extra, nd))
     return 1
+
+
+def _binary_dilate(mask: np.ndarray, it: int) -> np.ndarray:
+    return ndimage.binary_dilation(mask, iterations=it) if it > 0 else mask
+
+
+def _binary_erode(mask: np.ndarray, it: int) -> np.ndarray:
+    return ndimage.binary_erosion(mask, iterations=it) if it > 0 else mask
+
+
+def _contours(labels: np.ndarray, thickness: int = 1) -> np.ndarray:
+    """Instance contours: voxels adjacent to a different label or background."""
+    fg = labels > 0
+    eroded = ndimage.grey_erosion(labels, size=(3,) * labels.ndim)
+    dilated = ndimage.grey_dilation(labels, size=(3,) * labels.ndim)
+    border = fg & ((eroded != labels) | (dilated != labels))
+    if thickness > 1:
+        border = ndimage.binary_dilation(border, iterations=thickness - 1) & fg
+    return border
+
+
+def _per_instance(labels: np.ndarray):
+    for lab in np.unique(labels):
+        if lab == 0:
+            continue
+        yield int(lab), labels == lab
+
+
+def hover_channels(labels: np.ndarray, norm: bool = True) -> np.ndarray:
+    """HoVer-Net signed offsets to the instance centroid per axis
+    (reference: config.py H/V/Z docs; Graham et al. 2019)."""
+    nd = labels.ndim
+    out = np.zeros(labels.shape + (nd,), np.float32)
+    coords = np.indices(labels.shape).astype(np.float32)
+    objs = ndimage.find_objects(labels)
+    for lab, sl in zip(range(1, len(objs) + 1), objs):
+        if sl is None:
+            continue
+        m = labels[sl] == lab
+        for d in range(nd):
+            c = coords[d][sl]
+            cen = c[m].mean()
+            off = (c - cen) * m
+            if norm:
+                mx = np.abs(off[m]).max()
+                if mx > 0:
+                    off = off / mx
+            out[sl + (d,)][m] = off[m]
+    # axis order (y, x) in 2D -> channels (H=x? reference: H horizontal, V
+    # vertical). We emit (V, H) for 2D and (Z, V, H) for 3D, then the caller
+    # reorders by requested code.
+    return out
+
+
+def cellpose_flows(labels: np.ndarray, n_iter: Optional[int] = None) -> np.ndarray:
+    """Cellpose heat-diffusion flows (reference: instances_to_flows:790 +
+    numba _extend_centers_2d/3d:700/747; Stringer et al. 2021).
+
+    Diffuses heat from each instance's median center within the instance
+    mask, then returns the normalized gradient of the heat potential, per
+    axis, stacked channels-last. Background = 0.
+    """
+    nd = labels.ndim
+    fg = labels > 0
+    g_all = np.zeros(labels.shape + (nd,), np.float64)
+    objs = ndimage.find_objects(labels)
+    for lab, sl in zip(range(1, len(objs) + 1), objs):
+        if sl is None:
+            continue
+        # pad the crop so diffusion has a zero boundary
+        sub = labels[sl] == lab
+        pad = np.pad(sub, 1)
+        h = np.zeros(pad.shape, np.float64)
+        idx = np.argwhere(pad)
+        center = tuple(np.median(idx, axis=0).astype(int))
+        it = n_iter or 2 * int(np.max(pad.shape))
+        for _ in range(it):
+            h[center] += 1.0
+            # 2*nd-neighbour average within the mask
+            acc = np.zeros_like(h)
+            for d in range(nd):
+                acc += np.roll(h, 1, axis=d) + np.roll(h, -1, axis=d)
+            h = (acc / (2 * nd)) * pad
+        # gradient PER INSTANCE on the padded crop, like the reference's
+        # per-instance kernels (_extend_centers_2d/3d) — a global gradient
+        # would mix a touching neighbour's heat field exactly at the
+        # instance-separating boundary, the case flows exist to split
+        crop = tuple(slice(1, -1) for _ in range(nd))
+        grads = np.gradient(np.log1p(h))
+        gcrop = np.stack([gr[crop] for gr in grads], axis=-1)
+        tgt = g_all[sl]
+        tgt[sub] = gcrop[sub]
+        g_all[sl] = tgt
+    mag = np.sqrt(np.sum(g_all**2, axis=-1, keepdims=True))
+    g = np.where(mag > 1e-8, g_all / np.maximum(mag, 1e-8), 0.0)
+    return (g * fg[..., None]).astype(np.float32)
+
+
+def generate_rays(nrays: int, nd: int = 2) -> np.ndarray:
+    """Unit ray directions, (nrays, nd) in (y,x) / (z,y,x) axis order
+    (reference: generate_rays, pre_processing.py:1859 — 2D circle, 3D
+    Fibonacci sphere). Shared by the channel compiler and the NMS so training
+    targets and polyhedron reconstruction agree."""
+    if nd == 2:
+        a = np.linspace(0, 2 * np.pi, nrays, endpoint=False)
+        return np.stack([np.sin(a), np.cos(a)], axis=1).astype(np.float32)  # (dy, dx)
+    i = np.arange(nrays, dtype=np.float64)
+    phi = (1 + np.sqrt(5.0)) / 2.0
+    z = 1 - 2 * (i + 0.5) / nrays
+    r = np.sqrt(np.maximum(0.0, 1 - z * z))
+    theta = 2 * np.pi * i / phi
+    dirs = np.stack([z, r * np.sin(theta), r * np.cos(theta)], axis=1)  # (dz, dy, dx)
+    dirs /= np.linalg.norm(dirs, axis=1, keepdims=True) + 1e-12
+    return dirs.astype(np.float32)
+
+
+def radial_distances(labels: np.ndarray, nrays: int = 32) -> np.ndarray:
+    """StarDist radial ray distances, 2D polygons or 3D polyhedra
+    (reference: _radial_distances_2d/_3d numba kernels,
+    pre_processing.py:1904,1971). For each foreground voxel, the distance
+    along each ray direction to the instance boundary. Vectorized ray
+    marching: all foreground voxels advance one unit step per iteration until
+    they leave their instance."""
+    nd = labels.ndim
+    rays = generate_rays(nrays, nd)
+    shape = np.asarray(labels.shape)
+    coords = np.argwhere(labels > 0)  # (n, nd)
+    out = np.zeros(labels.shape + (nrays,), np.float32)
+    if len(coords) == 0:
+        return out
+    labs = labels[tuple(coords.T)]
+    max_steps = int(np.ceil(np.linalg.norm(shape))) + 1
+    for k in range(nrays):
+        d = rays[k]
+        t = np.ones(len(coords), np.float32)
+        active = np.ones(len(coords), bool)
+        for _ in range(max_steps):
+            pos = np.round(coords[active] + d * t[active, None]).astype(np.int64)
+            inside = np.all((pos >= 0) & (pos < shape), axis=1)
+            same = np.zeros(len(pos), bool)
+            if inside.any():
+                same[inside] = labels[tuple(pos[inside].T)] == labs[active][inside]
+            idx = np.nonzero(active)[0]
+            t[idx[same]] += 1.0
+            active[idx[~same]] = False
+            if not active.any():
+                break
+        out[tuple(coords.T) + (k,)] = t
+    return out
+
+
+def affinities(labels: np.ndarray, extra: Dict) -> np.ndarray:
+    """Affinity channels: 1 where the voxel and its offset neighbour share an
+    instance (reference: util.py:588 seg2aff_pni)."""
+    nd = labels.ndim
+    offsets = affinity_offsets(extra, nd)  # (axis, distance)
+    chans = []
+    for axis, dist in offsets:
+        shifted = np.roll(labels, -dist, axis=axis)
+        valid = np.ones_like(labels, bool)
+        sl = [slice(None)] * nd
+        sl[axis] = slice(labels.shape[axis] - dist, None)
+        valid[tuple(sl)] = False
+        aff = (labels == shifted) & (labels > 0) & valid
+        chans.append(aff.astype(np.float32))
+    return np.stack(chans, axis=-1)
+
+
+def labels_into_channels(
+    instance_labels: np.ndarray,
+    mode: Sequence[str] = ("F", "C"),
+    channel_extra_opts: Optional[Dict] = None,
+    resolution: Sequence[float] = (1, 1, 1),
+) -> np.ndarray:
+    """Compile an instance label map (channels-last, trailing dim 1) into the
+    requested channel representation (reference: labels_into_channels:1041)."""
+    extra = channel_extra_opts or {}
+    labels = np.asarray(instance_labels)
+    if labels.ndim in (3, 4) and labels.shape[-1] == 1:
+        labels = labels[..., 0]
+    labels = labels.astype(np.int32)
+    nd = labels.ndim
+    fg = labels > 0
+
+    hover = None
+    flows = None
+    outs: List[np.ndarray] = []
+    for code in mode:
+        opts = extra.get(code, {})
+        if code == "F":
+            m = fg.copy()
+            m = _binary_erode(m, int(opts.get("erosion", 0)))
+            m = _binary_dilate(m, int(opts.get("dilation", 0)))
+            outs.append(m.astype(np.float32)[..., None])
+        elif code == "B":
+            outs.append((~fg).astype(np.float32)[..., None])
+        elif code == "M":
+            # legacy BCM mask channel: foreground without erosion tweaks
+            # (reference: config.py:383 — binary like 'F', used by Voronoi)
+            outs.append(fg.astype(np.float32)[..., None])
+        elif code == "C":
+            outs.append(_contours(labels, int(opts.get("thickness", 1))).astype(np.float32)[..., None])
+        elif code == "P":
+            pts = np.zeros(labels.shape, np.float32)
+            for lab, sl in zip(range(1, 10**9), ndimage.find_objects(labels)):
+                if sl is None:
+                    continue
+                m = labels[sl] == lab
+                com = ndimage.center_of_mass(m)
+                target = pts[sl]
+                target[tuple(int(round(c)) for c in com)] = 1.0
+            if int(opts.get("dilation", 2)) > 0:
+                pts = ndimage.binary_dilation(pts > 0, iterations=int(opts.get("dilation", 2))).astype(np.float32)
+            outs.append(pts[..., None])
+        elif code in ("H", "V", "Z"):
+            if hover is None:
+                hover = hover_channels(labels, norm=bool(extra.get(code, {}).get("norm", True)))
+            # hover axes order: (y, x) in 2D / (z, y, x) in 3D
+            axis = {"Z": 0, "V": nd - 2, "H": nd - 1}[code]
+            outs.append(hover[..., axis : axis + 1])
+        elif code in ("Gh", "Gv", "Gz"):
+            if flows is None:
+                gtype = next((str(extra.get(g, {}).get("gradient_type", ""))
+                              for g in ("Gv", "Gh", "Gz")
+                              if extra.get(g, {}).get("gradient_type")), "cellpose")
+                if gtype == "omnipose":
+                    raise _not_ported("Omnipose flows (gradient_type 'omnipose')")
+                flows = cellpose_flows(labels)
+            axis = {"Gz": 0, "Gv": nd - 2, "Gh": nd - 1}[code]
+            outs.append(flows[..., axis : axis + 1])
+        elif code == "Db":
+            if str(opts.get("val_type", "norm")) == "omnipose":
+                raise _not_ported("the Omnipose distance field (Db val_type 'omnipose')")
+            d = _edt(fg)
+            if bool(opts.get("norm", True)):
+                for lab, m in _per_instance(labels):
+                    mx = d[m].max()
+                    if mx > 0:
+                        d[m] = d[m] / mx
+            outs.append((d * fg)[..., None])
+        elif code == "Dc":
+            dc = np.zeros(labels.shape, np.float32)
+            coords = np.indices(labels.shape).astype(np.float32)
+            for lab, sl in zip(range(1, 10**9), ndimage.find_objects(labels)):
+                if sl is None:
+                    continue
+                m = labels[sl] == lab
+                com = ndimage.center_of_mass(m)
+                dist = np.zeros(m.shape, np.float32)
+                for d_ in range(nd):
+                    c = coords[d_][sl]
+                    dist += (c - (sl[d_].start + com[d_])) ** 2
+                dist = np.sqrt(dist)
+                if bool(opts.get("norm", True)) and dist[m].max() > 0:
+                    dist = dist / dist[m].max()
+                tgt = dc[sl]
+                tgt[m] = dist[m]
+                dc[sl] = tgt
+            outs.append(dc[..., None])
+        elif code == "Dn":
+            dn = np.zeros(labels.shape, np.float32)
+            for lab, m in _per_instance(labels):
+                others = fg & ~m
+                if others.any():
+                    d = _edt(~others)
+                    dn[m] = d[m]
+            if dn.max() > 0:
+                dn = dn / dn.max()
+            outs.append(dn[..., None])
+        elif code == "D":
+            dpos = _edt(fg)
+            dneg = _edt(~fg)
+            sdf = dpos - dneg
+            if bool(opts.get("norm", True)):
+                sdf = np.tanh(sdf / 10.0)
+            outs.append(sdf[..., None])
+        elif code == "T":
+            touch = np.zeros(labels.shape, bool)
+            dil = ndimage.grey_dilation(labels, size=(3,) * nd)
+            ero = ndimage.grey_erosion(np.where(fg, labels, np.int32(10**9)), size=(3,) * nd)
+            touch = fg & (dil != labels) & (dil > 0)
+            near_other = fg & (ero != labels) & (ero != 10**9) & (ero > 0)
+            outs.append((touch | near_other).astype(np.float32)[..., None])
+        elif code == "A":
+            outs.append(affinities(labels, extra))
+        elif code == "R":
+            outs.append(radial_distances(labels, int(extra.get("R", {}).get("nrays", 32))))
+        elif code == "We":
+            # U-Net border weight map — GT-only channel the loss consumes
+            # (reference: PROBLEM.INSTANCE_SEG.BORDER_EXTRA_WEIGHTS,
+            # pre_processing.py:1565 + util.py:199)
+            from biapy_tpu_torch.utils.util import unet_weight_map
+
+            if nd == 3:
+                wm = np.stack([unet_weight_map(labels[z]) for z in range(labels.shape[0])])
+            else:
+                wm = unet_weight_map(labels)
+            outs.append(wm.astype(np.float32)[..., None])
+        elif code in ("E", "E_sigma", "E_seediness"):
+            raise _not_ported("EmbedSeg channels")
+        else:
+            raise ValueError(f"Unknown instance channel code: {code}")
+    return np.concatenate(outs, axis=-1)
 
 
 # ---------------------------------------------------------------------------

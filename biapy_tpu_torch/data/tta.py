@@ -2,9 +2,9 @@
 package's ``data/tta.py``: the orientation group (``AxisTransform``,
 ``rot90_transform``, ``flip_transform``, ``build_axis_transform_group``),
 the channel groups, ``TTASpec`` / ``build_tta_spec`` and
-``ensemble_predictions``. The train-time channel handler
-(``TrainChannelHandler``) needs the instance channel compiler and comes with
-the instance workflow (ROADMAP queue 1 item 9).
+``ensemble_predictions``, and the instance workflows' train-time channel
+handler (``TrainChannelHandler``, ``GEOMETRY_CODES``,
+``build_train_channel_handler``).
 
 Reference analog: biapy/data/post_processing/tta.py (AxisTransform:65,
 ChannelGroup:262, ScalarChannels:319, VectorChannels:334, RayChannels:408,
@@ -381,3 +381,104 @@ def ensemble_predictions(
     if mode == "max":
         return stack.max(axis=0)
     raise ValueError(f"Unknown TTA reduction: {mode}")
+
+
+# ---------------------------------------------------------------------------
+# train-time channel semantics
+# ---------------------------------------------------------------------------
+@dataclass
+class TrainChannelHandler:
+    """Representation-aware GEOMETRIC augmentation of compiled GT channels.
+
+    The reference keeps the raw instance-label column through every
+    transform (nearest-interpolated) and regenerates geometry-derived
+    channels from the augmented labels each batch
+    (pair_base_data_generator.py:1567-1579 -> labels_into_channels); flow
+    vectors are additionally re-oriented during the warp itself
+    (augmentors.py:1892 rotate_flow_vectors, :1936 flip_flow_vectors).
+
+    Here orthogonal transforms (flips / rot90) use the EXACT channel remap
+    the TTA groups define — distances are isometry-invariant scalars,
+    vectors permute/sign-flip, rays permute their angle index, affinities
+    follow their axis — so the common augmentations pay nothing; only
+    resampling transforms (affine / elastic / z-zoom / cut ops on the mask)
+    fall back to the reference's regeneration from the label column.
+    """
+
+    spec: TTASpec
+    label_col: Optional[int] = None            # raw instance-id column
+    regen_cols: Tuple[int, ...] = ()           # geometry-derived columns
+    regen_fn: Optional[Callable] = None        # labels (...,1) -> compiled stack
+    affine_mode: Optional[str] = None          # e.g. cellpose flows -> constant
+
+    @property
+    def can_regen(self) -> bool:
+        return (self.label_col is not None and self.regen_fn is not None
+                and len(self.regen_cols) > 0)
+
+    def supports(self, t: AxisTransform) -> bool:
+        return all(g.supports(t) for g in self.spec.groups)
+
+    def remap_forward(self, mask: np.ndarray, t: AxisTransform) -> None:
+        """Fix channel CONTENTS in place after ``t`` was applied spatially.
+
+        The TTA groups define ``remap(y, s)`` = content fix after the
+        spatial inverse of ``s`` was applied to a field expressed in
+        s-space; a field in original space to which forward ``t`` was
+        applied spatially is the same situation with ``s = t.inverse()``.
+        """
+        ti = t.inverse()
+        for g in self.spec.groups:
+            g.remap(mask, ti)
+
+    def regen(self, mask: np.ndarray) -> np.ndarray:
+        """Recompile geometry-derived columns from the (augmented) label
+        column, exactly as the offline targets were built."""
+        labels = np.rint(mask[..., self.label_col]).astype(np.int32)[..., None]
+        full = self.regen_fn(labels)
+        cols = list(self.regen_cols)
+        mask[..., cols] = full[..., cols]
+        return mask
+
+
+# channel codes whose values are functions of geometry (regenerated from the
+# label column after a resampling transform; the reference regenerates its
+# "no_bin"/"flow"-typed channels + affinities the same way)
+GEOMETRY_CODES = frozenset(
+    {"H", "V", "Z", "Gh", "Gv", "Gz", "Db", "Dc", "Dn", "D", "R", "A", "We"})
+
+
+def build_train_channel_handler(channel_codes: Sequence[str], ndim: int,
+                                channel_extra_opts: Optional[dict] = None,
+                                n_class_channels: int = 0) -> TrainChannelHandler:
+    """TrainChannelHandler for a compiled-channel stack laid out as
+    [codes block][class map][label column] (instance_seg compile cache)."""
+    from biapy_tpu_torch.data.pre_processing import channels_per_code, labels_into_channels
+
+    extra = channel_extra_opts or {}
+    codes = list(channel_codes)
+    widths = [channels_per_code(c, extra, ndim) for c in codes]
+    spec = build_tta_spec(codes, widths, ndim, extra)
+    label_col = sum(widths) + int(n_class_channels or 0)
+    regen_cols: List[int] = []
+    off = 0
+    for c, n in zip(codes, widths):
+        if c in GEOMETRY_CODES:
+            regen_cols.extend(range(off, off + n))
+        off += n
+    gradient_type = next(
+        (str(extra.get(g, {}).get("gradient_type", ""))
+         for g in ("Gv", "Gh", "Gz") if extra.get(g, {}).get("gradient_type")),
+        "cellpose")
+    has_flows = any(c in ("Gv", "Gh", "Gz") for c in codes)
+    # Cellpose flows pad with zeros: reflecting a flow field fabricates
+    # border cells; Omnipose completes border cells by reflection
+    # (reference: pair_base_data_generator.py:570-575)
+    affine_mode = "constant" if has_flows and gradient_type == "cellpose" else None
+    return TrainChannelHandler(
+        spec=spec,
+        label_col=label_col,
+        regen_cols=tuple(regen_cols),
+        regen_fn=lambda lab: labels_into_channels(lab, codes, extra),
+        affine_mode=affine_mode,
+    )

@@ -111,6 +111,12 @@ class Base_Workflow(metaclass=ABCMeta):
         self.activations: List[str] = []
         self.output_channels: List[int] = []
         self.output_channel_info: List[str] = []
+        # channels of each entry of ``activations`` at inference; None: one
+        # entry per head (``output_channels``). The instance workflow applies
+        # its activations channel by channel.
+        self._act_channels: Optional[List[int]] = None
+        # the instance workflows' train-time channel handler (data/tta.py)
+        self.aug_channel_handler = None
         self.define_activations_and_channels()
         self.loss = None
         self.train_metrics: Dict[str, Any] = {}
@@ -238,10 +244,13 @@ class Base_Workflow(metaclass=ABCMeta):
         n_classes = int(cfg.DATA.N_CLASSES)
         random_crop = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
         seed = int(cfg.SYSTEM.SEED)
+        ch = self.aug_channel_handler
         self.train_data = PairDataset(train_ds, cfg, self.norm_spec, augment=True,
-                                      random_crop=random_crop, n_classes=n_classes)
+                                      random_crop=random_crop, n_classes=n_classes,
+                                      channel_handler=ch)
         self.val_data = PairDataset(val_ds, cfg, self.norm_spec, augment=False,
-                                    random_crop=random_crop, n_classes=n_classes)
+                                    random_crop=random_crop, n_classes=n_classes,
+                                    channel_handler=ch)
         bs = int(cfg.TRAIN.BATCH_SIZE)
         self.train_loader = BatchLoader(self.train_data, bs,
                                         num_workers=int(cfg.SYSTEM.NUM_WORKERS),
@@ -320,7 +329,7 @@ class Base_Workflow(metaclass=ABCMeta):
         cfg = self.cfg
         if int(getattr(cfg.LOG, "PROFILE_STEPS", 0) or 0) > 0:
             raise _not_ported("LOG.PROFILE_STEPS (the profiler hook)",
-                              "queue 1 item 7, port bench and its profiler")
+                              "queue 1 item 7, the profiler hook")
         if self.verbose:
             print("###########################\n#  PREPARE TRAINING DATA  #\n"
                   "###########################")
@@ -471,7 +480,7 @@ class Base_Workflow(metaclass=ABCMeta):
             raise RuntimeError("predict_block_on_device runs inside an inference pass: "
                                "`with workflow.inference_pass(): ...`")
         cfg = self.cfg
-        chans = self.output_channels
+        chans = self._act_channels or self.output_channels
         reduce_mem = bool(cfg.TEST.REDUCE_MEMORY)
         acts = self.activations
 
@@ -502,7 +511,8 @@ class Base_Workflow(metaclass=ABCMeta):
             else:
                 x = blk.to(vol_dt)
             out = sliding_window_inference(
-                apply_fn, x, patch, ov, pad, out_channels=sum(chans), batch_size=bs,
+                apply_fn, x, patch, ov, pad, out_channels=sum(self.output_channels),
+                batch_size=bs,
                 out_dtype=out_dt, pad_mode=pad_mode, pre_padded=pre_padded, quant_uint8=quant)
         if not sync:
             return out
@@ -523,6 +533,7 @@ class Base_Workflow(metaclass=ABCMeta):
         bs = max(int(self.cfg.TRAIN.BATCH_SIZE), 1)
         dt = torch.bfloat16 if bool(self.cfg.TEST.REDUCE_MEMORY) else torch.float32
         pin = self.device.type == "cuda"
+        chans = self._act_channels or self.output_channels
 
         def run_batches(p):
             outs = []
@@ -532,8 +543,8 @@ class Base_Workflow(metaclass=ABCMeta):
                     if pin:
                         x = x.pin_memory()
                     x = x.to(self.device, non_blocking=True).to(dt)
-                    y = apply_activations(model(x).float(), self.activations,
-                                          self.output_channels, training=False)
+                    y = apply_activations(model(x).float(), self.activations, chans,
+                                          training=False)
                     outs.append(y.cpu().numpy())
             return np.concatenate(outs, axis=0)
 

@@ -1,0 +1,419 @@
+"""Instance segmentation workflow, its watershed family.
+
+Counterpart of ``biapy_tpu/engine/instance_seg.py``: channel-representation
+heads with per-channel activations and losses, the GT label -> channel
+compile cached next to the GT (``_prepare_instance_data``, the JAX
+package's cache format, so either package reuses the other's), train-time
+regeneration of geometry-derived channels under augmentation
+(``data/tta.py::TrainChannelHandler``), instance creation by
+marker-controlled watershed (``data/post_processing.py``) with the
+post-processing chain (INSTANCE_REFINEMENT, REPARE_LARGE_BLOBS_SIZE,
+VORONOI_ON_MASK, MEASURE_PROPERTIES), and matching against the GT
+instances (``utils/matching.py``).
+
+Channel codes B, F, P, C, T, M, D, Db, Dc, Dn, H/V/Z and A, plus the GT-only
+We, are ported. Synapses, EmbedSeg, Cellpose flows and Omnipose, StarDist
+rays, the class head (DATA.N_CLASSES > 2), the contrastive head and
+TEST.BY_CHUNKS with instances raise ``NotImplementedError`` (ROADMAP queue 1
+item 9).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+from typing import Dict, List, Optional
+
+import numpy as np
+
+from biapy_tpu_torch.data.io import list_image_files, read_img_as_ndarray, save_tif
+from biapy_tpu_torch.data.post_processing import (relabel_sequential, voronoi_on_mask,
+                                                  watershed_by_channels)
+from biapy_tpu_torch.data.pre_processing import channels_per_code, labels_into_channels
+from biapy_tpu_torch.engine import metrics as M
+from biapy_tpu_torch.engine.base_workflow import Base_Workflow, _not_ported
+from biapy_tpu_torch.parallel import barrier, is_main_process
+from biapy_tpu_torch.utils.matching import aggregate_matching, matching
+
+BINARY_CODES = ("B", "F", "P", "C", "T", "M", "F_pre", "F_post", "F_cleft")
+FLOW_CODES = ("Gv", "Gh", "Gz")
+ITEM = "queue 1 item 9, other workflows"
+
+
+class Instance_Segmentation_Workflow(Base_Workflow):
+    def _check_ported(self):
+        """Raise for the instance modes this slice does not port."""
+        cfg = self.cfg
+        inst = cfg.PROBLEM.INSTANCE_SEG
+        codes = list(inst.DATA_CHANNELS)
+        process = str(inst.INSTANCE_CREATION_PROCESS or "").lower()
+        if str(inst.TYPE) == "synapses":
+            raise _not_ported("PROBLEM.INSTANCE_SEG.TYPE 'synapses'", ITEM)
+        if any(c.startswith("E") for c in codes) or process in ("embedseg", "embeddings"):
+            raise _not_ported("EmbedSeg (the E* channels)", ITEM)
+        if any(c in FLOW_CODES for c in codes) or process in (
+                "flow_tracking", "gradient_tracking", "gradient-flow", "omnipose"):
+            raise _not_ported("Cellpose flows and Omnipose (Gv/Gh/Gz)", ITEM)
+        extra = (list(inst.DATA_CHANNELS_EXTRA_OPTS) or [{}])[0]
+        if str(extra.get("Db", {}).get("val_type", "")) == "omnipose":
+            raise _not_ported("the Omnipose distance field (Db val_type 'omnipose')", ITEM)
+        if "R" in codes or process in ("stardist", "nms"):
+            raise _not_ported("StarDist rays (R)", ITEM)
+        if int(cfg.DATA.N_CLASSES) > 2:
+            raise _not_ported("the instance class head (DATA.N_CLASSES > 2)", ITEM)
+        if cfg.LOSS.CONTRAST.ENABLE:
+            raise _not_ported("LOSS.CONTRAST (the contrastive head)", ITEM)
+        if cfg.TEST.BY_CHUNKS.ENABLE and cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE:
+            raise _not_ported("TEST.BY_CHUNKS with instances (the cross-tile instance merge)",
+                              ITEM)
+
+    def define_activations_and_channels(self):
+        self._check_ported()
+        inst = self.cfg.PROBLEM.INSTANCE_SEG
+        self.channel_codes: List[str] = list(inst.DATA_CHANNELS)
+        extra_l = list(inst.DATA_CHANNELS_EXTRA_OPTS)
+        self.channel_extra_opts: Dict = extra_l[0] if extra_l else {}
+        losses = list(inst.DATA_CHANNELS_LOSSES)
+        if not losses:
+            # auto defaults (reference: check_configuration.py:375): bce for
+            # binary codes, l1 for distances, mse for offsets
+            losses = []
+            for c in self.channel_codes:
+                if c in BINARY_CODES or c == "A":
+                    losses.append("bce")
+                elif c in FLOW_CODES or c in ("H", "V", "Z"):
+                    losses.append("mse")
+                else:
+                    losses.append("l1")
+        self.channel_losses = losses
+
+        if "We" in self.channel_codes and self.channel_codes[-1] != "We":
+            raise ValueError("'We' (border weight map) must be the LAST entry of "
+                             "PROBLEM.INSTANCE_SEG.DATA_CHANNELS — it is a GT-only "
+                             "channel consumed by the loss (reference: metrics.py:1637)")
+        acts: List[str] = []
+        self.channels_per_output: List[int] = []
+        for c in self.channel_codes:
+            n = channels_per_code(c, self.channel_extra_opts, self.nd)
+            self.channels_per_output.append(n)
+            if c == "We":
+                # GT-only weight channel: never predicted (reference:
+                # instance_seg.py:440)
+                continue
+            if c in BINARY_CODES or c == "A":
+                acts.extend(["ce_sigmoid"] * n)
+            elif c == "D":
+                acts.extend(["tanh"] * n)
+            elif c in ("H", "V", "Z"):
+                acts.extend(["tanh" if self.channel_extra_opts.get(c, {}).get("act") == "tanh"
+                             else "linear"] * n)
+            else:
+                acts.extend(["linear"] * n)
+        total = sum(n for c, n in zip(self.channel_codes, self.channels_per_output)
+                    if c != "We")  # predicted channels only
+        # activations apply channel by channel at inference; the loss sees
+        # the raw outputs (the D channel is trained on its logits)
+        self._act_channels = [1] * total
+        self.output_channels = [total]
+        self.output_channel_info = ["+".join(c for c in self.channel_codes if c != "We")]
+        self.activations = acts
+
+    def define_metrics(self):
+        inst = self.cfg.PROBLEM.INSTANCE_SEG
+        weights = list(inst.DATA_CHANNEL_WEIGHTS)
+        if len(weights) < len(self.channel_codes):
+            weights = weights + [1.0] * (len(self.channel_codes) - len(weights))
+        mask_distances = {}
+        for c in self.channel_codes:
+            opts = self.channel_extra_opts.get(c, {})
+            if c in ("Db", "Dc", "Dn", "H", "V", "Z"):
+                mask_distances[c] = bool(opts.get("mask_values", True))
+        self.loss = M.instance_segmentation_loss(
+            out_channels=self.channel_codes,
+            losses_to_use=self.channel_losses,
+            channel_weights=weights,
+            channels_per_output=self.channels_per_output,
+            mask_distances=mask_distances,
+            class_rebalance_within_channels=bool(inst.CLASS_REBALANCE_WITHIN_CHANNELS),
+        )
+        # IoU of the first binary channel during training
+        first_bin = 0
+        off = 0
+        for c, n in zip(self.channel_codes, self.channels_per_output):
+            if c in BINARY_CODES:
+                first_bin = off
+                break
+            off += n
+        self.train_metrics = {
+            "iou": lambda out, y, _o=first_bin: M.jaccard_index(
+                (out["pred"] if isinstance(out, dict) else out)[..., _o:_o + 1],
+                y[..., _o:_o + 1],
+            )
+        }
+
+    def tta_spec(self):
+        from biapy_tpu_torch.data.tta import build_tta_spec
+
+        # predictions do not carry the GT-only 'We' channel
+        codes = [c for c in self.channel_codes if c != "We"]
+        cpo = [n for c, n in zip(self.channel_codes, self.channels_per_output) if c != "We"]
+        return build_tta_spec(codes, cpo, self.nd, self.channel_extra_opts)
+
+    # -- data: GT labels -> channel masks --------------------------------------
+    def _prepare_instance_data(self, split: str):
+        """Compile and cache the channel masks (reference:
+        prepare_instance_data, instance_seg.py:2864) in
+        DATA.<split>.INSTANCE_CHANNELS_MASK_DIR, in the JAX package's format:
+        one float32 ``.npy`` per GT image with the raw label column appended,
+        and ``_channels_meta.json``; then point DATA.<split>.GT_PATH at it."""
+        node = self.cfg.DATA[split]
+        gt_dir = str(node.GT_PATH)
+        out_dir = str(node.INSTANCE_CHANNELS_MASK_DIR)
+        gts = list_image_files(gt_dir)
+        if not gts:
+            raise FileNotFoundError(f"No GT instance label images in {gt_dir}")
+        # cache format contract: recompile when the channel spec changed or
+        # the cache predates the appended label column (meta absent)
+        meta_path = os.path.join(out_dir, "_channels_meta.json")
+        meta_want = {"codes": list(self.channel_codes), "label_col_appended": True,
+                     "n_class_channels": 0}
+        meta_ok = False
+        if os.path.exists(meta_path):
+            try:
+                with open(meta_path) as f:
+                    meta_ok = json.load(f) == meta_want
+            except (OSError, ValueError):
+                meta_ok = False
+        # rank 0 writes the cache; other ranks wait — concurrent writers
+        # would truncate each other's .npy files mid-read (reference wraps
+        # creation in dist.barrier, instance_seg.py:2890)
+        if (not os.path.isdir(out_dir) or len(list_image_files(out_dir)) != len(gts)
+                or not meta_ok) and is_main_process():
+            os.makedirs(out_dir, exist_ok=True)
+            if self.verbose:
+                print(f"Creating {self.channel_codes} channel masks for {split} in {out_dir}")
+            for p in gts:
+                lab = read_img_as_ndarray(p, is_3d=self.is_3d)
+                chans = labels_into_channels(lab, self.channel_codes, self.channel_extra_opts)
+                # the raw instance-label column rides along so train-time
+                # geometric augmentation can regenerate geometry-derived
+                # channels from the warped labels; PairDataset.get drops it
+                chans = np.concatenate([chans, lab.astype(np.float32)], axis=-1)
+                base = os.path.splitext(os.path.basename(p))[0]
+                np.save(os.path.join(out_dir, base + ".npy"), chans.astype(np.float32))
+            with open(meta_path, "w") as f:
+                json.dump(meta_want, f)
+        barrier("instance_masks_" + split.lower())
+        self._build_aug_channel_handler()
+        frozen = self.cfg.is_frozen()
+        if frozen:
+            self.cfg.defrost()
+        # keep the raw instance GT dir for test-time matching stats
+        self._instance_gt_dirs = getattr(self, "_instance_gt_dirs", {})
+        self._instance_gt_dirs[split] = gt_dir
+        self.cfg.DATA[split].GT_PATH = out_dir
+        if frozen:
+            self.cfg.freeze()
+
+    def _build_aug_channel_handler(self):
+        """Representation-aware train augmentation: flips and rot90 remap the
+        channels exactly; resampling transforms regenerate geometry-derived
+        columns from the appended label column (reference:
+        pair_base_data_generator.py:1567 -> labels_into_channels)."""
+        if self.aug_channel_handler is not None:
+            return
+        from biapy_tpu_torch.data.tta import build_train_channel_handler
+
+        self.aug_channel_handler = build_train_channel_handler(
+            self.channel_codes, self.nd, self.channel_extra_opts)
+
+    def train(self):
+        self._prepare_instance_data("TRAIN")
+        if not self.cfg.DATA.VAL.FROM_TRAIN:
+            self._prepare_instance_data("VAL")
+        super().train()
+
+    def test(self, image=None, gt=None):
+        self.all_matching_stats: List[List[Dict]] = []
+        if image is None and self.cfg.DATA.TEST.LOAD_GT:
+            # raw instance GT for matching; the channels are not needed
+            self._instance_gt_dirs = getattr(self, "_instance_gt_dirs", {})
+            self._instance_gt_dirs["TEST"] = str(self.cfg.DATA.TEST.GT_PATH)
+        super().test(image=image, gt=gt)
+
+    # -- instances --------------------------------------------------------------
+    def instance_seg_process(self, pred: np.ndarray) -> np.ndarray:
+        """Channel maps -> instance labels by marker-controlled watershed,
+        then the post-processing chain (reference: instance_seg_process,
+        instance_seg.py:924)."""
+        cfg = self.cfg
+        ws = cfg.PROBLEM.INSTANCE_SEG.WATERSHED
+        # one channel per code for the watershed; affinities travel whole
+        # (the A-only recipe takes the min over the first three channels,
+        # reference: post_processing.py:273)
+        flat_codes: List[str] = []
+        flat_idx: List[int] = []
+        off = 0
+        for c, n in zip(self.channel_codes, self.channels_per_output):
+            if c == "We":  # GT-only weight channel: not in predictions
+                continue
+            if c == "A":
+                for k in range(n):
+                    flat_codes.append("A")
+                    flat_idx.append(off + k)
+            else:
+                flat_codes.append(c)
+                flat_idx.append(off)
+            off += n
+        data = np.stack([pred[..., i] for i in flat_idx], axis=-1)
+        labels = watershed_by_channels(
+            data,
+            flat_codes,
+            seed_channels=list(ws.SEED_CHANNELS),
+            seed_channel_ths=list(ws.SEED_CHANNELS_THRESH),
+            growth_mask_channels=list(ws.GROWTH_MASK_CHANNELS),
+            growth_mask_channel_ths=list(ws.GROWTH_MASK_CHANNELS_THRESH),
+            topo_surface_channel=str(ws.TOPOGRAPHIC_SURFACE_CHANNEL),
+            seed_morph_sequence=list(ws.SEED_MORPH_SEQUENCE),
+            seed_morph_radius=list(ws.SEED_MORPH_RADIUS),
+            erode_and_dilate_growth_mask=bool(ws.ERODE_AND_DILATE_GROWTH_MASK),
+            fore_erosion_radius=int(ws.FORE_EROSION_RADIUS),
+            fore_dilation_radius=int(ws.FORE_DILATION_RADIUS),
+            remove_before=bool(ws.DATA_REMOVE_BEFORE_MW),
+            thres_small_before=int(ws.DATA_REMOVE_SMALL_OBJ_BEFORE),
+        )
+        pp = cfg.TEST.POST_PROCESSING
+        # reference chain order: refinement -> repair large blobs -> voronoi
+        # (instance_seg.py:1202-1216)
+        if pp.INSTANCE_REFINEMENT.ENABLE:
+            from biapy_tpu_torch.data.post_processing import apply_label_refinement
+
+            labels = apply_label_refinement(labels, list(pp.INSTANCE_REFINEMENT.OPERATIONS),
+                                            list(pp.INSTANCE_REFINEMENT.VALUES))
+        if int(pp.REPARE_LARGE_BLOBS_SIZE) > 0:
+            from biapy_tpu_torch.data.post_processing import repair_large_blobs
+
+            labels = repair_large_blobs(labels, int(pp.REPARE_LARGE_BLOBS_SIZE))
+        if pp.VORONOI_ON_MASK:
+            # mask source as the reference's (instance_seg.py:1216): M, else
+            # F(+C), else 1-B, else C, else the first channel
+            def _ch(code):
+                return pred[..., flat_idx[flat_codes.index(code)]]
+
+            if "M" in flat_codes:
+                vor = _ch("M")
+            elif "F" in flat_codes:
+                vor = _ch("F") + (_ch("C") if "C" in flat_codes else 0)
+            elif "B" in flat_codes:
+                vor = 1.0 - _ch("B")
+            elif "C" in flat_codes:
+                vor = _ch("C")
+            else:
+                vor = pred[..., flat_idx[0]]
+            labels = voronoi_on_mask(labels, vor > float(pp.VORONOI_TH or 0.5))
+        mp = pp.MEASURE_PROPERTIES
+        if mp.ENABLE and mp.REMOVE_BY_PROPERTIES.ENABLE:
+            from biapy_tpu_torch.data.post_processing import filter_instances_by_properties
+
+            alias = {"npixels": "size"}  # the reference's synonym
+            for props, values, signs in zip(mp.REMOVE_BY_PROPERTIES.PROPS,
+                                            mp.REMOVE_BY_PROPERTIES.VALUES,
+                                            mp.REMOVE_BY_PROPERTIES.SIGNS):
+                props = [alias.get(str(p), str(p)) for p in props]
+                labels = filter_instances_by_properties(labels, props, values, signs)
+        return relabel_sequential(labels)
+
+    def after_merge_patches(self, pred, sample, fname):
+        cfg = self.cfg
+        instances = self.instance_seg_process(pred)
+        self._predictions.append({"role": "instances", "instances": instances, "file": fname})
+        if self.save_to_disk:
+            dt = np.uint16 if instances.max() < 2**16 else np.uint32
+            save_tif(instances[None][..., None].astype(dt),
+                     cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES, [fname], verbose=False)
+            mp = cfg.TEST.POST_PROCESSING.MEASURE_PROPERTIES
+            if mp.ENABLE:
+                # per-instance property CSV (+ MEASURE_PROPERTIES.EXTRA_PROPS
+                # columns; reference: post_processing.py:2420-2470)
+                from biapy_tpu_torch.data.post_processing import instance_properties_csv
+
+                res = list(cfg.DATA.TEST.RESOLUTION) if cfg.DATA.TEST.RESOLUTION and \
+                    cfg.DATA.TEST.RESOLUTION != [-1] else (1.0,) * self.nd
+                instance_properties_csv(
+                    instances,
+                    os.path.join(cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES,
+                                 os.path.splitext(fname)[0] + "_properties.csv"),
+                    resolution=res, extra_props=list(mp.EXTRA_PROPS))
+        # matching stats vs the raw instance GT
+        gt_dir = getattr(self, "_instance_gt_dirs", {}).get("TEST")
+        if not (gt_dir and cfg.TEST.MATCHING_STATS):
+            return
+        gt_path = os.path.join(gt_dir, fname)
+        if not os.path.exists(gt_path) and os.path.isdir(gt_dir):
+            # the GT may use another extension than the input image
+            stem = fname.split(".")[0]
+            cands = [p for p in list_image_files(gt_dir)
+                     if os.path.basename(p).split(".")[0] == stem]
+            if cands:
+                gt_path = cands[0]
+        if not os.path.exists(gt_path):
+            return
+        gt_lab = read_img_as_ndarray(gt_path, is_3d=self.is_3d)[..., 0].astype(np.int32)
+        stats = matching(gt_lab, instances, thresh=list(cfg.TEST.MATCHING_STATS_THS))
+        self.all_matching_stats.append(stats)
+        if self.verbose:
+            for s in stats:
+                print(f"  {fname} matching@{s['thresh']}: f1={s['f1']:.4f} "
+                      f"(tp={s['tp']} fp={s['fp']} fn={s['fn']})")
+        # RGB match-status overlays: green TP / red FN / blue FP (reference:
+        # TEST.MATCHING_STATS_THS_COLORED_IMG, instance_seg.py:1166-1196)
+        cths = [t for t in cfg.TEST.MATCHING_STATS_THS_COLORED_IMG
+                if t in list(cfg.TEST.MATCHING_STATS_THS)]
+        if cths and self.save_to_disk:
+            for s in matching(gt_lab, instances, thresh=cths, report_matches=True):
+                pairs = s.get("matched_pairs", [])
+                m_gt = {t for t, _ in pairs}
+                m_pr = {p for _, p in pairs}
+                colored = np.zeros(instances.shape + (3,), np.uint8)
+                gt_ids = np.unique(gt_lab)
+                for g in gt_ids[gt_ids > 0]:
+                    colored[gt_lab == g] = (0, 255, 0) if int(g) in m_gt else (255, 0, 0)
+                pr_ids = np.unique(instances)
+                for p in pr_ids[pr_ids > 0]:
+                    if int(p) not in m_pr:
+                        colored[instances == p] = (0, 0, 255)
+                stem = os.path.splitext(fname)[0]
+                save_tif(colored[None], cfg.PATHS.RESULT_DIR.INST_ASSOC_POINTS,
+                         [f"{stem}_th_{s['thresh']}.tif"], verbose=False)
+
+    def after_all_images(self):
+        if getattr(self, "all_matching_stats", None):
+            agg = aggregate_matching(self.all_matching_stats,
+                                     by_image=bool(self.cfg.TEST.MATCHING_STATS_BY_IMAGE))
+            self.matching_stats = agg
+            if self.verbose:
+                for s in agg:
+                    print(f"Dataset matching@{s['thresh']}: f1={s['f1']:.4f} "
+                          f"precision={s['precision']:.4f} recall={s['recall']:.4f}")
+
+    def metric_calculation(self, pred: np.ndarray, gt: Optional[np.ndarray]) -> Dict[str, float]:
+        """IoU of the first binary channel against the binarised GT labels
+        (B, the background channel, through its complement)."""
+        if gt is None:
+            return {}
+        off = 0
+        fg_off = b_off = None
+        for c, n in zip(self.channel_codes, self.channels_per_output):
+            if c == "B":
+                b_off = off if b_off is None else b_off
+            elif c in BINARY_CODES and fg_off is None:
+                fg_off = off
+            off += n
+        gtb = (gt[..., :1] > 0.5).astype(np.float32)
+        if fg_off is not None:
+            p = pred[..., fg_off:fg_off + 1]
+        elif b_off is not None:
+            p = 1.0 - pred[..., b_off:b_off + 1]
+        else:
+            return {}
+        return {"iou": float(M.jaccard_index_numpy(gtb, p))}

@@ -1,8 +1,9 @@
-"""Losses and metrics of the semantic-segmentation workflow.
+"""Losses and metrics of the semantic- and instance-segmentation workflows.
 
 Copied from the JAX package's ``engine/metrics.py`` (``bce_with_logits``,
 ``softmax_ce_with_logits``, ``weight_binary_ratio``, ``cross_entropy_loss``,
-``dice_loss``, ``dice_ce_loss``, ``jaccard_index``, ``jaccard_index_numpy``)
+``dice_loss``, ``dice_ce_loss``, ``_channel_loss``,
+``instance_segmentation_loss``, ``jaccard_index``, ``jaccard_index_numpy``)
 and written with torch ops. Losses take channels-last tensors
 ``(B, ..., C)`` of logits (the engine applies activations only at
 inference) and return 0-d tensors on the logits' device; nothing here
@@ -11,7 +12,7 @@ reads a value back to the host.
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -145,6 +146,102 @@ def dice_ce_loss(
     else:
         d = dice_loss(logits, targets)
     return w_dice * d + w_ce * ce
+
+
+def _channel_loss(name: str, logits, target, weight=None):
+    """One channel's loss by name (bce / mse / l1=mae / ce)."""
+    name = name.lower()
+    if name in ("bce", "ce_sigmoid"):
+        return torch.mean(bce_with_logits(logits, target, weight))
+    if name in ("mse", "l2"):
+        err = torch.square(logits - target)
+    elif name in ("mae", "l1"):
+        err = torch.abs(logits - target)
+    else:
+        raise ValueError(f"Unknown channel loss: {name}")
+    if weight is not None:
+        # normalize by the weight mass OVER THE BROADCAST error shape so a
+        # (..., 1) foreground mask on an nrays-wide channel yields a true
+        # mean over rays (reference: metrics.py:1760 "'R' rays is a true
+        # mean over rays (matching StarDist)")
+        w = torch.broadcast_to(weight, err.shape)
+        return torch.sum(err * w) / torch.clamp(torch.sum(w), min=1.0)
+    return torch.mean(err)
+
+
+def instance_segmentation_loss(
+    out_channels: Sequence[str],
+    losses_to_use: Sequence[str],
+    channel_weights: Sequence[float],
+    channels_per_output: Sequence[int],
+    mask_distances: Optional[Dict[str, bool]] = None,
+    class_rebalance_within_channels: bool = False,
+):
+    """Build the multi-channel instance-seg loss
+    (reference: instance_segmentation_loss, metrics.py:1400).
+
+    ``out_channels`` e.g. ["B","C","D"]; ``channels_per_output`` gives how
+    many prediction channels each representation occupies (e.g. affinities
+    take one per offset). The ground truth is laid out with the same
+    channel structure. Regression channels (distances) can be masked to the
+    foreground (``mask_distances``), and binary channels can be rebalanced.
+    The class head (``DATA.N_CLASSES`` > 2) is not ported (ROADMAP queue 1
+    item 9).
+    """
+    mask_distances = mask_distances or {}
+
+    # 'We': GT carries a U-Net border weight map as its LAST channel; it is
+    # never predicted. BCE channels add it to their per-pixel weight
+    # (w(x) = w_c(x) + w_border(x), the U-Net paper formula); other losses
+    # apply it multiplicatively (reference: metrics.py:1637,1744).
+    border_weight = "We" in out_channels
+    active = [(ch, ln, w, n) for ch, ln, w, n in
+              zip(out_channels, losses_to_use, channel_weights, channels_per_output)
+              if ch != "We"]
+
+    def loss_fn(y_pred, y_true):
+        if isinstance(y_pred, dict):
+            y_pred = y_pred["pred"]
+        w_borders = None
+        if border_weight:
+            w_borders = y_true[..., -1:]
+            y_true = y_true[..., :-1]
+        total = 0.0
+        off = 0
+        # the F (or first binary) channel index, used as mask for regression
+        fg_idx = None
+        o = 0
+        for ch, _, _, n in active:
+            if ch in ("F", "B", "P", "C", "F_pre", "F_post", "F_cleft"):
+                fg_idx = o
+                break
+            o += n
+        for ch, lname, w, n in active:
+            pred_c = y_pred[..., off : off + n]
+            true_c = y_true[..., off : off + n].to(pred_c.dtype)
+            weight = None
+            if lname.lower() in ("bce",) and class_rebalance_within_channels:
+                weight = weight_binary_ratio(true_c)
+            if mask_distances.get(ch, False):
+                if fg_idx is not None:
+                    fg = (y_true[..., fg_idx : fg_idx + 1] > 0.5).to(pred_c.dtype)
+                else:
+                    # no binary channel in the set: fall back to (target != 0)
+                    # on the masked channel itself, as the reference does for
+                    # 'R' without 'F' (reference config.py:217 uses R > 0)
+                    fg = (torch.abs(true_c) > 0).any(dim=-1, keepdim=True).to(pred_c.dtype)
+                weight = fg if weight is None else weight * fg
+            if w_borders is not None:
+                wb = w_borders.to(pred_c.dtype)
+                if lname.lower() == "bce":
+                    weight = wb if weight is None else weight + wb
+                else:
+                    weight = wb if weight is None else weight * wb
+            total = total + w * _channel_loss(lname, pred_c, true_c, weight)
+            off += n
+        return total
+
+    return loss_fn
 
 
 # --------------------------------------------------------------------------

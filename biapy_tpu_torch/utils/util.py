@@ -1,5 +1,7 @@
-"""Training charts, copied from the JAX package's ``utils/util.py``
-(``create_plots``; reference analog: biapy/utils/util.py:37).
+"""Training charts and the U-Net border weight map, copied from the JAX
+package's ``utils/util.py`` (``create_plots``, reference analog:
+biapy/utils/util.py:37; ``unet_weight_map``, the instance workflow's 'We'
+channel).
 
 matplotlib is optional: where it is missing, the charts are skipped with one
 line and the per-epoch JSON log (``LOG.LOG_DIR``) keeps the same numbers.
@@ -46,3 +48,23 @@ def create_plots(history: List[Dict], out_dir: str, job_identifier: str) -> None
         fig.tight_layout()
         fig.savefig(os.path.join(out_dir, f"{job_identifier}_{base}.png"), dpi=100)
         plt.close(fig)
+
+
+def unet_weight_map(mask: np.ndarray, w0: float = 10.0, sigma: float = 5.0) -> np.ndarray:
+    """U-Net border weight map (reference: util.py:199; Ronneberger 2015):
+    emphasises pixels between close instances via the two nearest instance
+    distances."""
+    from scipy import ndimage
+
+    from biapy_tpu_torch.native import connected_components
+
+    labels, n = connected_components(mask > 0)
+    if n < 2:
+        return np.ones(mask.shape, np.float32)
+    dists = []
+    for lab in range(1, n + 1):
+        from biapy_tpu_torch.data.pre_processing import _edt
+        dists.append(_edt(labels != lab))
+    d = np.sort(np.stack(dists), axis=0)
+    w = w0 * np.exp(-((d[0] + d[1]) ** 2) / (2 * sigma**2))
+    return (1.0 + w * (mask == 0)).astype(np.float32)

@@ -74,11 +74,26 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     trains, writes its checkpoints, tests; seconds and conv3d routes; every
     pool, pool backward and zcat launch on a 16-byte route
     (``build.SHUFFLE_ROUTES``);
-12. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+12. the 3D instance-segmentation template: (a)
+    ``templates/instance_segmentation/3d_instance_segmentation.yaml`` as it
+    is but for its data (seeded TIFFs of non-touching ellipsoid instances
+    and their labels under ``chiprun_out/chip_smoke_instance/``, deleted at
+    the end) and EPOCHS 2: the native host ops built by g++, the B/C/D
+    compile, training with the template's augmentations (rotated samples
+    recompile D), the bf16 test pass, the watershed, the instance TIFF and
+    the matching; compile seconds per volume, the loop's patches/s,
+    regeneration seconds per rotated sample, test Mvox/s with its predict
+    and watershed seconds, matching F1, peak memory and launches by kernel
+    and route (every pool, pool backward and zcat on a 16-byte route); (b)
+    the best checkpoint's test pass on a 40 x 256 x 256 crop on the card and
+    on the CPU, float32 and bf16, held to phase 5's tolerances, the
+    instances at matching F1 >= 0.99 (IoU 0.5);
+13. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
-result line.
+result line; ``--instance-only`` runs phases 1, 2 and 12 alone and prints
+no result line.
 
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
@@ -1668,7 +1683,290 @@ def phase_template():
         shutil.rmtree(root, ignore_errors=True)
 
 
-def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
+
+# phase 12: the repository's 3D instance-segmentation template on seeded
+# TIFFs of non-touching ellipsoid instances, then its test pass card vs CPU
+INSTANCE_TEMPLATE = REPO / "templates/instance_segmentation/3d_instance_segmentation.yaml"
+INSTANCE_SHAPE, INSTANCE_CROP = (80, 256, 256), (40, 256, 256)
+INSTANCE_COUNT = 40  # ellipsoids per volume
+
+
+def _ellipsoids(shape, n, seed):
+    """A uint8 volume of ``n`` seeded non-touching ellipsoids (semi-axes 3-7
+    voxels in z, 6-14 in y and x, at least two voxels apart), bright in
+    noise, and its uint16 instance labels."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    lab = np.zeros(shape, np.uint16)
+    placed = 0
+    for _ in range(50 * n):
+        if placed == n:
+            break
+        ax = rng.uniform((3, 6, 6), (7, 14, 14))
+        c = [rng.uniform(a + 1, s - a - 1) for a, s in zip(ax, shape)]
+        lo = [max(0, int(ci - ai) - 3) for ci, ai in zip(c, ax)]
+        hi = [min(s, int(ci + ai) + 4) for ci, ai, s in zip(c, ax, shape)]
+        grid = np.ogrid[tuple(slice(a, b) for a, b in zip(lo, hi))]
+        r = sum(((g - ci) / ai) ** 2 for g, ci, ai in zip(grid, c, ax))
+        near = sum(((g - ci) / (ai + 2)) ** 2 for g, ci, ai in zip(grid, c, ax)) < 1
+        box = lab[tuple(slice(a, b) for a, b in zip(lo, hi))]
+        if box[near].any():
+            continue
+        placed += 1
+        box[r < 1] = placed
+    img = 50 + 120 * (lab > 0) + rng.normal(0, 25, shape)
+    return img.clip(0, 255).astype(np.uint8), lab
+
+
+def _timed(fn, sink):
+    """``fn`` that appends each call's host seconds to ``sink``."""
+    def run(*args, **kwargs):
+        t0 = time.perf_counter()
+        out = fn(*args, **kwargs)
+        sink.append(time.perf_counter() - t0)
+        return out
+    return run
+
+
+def phase_instance_template():
+    """(a) templates/instance_segmentation/3d_instance_segmentation.yaml as it
+    is but for its data (two 80 x 256 x 256 training volumes and one test
+    volume of seeded non-touching ellipsoids, with their instance labels),
+    EPOCHS 2 and WARMUP_COSINE_DECAY_EPOCHS 1, through ``run_job``: the B/C/D
+    compile, training with the template's augmentations (rotated samples
+    recompile D from the warped labels), the bf16 test pass, the watershed,
+    the instance TIFF and the matching against the GT. Compile seconds per
+    volume, the loop's patches/s, regeneration seconds per rotated sample,
+    test Mvox/s from disk with its predict and watershed seconds, matching
+    F1, peak memory and launches by kernel and route. (b) The best
+    checkpoint's test pass on a 40 x 256 x 256 crop on the card and on the
+    CPU, float32 and bf16: channel maps within the serving tolerances, the
+    instances compared by matching."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml  # the template is YAML; PyYAML is optional for the port itself
+
+    from biapy_tpu_torch import BiaPy, native
+    from biapy_tpu_torch.data import pre_processing
+    from biapy_tpu_torch.data.patching import axis_grid
+    from biapy_tpu_torch.data.tiff import read_tiff, write_tiff
+    from biapy_tpu_torch.engine import instance_seg
+    from biapy_tpu_torch.ops.kernels import build
+
+    t0 = time.perf_counter()
+    native._load()  # g++ on first use: the watershed, EDT and components
+    native_s = time.perf_counter() - t0
+    root = OUT_DIR / "chip_smoke_instance"
+    shutil.rmtree(root, ignore_errors=True)
+    compile_s, regen_s = [], []
+    plain_compile, plain_regen = instance_seg.labels_into_channels, \
+        pre_processing.labels_into_channels
+    try:
+        vols = {}
+        for split, n in (("train", 2), ("test", 1)):
+            for d in ("x", "y"):
+                (root / split / d).mkdir(parents=True)
+            for i in range(n):
+                img, lab = _ellipsoids(INSTANCE_SHAPE, INSTANCE_COUNT, seed=len(vols))
+                write_tiff(str(root / split / "x" / f"{split}_{i:03d}.tif"), img)
+                write_tiff(str(root / split / "y" / f"{split}_{i:03d}.tif"), lab)
+                vols[(split, i)] = (img, lab)
+        with open(INSTANCE_TEMPLATE) as f:
+            cfg = yaml.safe_load(f)
+        cfg["DATA"]["TRAIN"].update(PATH=str(root / "train/x"), GT_PATH=str(root / "train/y"))
+        cfg["DATA"]["TEST"].update(PATH=str(root / "test/x"), GT_PATH=str(root / "test/y"))
+        cfg["TRAIN"]["EPOCHS"] = 2
+        cfg["TRAIN"]["LR_SCHEDULER"]["WARMUP_COSINE_DECAY_EPOCHS"] = 1
+        # the compile (the workflow's own name) and the train-time
+        # regeneration (the channel handler's, bound when the handler is
+        # built) timed apart
+        instance_seg.labels_into_channels = _timed(plain_compile, compile_s)
+        pre_processing.labels_into_channels = _timed(plain_regen, regen_s)
+        job = BiaPy(cfg, result_dir=str(root / "results"), name="instance", silent=True)
+        job._build_workflow()
+        wf = job.workflow
+        loop_s, predict_s, ws_s, train_s, test_s = [], [], [], [], []
+        step_launches = []
+
+        def one_epoch(*args, _plain=wf.train_one_epoch, **kwargs):
+            before = dict(build.LAUNCHES)
+            out = _timed(_plain, loop_s)(*args, **kwargs)
+            step_launches.append({k: v - before[k] for k, v in build.LAUNCHES.items()})
+            return out
+
+        wf.train_one_epoch = one_epoch
+        wf.predict_block_on_device = _timed(wf.predict_block_on_device, predict_s)
+        wf.instance_seg_process = _timed(wf.instance_seg_process, ws_s)
+        wf.train = _timed(wf.train, train_s)
+        wf.test = _timed(wf.test, test_s)
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        job.run_job()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated()
+        launches = dict(build.LAUNCHES)
+        routes = dict(build.CONV3D_ROUTES)
+        shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+        hist = wf.history
+        ck = sorted(p.name for p in Path(wf.cfg.PATHS.CHECKPOINT).iterdir())
+        inst = read_tiff(str(Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES) / "test_000.tif"))
+        raw = read_tiff(str(Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE) / "test_000.tif"))
+        stats = {s["thresh"]: s for s in wf.matching_stats}
+        if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist)
+                or ck != ["instance-checkpoint-1.ckpt", "instance-checkpoint-best.ckpt"]
+                or inst.shape != INSTANCE_SHAPE or raw.shape != INSTANCE_SHAPE + (3,)
+                or not np.all(np.isfinite(raw)) or sorted(stats) != [0.3, 0.5, 0.75]):
+            raise AssertionError(f"instance template: epochs {hist}, checkpoints {ck}, "
+                                 f"instances {inst.shape}, channel maps {raw.shape}, "
+                                 f"matching {sorted(stats)}")
+        if not (launches["conv3d"] and routes["fma"] and routes["wgmma"]
+                and launches["zd2s"] == 0 and launches["zs2d"] == 0):
+            raise AssertionError(f"instance template: launches {launches}, routes {routes}")
+        # every pool, pool backward and zcat of the template on 16-byte vectors
+        if not all(launches[k] and shuffle_routes[k]["scalar"] == 0
+                   and sum(shuffle_routes[k].values()) == launches[k] for k in shuffle_routes):
+            raise AssertionError(f"instance template: launches {launches}, shuffle routes "
+                                 f"{shuffle_routes}")
+        if not regen_s:
+            raise AssertionError("instance template: no training sample was regenerated")
+        ps = tuple(wf.cfg.DATA.PATCH_SIZE)[:3]
+        pad = tuple(wf.cfg.DATA.TEST.PADDING)
+        n_patches = int(np.prod([axis_grid(n, p, 0.0, q).n
+                                 for n, p, q in zip(INSTANCE_SHAPE, ps, pad)]))
+        steps = len(wf.train_loader)
+        bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+        per_step = {k: v / steps for k, v in step_launches[-1].items() if v}
+        vox = float(np.prod(INSTANCE_SHAPE))
+        res = dict(
+            seconds=secs, native_build_seconds=native_s,
+            compile_seconds_per_volume=compile_s, epoch_seconds=[h["time"] for h in hist],
+            loop_seconds=loop_s, loop_patches_per_s=[steps * bs / t for t in loop_s],
+            regen_count=len(regen_s), regen_seconds_mean=float(np.mean(regen_s)),
+            regen_seconds_max=float(np.max(regen_s)), train_seconds=train_s[0],
+            test_seconds=test_s[0], test_mvox_s=vox / test_s[0] / 1e6,
+            predict_seconds=predict_s, watershed_seconds=ws_s,
+            matching={str(t): {k: stats[t][k] for k in ("f1", "precision", "recall", "tp",
+                                                       "fp", "fn")} for t in stats},
+            n_instances=int(inst.max()), n_gt=int(vols[("test", 0)][1].max()),
+            peak_bytes=peak, launches=launches, conv3d_routes=routes,
+            shuffle_routes=shuffle_routes, launches_per_step=per_step, steps_per_epoch=steps,
+            test_patches=n_patches, loss=[h["loss"] for h in hist],
+            train_patches=len(wf.train_data), val_patches=len(wf.val_data))
+        print(f"[instance] {INSTANCE_TEMPLATE.relative_to(REPO)}: codes "
+              f"{list(wf.cfg.PROBLEM.INSTANCE_SEG.DATA_CHANNELS)}, resunet "
+              f"{list(wf.cfg.MODEL.FEATURE_MAPS)}, patch {list(wf.cfg.DATA.PATCH_SIZE)}, "
+              f"{len(wf.train_data)} train / {len(wf.val_data)} val patches, 2 epochs: run_job "
+              f"{secs:.2f} s (train {train_s[0]:.2f}, test {test_s[0]:.2f}); native g++ build "
+              f"{native_s:.2f} s")
+        print(f"[instance] compile s per volume {[round(t, 3) for t in compile_s]}; loop s per "
+              f"epoch {[round(t, 3) for t in loop_s]} ({[round(v, 2) for v in res['loop_patches_per_s']]} "
+              f"patches/s), epoch s {[round(h['time'], 3) for h in hist]}, loss "
+              f"{[round(h['loss'], 5) for h in hist]}; regeneration {len(regen_s)} rotated "
+              f"samples, {res['regen_seconds_mean']:.4f} s mean, {res['regen_seconds_max']:.4f} "
+              f"max (loader threads)")
+        print(f"[instance] test from disk {res['test_mvox_s']:.3f} Mvox/s "
+              f"({vox / 1e6:.2f} Mvox, {n_patches} patches, bf16): predict "
+              f"{[round(t, 3) for t in predict_s]} s, watershed and post-processing "
+              f"{[round(t, 3) for t in ws_s]} s; {res['n_instances']} instances against "
+              f"{res['n_gt']} in the GT; matching " + ", ".join(
+                  f"F1@{t} {stats[t]['f1']:.4f}" for t in sorted(stats))
+              + f"; peak memory {peak / 2**30:.2f} GiB")
+        print(f"[instance] launches {launches}; per training step {per_step}; conv3d routes "
+              f"{routes}; pool and zcat routes {shuffle_routes}")
+        best = str(Path(wf.cfg.PATHS.CHECKPOINT) / "instance-checkpoint-best.ckpt")
+        crop = vols[("test", 0)][0][: INSTANCE_CROP[0]]
+        res["vs_plain"] = _instance_card_vs_cpu(cfg, best, crop, root)
+        return res
+    finally:
+        instance_seg.labels_into_channels = plain_compile
+        pre_processing.labels_into_channels = plain_regen
+        shutil.rmtree(root, ignore_errors=True)
+
+
+def _instance_card_vs_cpu(cfg, ckpt, crop, root):
+    """(b) ``predict`` of the best checkpoint on ``crop`` on the card and on
+    the CPU (plain versions), float32 and bf16 (the template's
+    TEST.REDUCE_MEMORY): the channel maps against each other and each bf16
+    map against the card's float32 one, the instances compared by matching
+    at IoU 0.5."""
+    import copy
+
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.utils.matching import matching
+
+    runs = {}
+    for dt, reduce_mem in (("float32", False), ("bfloat16", True)):
+        c = copy.deepcopy(cfg)
+        c["TRAIN"]["ENABLE"] = False
+        c["MODEL"]["LOAD_CHECKPOINT"] = True
+        c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+        c["TEST"]["REDUCE_MEMORY"] = reduce_mem
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{dt}_{side}",
+                        silent=True, device=dev)
+            t0 = time.perf_counter()
+            preds = {p["role"]: p for p in job.predict(crop)}
+            runs[dt, side] = (np.asarray(preds["raw"]["pred"], np.float32),
+                             preds["instances"]["instances"].astype(np.int32),
+                             time.perf_counter() - t0)
+    ref = runs["float32", "card"][0]
+    out = {}
+    for dt in ("float32", "bfloat16"):
+        (m_card, i_card, s_card), (m_cpu, i_cpu, s_cpu) = runs[dt, "card"], runs[dt, "cpu"]
+        diff = np.abs(m_card - m_cpu)
+        worst, mean = float(diff.max()), float(diff.mean())
+        at = np.unravel_index(int(np.argmax(diff)), diff.shape)
+        f1 = matching(i_cpu, i_card, thresh=[0.5])[0]["f1"] if i_cpu.max() else 1.0
+        n_diff = int(np.count_nonzero(i_card != i_cpu))
+        to_ref = {side: np.abs(runs[dt, side][0] - ref) for side in ("card", "cpu")}
+        inst_ref = runs["float32", "card"][1]
+        f1_ref = {side: matching(inst_ref, runs[dt, side][1], thresh=[0.5])[0]["f1"]
+                  for side in ("card", "cpu")}
+        out[dt] = dict(max_abs=worst, mean_abs=mean, worst_at=[int(v) for v in at],
+                       worst_values=[float(m_card[at]), float(m_cpu[at]), float(ref[at])],
+                       max_abs_by_channel=[float(v) for v in diff.reshape(-1, diff.shape[-1])
+                                           .max(0)],
+                       f1=f1, voxels_differ=n_diff,
+                       n_instances=[int(i_card.max()), int(i_cpu.max())], card_s=s_card,
+                       cpu_s=s_cpu,
+                       to_f32={side: dict(max_abs=float(e.max()), mean_abs=float(e.mean()),
+                                          p9999=float(np.quantile(e, 0.9999)),
+                                          instances_f1=f1_ref[side])
+                               for side, e in to_ref.items()})
+        r = out[dt]
+        print(f"[instance-vs-plain] best checkpoint, crop {tuple(crop.shape)}, {dt}: max "
+              f"|p_card - p_cpu| = {worst:.3g} at {r['worst_at']} (card, CPU, float32 card: "
+              f"{[round(v, 4) for v in r['worst_values']]}; by channel "
+              f"{[float(f'{v:.3g}') for v in r['max_abs_by_channel']]}), mean {mean:.3g}; "
+              f"against the card's float32 map: card max {r['to_f32']['card']['max_abs']:.3g} "
+              f"mean {r['to_f32']['card']['mean_abs']:.3g} (instances F1@0.5 "
+              f"{f1_ref['card']:.4f}), CPU max {r['to_f32']['cpu']['max_abs']:.3g} mean "
+              f"{r['to_f32']['cpu']['mean_abs']:.3g} ({f1_ref['cpu']:.4f}); "
+              f"instances {r['n_instances'][0]} card / {r['n_instances'][1]} CPU, matching "
+              f"F1@0.5 {f1:.4f}, {n_diff} voxels differ; card {s_card:.2f} s, CPU {s_cpu:.2f} s")
+    # float32: the serving tolerance and the same instances. bf16: the
+    # serving mean; in place of its 5e-2 worst voxel, the card's bf16 map no
+    # farther from the float32 one than the plain bf16 path's (the trained
+    # template's D logits sit where one bf16 rounding moves tanh by 0.2 on
+    # either device: PERF.md §6)
+    f, b = out["float32"], out["bfloat16"]
+    card, cpu = b["to_f32"]["card"], b["to_f32"]["cpu"]
+    if not (f["max_abs"] <= 1e-4 and f["mean_abs"] <= 1e-4 and f["f1"] >= 0.99
+            and b["mean_abs"] <= 5e-3 and card["max_abs"] <= 1.5 * cpu["max_abs"]
+            and card["mean_abs"] <= 1.2 * cpu["mean_abs"]):
+        raise AssertionError(f"instance test pass: card and CPU differ: {out}")
+    return out
+
+
+def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -1678,7 +1976,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
-    each counted from zero. The pool, pool backward and zcat entries also
+    each counted from zero, and the instance template's (phase 12). The pool,
+    pool backward and zcat entries also
     carry ``template_*`` sums: the template's three pools (one forward or
     backward) and its 14 zcats (one training step), at batch 2."""
     def pick(name, wants):
@@ -1728,7 +2027,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
                    "train_larger_io": larger_io["launches"][name], "job": job["launches"][name],
                    "by_chunks": chunks["launches"].get(name, 0),
                    "augmented_and_tta": aug["launches"].get(name, 0),
-                   "template": template["launches"].get(name, 0)}
+                   "template": template["launches"].get(name, 0),
+                   "instance_template": instance["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -1745,11 +2045,22 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template):
 
 def main():
     conv3d_only = sys.argv[1:] == ["--conv3d-only"]
-    if sys.argv[1:] and not conv3d_only:
-        sys.exit("usage: chip_smoke.py [--conv3d-only]")
+    instance_only = sys.argv[1:] == ["--instance-only"]
+    if sys.argv[1:] and not (conv3d_only or instance_only):
+        sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
     build_s, ptxas = phase_build()
+    if instance_only:
+        # phases 1-2 and 12 alone: the quick check of the instance workflow;
+        # prints no result line
+        instance = phase_instance_template()
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_instance.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, instance=instance,
+            seconds=time.perf_counter() - t_start), indent=1))
+        print(f"[done] phases 1, 2 and 12 in {time.perf_counter() - t_start:.0f} s")
+        return
     if conv3d_only:
         # phases 1-2 and the conv3d rows of phase 3 alone: the quick check of
         # a change to the conv kernels; prints no result line
@@ -1770,12 +2081,14 @@ def main():
     aug = phase_augmented(serve, train)
     tta = phase_tta_vs_plain()
     template = phase_template()
-    kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template)
+    instance = phase_instance_template()
+    kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
         train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
-        tta_vs_plain=tta, template=template, whole_vs_plain_max_abs=diff,
+        tta_vs_plain=tta, template=template, instance_template=instance,
+        whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
     import torch
@@ -1789,7 +2102,7 @@ def main():
           "and zcat are over the template's three pools and its 14 zcats of a training step at "
           "batch 2; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
-          "TTA passes and the template's included)")
+          "TTA passes, the template's and the instance template's included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

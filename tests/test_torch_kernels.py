@@ -254,7 +254,14 @@ def test_port_imports_nothing_of_jax():
             "biapy_tpu_torch/engine/metrics.py", "biapy_tpu_torch/utils/flax_msgpack.py",
             "biapy_tpu_torch/utils/misc.py", "biapy_tpu_torch/engine/chunked.py",
             "biapy_tpu_torch/data/zarr_store.py", "biapy_tpu_torch/data/io.py",
-            "biapy_tpu_torch/parallel/__init__.py"} <= names
+            "biapy_tpu_torch/parallel/__init__.py", "biapy_tpu_torch/native/__init__.py",
+            "biapy_tpu_torch/engine/instance_seg.py", "biapy_tpu_torch/utils/matching.py",
+            "biapy_tpu_torch/data/post_processing.py"} <= names
+    # the native host ops build from the port's own copy of their source
+    from biapy_tpu_torch import native
+
+    assert native._SRC == REPO / "biapy_tpu_torch/native/hostops.cpp" and native._SRC.exists()
+    assert native._BUILD_DIR == REPO / "biapy_tpu_torch/_build"
     bad = []
     for f in files:
         for mod in _imports(f):
