@@ -2,7 +2,8 @@
 
 Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config load (YAML, dict, or
 a ``.ckpt`` checkpoint of either package with its embedded config),
-migrate/merge/check, the workflow build (SEMANTIC_SEG, INSTANCE_SEG), ``train()``,
+migrate/merge/check, the workflow build (SEMANTIC_SEG, INSTANCE_SEG,
+DETECTION), ``train()``,
 ``test()``, ``run_job()`` and the in-memory ``predict``. BMZ is not ported
 yet (ROADMAP queue 1).
 
@@ -28,6 +29,7 @@ from biapy_tpu_torch.engine.check_configuration import check_configuration
 _WORKFLOW_MODULES = {
     "SEMANTIC_SEG": ("biapy_tpu_torch.engine.semantic_seg", "Semantic_Segmentation_Workflow"),
     "INSTANCE_SEG": ("biapy_tpu_torch.engine.instance_seg", "Instance_Segmentation_Workflow"),
+    "DETECTION": ("biapy_tpu_torch.engine.detection", "Detection_Workflow"),
 }
 
 

@@ -417,6 +417,8 @@ def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDa
     load_and_prepare_test_data, data_manipulation.py:955)."""
     is_3d = cfg.PROBLEM.NDIM == "3D"
     use_gt = bool(cfg.DATA.TEST.LOAD_GT)
+    if cfg.PROBLEM.TYPE == "INSTANCE_SEG" and str(cfg.PROBLEM.INSTANCE_SEG.TYPE) == "synapses":
+        use_gt = False  # synapse GT are CREMI point annotations, not arrays
     _check_ported(cfg)
     ds = build_dataset(
         cfg.DATA.TEST.PATH,

@@ -4,10 +4,13 @@
 removal, sequential relabelling, ``voronoi_on_mask``,
 ``apply_median_filter`` (``TEST.POST_PROCESSING.MEDIAN_FILTER``), instance
 properties (measure, CSV, filter), ``apply_label_refinement`` and
-``repair_large_blobs`` (with ``peak_local_max`` and its greedy suppression). The watershed, connected components and hole
-filling are the native host ops (``biapy_tpu_torch/native``); everything
-else is NumPy/SciPy. The detection helpers come with the detection
-workflow (ROADMAP queue 1 item 9).
+``repair_large_blobs``, and the point helpers of the detection and synapse
+workflows: ``peak_local_max`` and ``blob_log``, ``remove_close_points``
+(and its ``_by_mask`` variant) on one greedy suppression, and
+``detection_watershed`` (instances grown from points, with the ring-shaped
+"donut" cells' extra seed dilation). The watershed, connected components
+and hole filling are the native host ops (``biapy_tpu_torch/native``);
+everything else is NumPy/SciPy.
 """
 
 from __future__ import annotations
@@ -252,6 +255,39 @@ def peak_local_max(img: np.ndarray, min_distance: int = 1, threshold_abs: float 
     return coords
 
 
+def blob_log(img: np.ndarray, min_sigma: float = 5, max_sigma: float = 10,
+             num_sigma: int = 2, threshold: Optional[float] = 0.1,
+             threshold_rel: Optional[float] = None,
+             exclude_border: bool = False) -> np.ndarray:
+    """Laplacian-of-Gaussian blob detection (reference uses skimage blob_log,
+    e.g. detection point creation and synapse extraction). Returns
+    ``(n, ndim + 1)`` rows ``(coords..., sigma)`` like skimage."""
+    img = img.astype(np.float32)
+    sigmas = np.linspace(min_sigma, max_sigma, max(1, int(num_sigma)))
+    # scale-normalized negative LoG stack: blobs are maxima
+    stack = np.stack([-(s ** 2) * ndimage.gaussian_laplace(img, s) for s in sigmas])
+    if threshold_rel is not None:
+        threshold = float(threshold_rel) * float(stack.max())
+    maxf = ndimage.maximum_filter(stack, size=3, mode="constant", cval=-np.inf)
+    peaks = (stack == maxf) & (stack > (threshold if threshold is not None else 0.0))
+    if exclude_border:
+        b = int(np.ceil(max_sigma))
+        for d in range(1, peaks.ndim):
+            sl = [slice(None)] * peaks.ndim
+            sl[d] = slice(0, b)
+            peaks[tuple(sl)] = False
+            sl[d] = slice(-b, None)
+            peaks[tuple(sl)] = False
+    coords = np.argwhere(peaks)
+    if len(coords) == 0:
+        return np.zeros((0, img.ndim + 1), np.float32)
+    out = np.concatenate([coords[:, 1:].astype(np.float32),
+                          sigmas[coords[:, 0]][:, None].astype(np.float32)], axis=1)
+    vals = stack[tuple(coords.T)]
+    return out[np.argsort(-vals)]
+
+
+
 def _greedy_suppress(scaled: np.ndarray, radius: float,
                      labs: Optional[np.ndarray] = None) -> List[int]:
     """Greedy min-distance suppression in priority order via a cKDTree
@@ -271,6 +307,37 @@ def _greedy_suppress(scaled: np.ndarray, radius: float,
             if j > i and (labs is None or (labs[i] != 0 and labs[i] == labs[j])):
                 alive[j] = False
     return kept
+
+
+def remove_close_points(points: np.ndarray, radius: float,
+                        resolution: Sequence[float] = (1, 1, 1)) -> np.ndarray:
+    """Greedy removal of points closer than ``radius`` (reference:
+    post_processing.py:1994)."""
+    if len(points) == 0:
+        return points
+    res = np.asarray(resolution[: points.shape[1]], np.float32)
+    pts = np.asarray(points, np.float32) * res
+    return np.asarray(points)[_greedy_suppress(pts, radius)]
+
+
+def remove_close_points_by_mask(points: np.ndarray, radius: float,
+                                mask_labels: np.ndarray,
+                                resolution: Sequence[float] = (1, 1, 1)) -> np.ndarray:
+    """Greedy close-point removal CONSTRAINED to the same mask component:
+    two points only conflict when they fall inside the same non-zero label
+    of ``mask_labels`` (reference: remove_close_points_by_mask,
+    post_processing.py:1839 — used by the synapse workflow so points of
+    different synapses never suppress each other)."""
+    if len(points) == 0:
+        return points
+    pts_i = np.asarray(points, int)
+    labs = np.array([mask_labels[tuple(np.clip(p, 0, np.array(mask_labels.shape) - 1))]
+                     for p in pts_i])
+    res = np.asarray(resolution[: pts_i.shape[1]], np.float32)
+    scaled = np.asarray(points, np.float32) * res
+    kept = _greedy_suppress(scaled, radius, labs=labs)
+    return np.asarray(points)[kept]
+
 
 
 def voronoi_on_mask(labels: np.ndarray, mask: np.ndarray) -> np.ndarray:
@@ -494,3 +561,96 @@ def repair_large_blobs(labels: np.ndarray, max_size: int) -> np.ndarray:
             region[split == i] = next_id
         out[sl] = region
     return out
+
+
+def _donut_line_ushape(line: np.ndarray, smooth_ticks: int):
+    """Detect the two-peaks-around-a-valley profile of a ring ('donuts')
+    cell along one center line (reference: detection_watershed donut
+    analysis, post_processing.py:2246-2320). Returns (is_ushape, peak_span,
+    left_gradient_ok, right_gradient_ok)."""
+    from scipy.signal import find_peaks, savgol_filter
+
+    if len(line) < max(5, smooth_ticks + 1):
+        return False, 0, False, False
+    win = min(len(line) - (1 - len(line) % 2), max(5, smooth_ticks | 1))
+    sm = savgol_filter(line.astype(np.float64), win, 2)
+    mid = len(sm) // 2
+    valley = float(sm[mid])
+    peaks, _ = find_peaks(sm)
+    lefts = [p for p in peaks if p <= mid and sm[p] >= valley * 1.5]
+    rights = [p for p in peaks if p > mid and sm[p] >= valley * 1.5]
+    if not lefts or not rights:
+        return False, 0, False, False
+    lp = max(lefts, key=lambda p: sm[p])
+    rp = max(rights, key=lambda p: sm[p])
+    lgrad = bool(sm[:lp].size and sm[:lp].min() < sm[lp] * 0.7)
+    rgrad = bool(sm[rp:].size and sm[rp:].min() < sm[rp] * 0.7)
+    return True, int(rp - lp), lgrad, rgrad
+
+
+def detection_watershed(points: np.ndarray, img: np.ndarray,
+                        first_dilation: Sequence[int] = (2, 2),
+                        donuts_classes: Sequence[int] = (-1,),
+                        donuts_patch: Sequence[int] = (13, 120, 120),
+                        donuts_nucleus_diameter: int = 30) -> np.ndarray:
+    """Grow instances around detected points via watershed over the image
+    intensity (reference: detection_watershed, post_processing.py:2100).
+
+    Ring-shaped ('donuts') cells confuse a point-seeded watershed: the seed
+    sits in the dark lumen. Unless ``donuts_classes`` is ``[-1]``, the center
+    intensity lines of every point are profiled (points carry no class until
+    the detection class head, ROADMAP item 9.5); a U-shape on both axes with
+    healthy outer gradients triggers an extra per-seed dilation sized to the ring span so
+    the seed reaches the bright membrane (reference :2178-2360)."""
+    nd = img.ndim
+    points = np.asarray(points, int)
+    seeds = np.zeros(img.shape, np.int32)
+    for i, p in enumerate(points):
+        idx = tuple(np.clip(p[d], 0, img.shape[d] - 1) for d in range(nd))
+        seeds[idx] = i + 1
+    fd = [int(d) for d in (list(first_dilation) + [list(first_dilation)[-1]] * nd)[:nd]]
+    if any(d > 0 for d in fd):
+        seeds = ndimage.grey_dilation(seeds, size=tuple(2 * max(d, 0) + 1 for d in fd))
+
+    if list(donuts_classes) and int(list(donuts_classes)[0]) != -1:
+        half = [p // 2 for p in list(donuts_patch)[-nd:]]
+        ticks = [max(5, (p // 8) | 1) for p in list(donuts_patch)[-nd:]]
+        for i, p in enumerate(points):
+            c = [int(np.clip(p[d], 0, img.shape[d] - 1)) for d in range(nd)]
+            sl = tuple(slice(max(c[d] - half[d], 0), min(c[d] + half[d], img.shape[d]))
+                       for d in range(nd))
+            patch = img[sl]
+            center = [c[d] - sl[d].start for d in range(nd)]
+            # center lines along the last two axes (y through x-center, x
+            # through y-center); 3D profiles at the seed's z plane
+            if nd == 2:
+                line_y = patch[:, center[1]]
+                line_x = patch[center[0], :]
+            else:
+                line_y = patch[center[0], :, center[2]]
+                line_x = patch[center[0], center[1], :]
+            uy, span_y, lg_y, rg_y = _donut_line_ushape(line_y, ticks[-2])
+            ux, span_x, lg_x, rg_x = _donut_line_ushape(line_x, ticks[-1])
+            if not (uy and ux):
+                continue
+            if span_y + span_x < 2 * donuts_nucleus_diameter:
+                continue  # donut-shaped but small: normal growth suffices
+            if not (lg_y and rg_y and lg_x and rg_x):
+                continue  # weak outer gradient: dilation would bleed out
+            # dilate THIS seed by ~60% of the ring span per axis
+            extra = [0] * nd
+            extra[-2] = max(0, int((span_y - fd[-2]) * 0.6) // 2)
+            extra[-1] = max(0, int((span_x - fd[-1]) * 0.6) // 2)
+            if nd == 3:
+                extra[0] = max(fd[0], 1)
+            if all(e == 0 for e in extra):
+                continue
+            own = seeds == (i + 1)
+            grown = ndimage.binary_dilation(
+                own, structure=np.ones(tuple(2 * e + 1 for e in extra), bool))
+            seeds[grown & (seeds == 0)] = i + 1
+
+    # seeds always belong to an instance
+    growth_mask = (img > _otsu(img.astype(np.float32))) | (seeds > 0)
+    topo = -img.astype(np.float32)
+    return watershed(topo, seeds, growth_mask)

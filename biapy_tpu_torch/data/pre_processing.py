@@ -4,7 +4,8 @@ DATA.PREPROCESS pipeline, copied from the JAX package's
 (``_edt`` on the native distance transform, ``_contours``,
 ``hover_channels``, ``cellpose_flows``, ``radial_distances``,
 ``affinities``), ``affinity_offsets`` and ``channels_per_code`` (which the
-TTA spec reads), and ``resize_image``, ``apply_gaussian_blur``,
+TTA spec reads), ``create_detection_masks`` (CSV points to the dilated
+point mask of the detection workflow), and ``resize_image``, ``apply_gaussian_blur``,
 ``apply_median_blur``, ``match_histogram``, ``apply_clahe``,
 ``detect_edges`` and ``preprocess_image``. The Omnipose and EmbedSeg
 channels raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
@@ -368,6 +369,28 @@ def labels_into_channels(
         else:
             raise ValueError(f"Unknown instance channel code: {code}")
     return np.concatenate(outs, axis=-1)
+
+
+def create_detection_masks(points: np.ndarray, shape: Sequence[int],
+                           dilation: Sequence[int] = (2, 2)) -> np.ndarray:
+    """Point coordinates -> dilated point heatmap mask (reference:
+    create_detection_masks, pre_processing.py; detection workflow GT). The
+    class channel of ``DATA.N_CLASSES > 2`` comes with the detection class
+    head (ROADMAP item 9.5)."""
+    nd = len(shape)
+    out = np.zeros(tuple(shape) + (1,), np.float32)
+    pts = np.zeros(tuple(shape), bool)
+    for p in np.asarray(points, dtype=int):
+        # points outside the image are skipped, not clipped (reference
+        # pre_processing.py create_detection_masks: "Skip if center point is
+        # outside array boundaries")
+        if any(p[d] < 0 or p[d] >= shape[d] for d in range(nd)):
+            continue
+        pts[tuple(int(p[d]) for d in range(nd))] = True
+    struct = np.ones(tuple(2 * int(d) + 1 for d in (dilation if len(dilation) == nd else [dilation[0]] * nd)), bool)
+    pts = ndimage.binary_dilation(pts, structure=struct)
+    out[..., 0] = pts.astype(np.float32)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -130,6 +130,8 @@ class Base_Workflow(metaclass=ABCMeta):
         self.model_build_kwargs: Dict = {}
         self.start_epoch = 0
         self._predictions: List[Dict[str, Any]] = []
+        # the test file being processed (per image or by chunks)
+        self._current_test_file: Optional[str] = None
         self.save_to_disk = True
         self.metrics_per_test_file: List[Dict[str, float]] = []
 
@@ -673,6 +675,9 @@ class Base_Workflow(metaclass=ABCMeta):
             if s.coords is not None:
                 stem, ext = os.path.splitext(fname)
                 fname = f"{stem}_sample{i}{ext or '.tif'}"
+            # the source file, for the hooks that read it again (DET_WATERSHED
+            # reads the raw image, synapses the CREMI annotations)
+            self._current_test_file = f.path
             self.process_test_sample(img, g, fname, s)
         self.after_all_images()
         self.print_stats()
@@ -725,6 +730,7 @@ class Base_Workflow(metaclass=ABCMeta):
         data_path = (str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None
                      if cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA else None)
         for f in files:
+            self._current_test_file = f
             base = os.path.splitext(os.path.basename(f))[0]
             out_dir = os.path.join(cfg.PATHS.RESULT_DIR.PER_IMAGE, base + "_chunks")
             ci = ChunkedInference(

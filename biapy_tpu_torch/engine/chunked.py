@@ -1,7 +1,7 @@
 """By-chunks inference engine: volumes larger than memory, tile by tile.
 
 Counterpart of ``biapy_tpu/engine/chunked.py`` (``dequant_pred``, ``Tile``,
-``tile_grid``, ``ChunkedInference``).
+``tile_grid``, ``owned_tiles``, ``core_keep_mask``, ``ChunkedInference``).
 The volume streams from a Zarr/N5/HDF5 file one tile (its core plus the
 halo) at a time; each tile runs the on-device sliding-window stitch
 (``ops/stitch.py``) and its core is written into a shared output Zarr of
@@ -28,10 +28,15 @@ path instead (``_predict_block``): the block normalised on the host with
 the tile's statistics, its patches through ``predict_patches`` in every
 orientation, merged, the core cut out and quantised like the device path's.
 
+The detection and synapse workflows extract points tile by tile after the
+prediction: ``owned_tiles`` gives each process its share of the tile grid
+(by ``ChunkedInference.owns``, the predictor's own rule) and
+``core_keep_mask`` keeps the points of a tile's core, so the per-tile point
+sets are disjoint.
+
 Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
 cross-tile instance merge (``create_and_merge_instances``, ROADMAP queue 1
-item 9 with the instance workflow; the JAX engine's ``owned_tiles`` and
-``core_keep_mask`` come with it).
+item 9).
 """
 
 from __future__ import annotations
@@ -95,6 +100,26 @@ def tile_grid(vol_shape: Sequence[int], tile_size: Sequence[int], halo: Sequence
         he = tuple(min(vol_shape[d], ce[d] + halo[d]) for d in range(nd))
         tiles.append(Tile(idx, cs, ce, hs, he))
     return tiles
+
+
+def owned_tiles(ci: "ChunkedInference", spatial: Sequence[int]):
+    """Tile grid over ``spatial`` plus this rank's round-robin share
+    (shared by the detection/synapse per-tile point extractors); ownership
+    delegates to the same predicate the predictor uses so the extractors can
+    never disagree with the written tiles."""
+    tiles = tile_grid(tuple(spatial), ci.tile_size, ci.halo)
+    return tiles, [(i, t) for i, t in enumerate(tiles) if ci.owns(i)]
+
+
+def core_keep_mask(coords: np.ndarray, tile: Tile, nd: int) -> np.ndarray:
+    """Boolean mask of local-coordinate points whose global position falls in
+    the tile CORE — halo context sharpens extraction near edges while core
+    ownership keeps per-tile point sets disjoint (no double counting)."""
+    keep = np.ones(len(coords), bool)
+    for d in range(nd):
+        g = coords[:, d] + tile.halo_start[d]
+        keep &= (g >= tile.core_start[d]) & (g < tile.core_end[d])
+    return keep
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:

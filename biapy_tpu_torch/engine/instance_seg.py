@@ -12,10 +12,15 @@ VORONOI_ON_MASK, MEASURE_PROPERTIES), and matching against the GT
 instances (``utils/matching.py``).
 
 Channel codes B, F, P, C, T, M, D, Db, Dc, Dn, H/V/Z and A, plus the GT-only
-We, are ported. Synapses, EmbedSeg, Cellpose flows and Omnipose, StarDist
-rays, the class head (DATA.N_CLASSES > 2), the contrastive head and
-TEST.BY_CHUNKS with instances raise ``NotImplementedError`` (ROADMAP queue 1
-item 9).
+We, are ported, and the synapse mode (PROBLEM.INSTANCE_SEG.TYPE 'synapses':
+CREMI point annotations painted into channel Zarrs by
+``data/synapses.py::synapse_channel_creation``, byte-identical to the JAX
+package's; pre/post/cleft points extracted from the predicted channels,
+paired, and scored against the annotations; by chunks, tile by tile with
+core ownership and one merge over the volume). EmbedSeg, Cellpose flows and
+Omnipose, StarDist rays, the class head (DATA.N_CLASSES > 2), the
+contrastive head and TEST.BY_CHUNKS with instances raise
+``NotImplementedError`` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -47,8 +52,6 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         inst = cfg.PROBLEM.INSTANCE_SEG
         codes = list(inst.DATA_CHANNELS)
         process = str(inst.INSTANCE_CREATION_PROCESS or "").lower()
-        if str(inst.TYPE) == "synapses":
-            raise _not_ported("PROBLEM.INSTANCE_SEG.TYPE 'synapses'", ITEM)
         if any(c.startswith("E") for c in codes) or process in ("embedseg", "embeddings"):
             raise _not_ported("EmbedSeg (the E* channels)", ITEM)
         if any(c in FLOW_CODES for c in codes) or process in (
@@ -63,7 +66,8 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             raise _not_ported("the instance class head (DATA.N_CLASSES > 2)", ITEM)
         if cfg.LOSS.CONTRAST.ENABLE:
             raise _not_ported("LOSS.CONTRAST (the contrastive head)", ITEM)
-        if cfg.TEST.BY_CHUNKS.ENABLE and cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE:
+        if (cfg.TEST.BY_CHUNKS.ENABLE and cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE
+                and str(inst.TYPE) != "synapses"):
             raise _not_ported("TEST.BY_CHUNKS with instances (the cross-tile instance merge)",
                               ITEM)
 
@@ -71,6 +75,11 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         self._check_ported()
         inst = self.cfg.PROBLEM.INSTANCE_SEG
         self.channel_codes: List[str] = list(inst.DATA_CHANNELS)
+        self.synapse_mode = str(inst.TYPE) == "synapses"
+        if self.synapse_mode:
+            from biapy_tpu_torch.data.synapses import select_synapse_method
+
+            self.synapse_method = select_synapse_method(self.channel_codes)
         extra_l = list(inst.DATA_CHANNELS_EXTRA_OPTS)
         self.channel_extra_opts: Dict = extra_l[0] if extra_l else {}
         losses = list(inst.DATA_CHANNELS_LOSSES)
@@ -227,10 +236,50 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         self.aug_channel_handler = build_train_channel_handler(
             self.channel_codes, self.nd, self.channel_extra_opts)
 
+    def _prepare_synapse_data(self, split: str):
+        """Compile and cache the synapse channel Zarrs from the CREMI point
+        annotations (reference: synapse_channel_creation,
+        pre_processing.py:2272) in DATA.<split>.INSTANCE_CHANNELS_MASK_DIR;
+        the raw stays nested in the original Zarr, GT_PATH points at the
+        channel dir."""
+        from biapy_tpu_torch.data.synapses import synapse_channel_creation
+
+        node = self.cfg.DATA[split]
+        if not bool(node.INPUT_ZARR_MULTIPLE_DATA):
+            raise ValueError("Synapse detection needs 3D Zarr/H5 data with CREMI "
+                             "annotations (DATA.*.INPUT_ZARR_MULTIPLE_DATA)")
+        out_dir = str(node.INSTANCE_CHANNELS_MASK_DIR)
+        zi = {
+            "raw_data_path": str(node.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or "volumes.raw",
+            "id_path": str(node.INPUT_ZARR_MULTIPLE_DATA_ID_PATH),
+            "partners_path": str(node.INPUT_ZARR_MULTIPLE_DATA_PARTNERS_PATH),
+            "locations_path": str(node.INPUT_ZARR_MULTIPLE_DATA_LOCATIONS_PATH),
+            "resolution_path": str(node.INPUT_ZARR_MULTIPLE_DATA_RESOLUTION_PATH),
+        }
+        os.makedirs(out_dir, exist_ok=True)
+        for p in list_image_files(str(node.PATH)):
+            out_path = os.path.join(out_dir, os.path.splitext(os.path.basename(p))[0] + ".zarr")
+            # rank 0 compiles; the others wait at the barrier below
+            if not os.path.exists(os.path.join(out_path, ".zarray")) and is_main_process():
+                if self.verbose:
+                    print(f"Compiling synapse channels for {p} -> {out_path}")
+                synapse_channel_creation(p, out_path, self.channel_codes,
+                                         self.channel_extra_opts, zarr_info=zi,
+                                         verbose=self.verbose)
+        barrier("synapse_channels_" + split.lower())
+        frozen = self.cfg.is_frozen()
+        if frozen:
+            self.cfg.defrost()
+        node.GT_PATH = out_dir
+        node.INPUT_ZARR_MULTIPLE_DATA_GT_PATH = ""
+        if frozen:
+            self.cfg.freeze()
+
     def train(self):
-        self._prepare_instance_data("TRAIN")
+        prepare = self._prepare_synapse_data if self.synapse_mode else self._prepare_instance_data
+        prepare("TRAIN")
         if not self.cfg.DATA.VAL.FROM_TRAIN:
-            self._prepare_instance_data("VAL")
+            prepare("VAL")
         super().train()
 
     def test(self, image=None, gt=None):
@@ -323,8 +372,199 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                 labels = filter_instances_by_properties(labels, props, values, signs)
         return relabel_sequential(labels)
 
+    # -- synapses ---------------------------------------------------------------
+    def _extract_synapse_points(self, pred: np.ndarray, out_dir: Optional[str] = None,
+                                do_post_processing: bool = True,
+                                connect: bool = True) -> Dict[str, np.ndarray]:
+        """Points from the synapse prediction channels. By chunks this runs
+        per tile with ``do_post_processing=False`` and ``connect=False``, so
+        close-point removal and the pre/post pairing run once over the merged
+        set (reference: per-chunk synapse_seg_process(do_post_processing=False),
+        instance_seg.py:1880)."""
+        from biapy_tpu_torch.data.post_processing import _otsu, remove_close_points
+        from biapy_tpu_torch.data.synapses import (connect_pre_post_points_by_distance,
+                                                   extract_points_in_predictions,
+                                                   extract_synful_synapses)
+
+        syn = self.cfg.PROBLEM.INSTANCE_SEG.SYNAPSES
+        th_type = str(syn.TH_TYPE).lower()
+        ths = [_otsu(pred[..., c]) if th_type == "auto" else float(syn.MIN_TH_TO_BE_PEAK)
+               for c in range(pred.shape[-1])]
+        common = dict(
+            point_creation_func=str(syn.POINT_CREATION_FUNCTION),
+            min_distance=int(syn.PEAK_LOCAL_MAX_MIN_DISTANCE),
+            min_sigma=float(syn.BLOB_LOG_MIN_SIGMA),
+            max_sigma=float(syn.BLOB_LOG_MAX_SIGMA),
+            num_sigma=int(syn.BLOB_LOG_NUM_SIGMA),
+            exclude_border=bool(syn.EXCLUDE_BORDER),
+            relative_th_value=th_type in ("relative", "relative_by_patch"),
+            out_dir=out_dir,
+        )
+        codes = self.channel_codes
+        points: Dict[str, np.ndarray] = {}
+        if self.synapse_method == "synful":
+            res = extract_synful_synapses(pred, codes, threshold_abs=0.2, min_distance=1,
+                                          cluster_distance=5.0, out_dir=out_dir)
+            points["pre"], points["post"] = res["pre"], res["post"]
+        elif self.synapse_method == "simpsyn":
+            i_pre, i_post = codes.index("F_pre"), codes.index("F_post")
+            _, points["pre"] = extract_points_in_predictions(
+                pred[..., i_pre], "pre", min_th_to_be_peak=ths[i_pre], **common)
+            _, points["post"] = extract_points_in_predictions(
+                pred[..., i_post], "post", min_th_to_be_peak=ths[i_post], **common)
+            if connect:
+                connect_pre_post_points_by_distance(points["pre"], points["post"],
+                                                    out_dir=out_dir)
+        elif self.synapse_method == "cleft":
+            _, points["cleft"] = extract_points_in_predictions(
+                pred[..., 0], "cleft", min_th_to_be_peak=ths[0], **common)
+        else:  # F_post_only
+            _, points["post"] = extract_points_in_predictions(
+                pred[..., 0], "post", min_th_to_be_peak=ths[0], **common)
+        if not do_post_processing:
+            return points
+        # removal of too-close points
+        radii = {"pre": float(syn.REMOVE_CLOSE_PRE_POINTS_RADIUS),
+                 "post": float(syn.REMOVE_CLOSE_POST_POINTS_RADIUS)}
+        ch_for = {"pre": codes.index("F_pre") if "F_pre" in codes else 0,
+                  "post": codes.index("F_post") if "F_post" in codes else pred.shape[-1] - 1}
+        for k, r in radii.items():
+            if r > 0 and k in points and len(points[k]):
+                if bool(syn.REMOVE_CLOSE_POINTS_RADIUS_BY_MASK):
+                    # suppression only within one connected blob of the
+                    # binarised prediction (reference: post_processing.py:1839)
+                    from biapy_tpu_torch.data.post_processing import remove_close_points_by_mask
+                    from biapy_tpu_torch.native import connected_components
+
+                    c = ch_for[k]
+                    labs, _ = connected_components((pred[..., c] > ths[c]).astype(np.uint8))
+                    points[k] = remove_close_points_by_mask(points[k], r, labs)
+                else:
+                    points[k] = remove_close_points(points[k], r)
+        return points
+
+    def synapse_seg_process(self, pred: np.ndarray, fname: str, out_dir: Optional[str] = None,
+                            calculate_metrics: bool = True) -> Dict:
+        """Prediction channels -> pre/post/cleft point sets and their
+        detection metrics against the CREMI annotations (reference:
+        synapse_seg_process, instance_seg.py:1499)."""
+        points = self._extract_synapse_points(pred, out_dir=out_dir)
+        return self._synapse_metrics_and_result(points, fname, calculate_metrics)
+
+    def _synapse_metrics_and_result(self, points: Dict[str, np.ndarray], fname: str,
+                                    calculate_metrics: bool = True) -> Dict:
+        from biapy_tpu_torch.data.synapses import load_synapse_gt_points
+        from biapy_tpu_torch.utils.matching import detection_metrics
+
+        cfg = self.cfg
+        result = {"points": points, "file": fname}
+        cur_file = self._current_test_file
+        if cur_file is not None and not os.path.exists(cur_file):
+            cur_file = None  # in-memory predict(): no CREMI file to read the GT from
+        if not (calculate_metrics and cfg.DATA.TEST.LOAD_GT and cur_file):
+            return result
+        node = cfg.DATA.TEST
+        gt = load_synapse_gt_points(
+            cur_file,
+            id_path=str(node.INPUT_ZARR_MULTIPLE_DATA_ID_PATH),
+            partners_path=str(node.INPUT_ZARR_MULTIPLE_DATA_PARTNERS_PATH),
+            locations_path=str(node.INPUT_ZARR_MULTIPLE_DATA_LOCATIONS_PATH),
+            resolution_path=str(node.INPUT_ZARR_MULTIPLE_DATA_RESOLUTION_PATH),
+        )
+        m: Dict[str, float] = {}
+        for k in points:
+            dm = detection_metrics(gt[k], points[k], float(cfg.TEST.DET_TOLERANCE),
+                                   gt["resolution"])
+            for mk, mv in dm.items():
+                m[f"{mk} ({k} points)"] = mv
+            if self.verbose:
+                print(f"  {fname} synapse {k}: " + " ".join(
+                    f"{a}={b:.4f}" if isinstance(b, float) else f"{a}={b}"
+                    for a, b in dm.items()))
+        result["metrics"] = m
+        self.metrics_per_test_file.append(m)
+        return result
+
+    def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
+        """Synapse mode by chunks: per-tile point extraction with core
+        ownership, then one pass of close-point removal, pre/post pairing
+        and metrics over the merged set (reference: instance_seg.py:1874-1913
+        per chunk, :2395-2440 the merge); the synful method too, which the
+        reference leaves out by chunks. The other modes' cross-tile merge is
+        refused by ``_check_ported``."""
+        if self.synapse_mode and self.cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE:
+            self._synapse_by_chunks(ci, raw_path, base)
+
+    def _synapse_by_chunks(self, ci, raw_path: str, base: str) -> None:
+        from biapy_tpu_torch.data.post_processing import remove_close_points
+        from biapy_tpu_torch.data.synapses import connect_pre_post_points_by_distance
+        from biapy_tpu_torch.data.zarr_store import ZarrArray
+        from biapy_tpu_torch.engine.chunked import core_keep_mask, dequant_pred, owned_tiles
+        from biapy_tpu_torch.engine.detection import write_points_csv
+        from biapy_tpu_torch.parallel import all_gather_objects
+
+        cfg = self.cfg
+        syn = cfg.PROBLEM.INSTANCE_SEG.SYNAPSES
+        pred = ZarrArray(raw_path)
+        tiles, mine = owned_tiles(ci, tuple(pred.shape[: self.nd]))
+        check_dir = cfg.PATHS.RESULT_DIR.DET_LOCAL_MAX_COORDS_CHECK
+        if self.save_to_disk:
+            os.makedirs(check_dir, exist_ok=True)
+        zfill = len(str(len(tiles)))
+        # ownership is by point location for every key: the tile whose core
+        # holds a point emits it, so the per-tile sets are disjoint (synful
+        # pres by their projected location: the halo must cover the offset
+        # range for a border pre to be seen by its owning tile)
+        local: Dict[str, list] = {}
+        for ti, t in mine:
+            region = tuple(slice(t.halo_start[d], t.halo_end[d]) for d in range(self.nd))
+            p = dequant_pred(pred[region + (slice(None),)])
+            pts = self._extract_synapse_points(p, do_post_processing=False, connect=False)
+            shift = np.asarray(t.halo_start, np.float32)
+            for k, arr in pts.items():
+                arr = np.asarray(arr, np.float32).reshape(-1, self.nd)
+                if len(arr):
+                    arr = arr[core_keep_mask(arr, t, self.nd)]
+                arr = arr + shift
+                local.setdefault(k, []).append(arr)
+                if self.save_to_disk:
+                    write_points_csv(os.path.join(
+                        check_dir, f"{base}_patch{str(ti).zfill(zfill)}_{k}_points.csv"),
+                        arr, self.nd, cast=float)
+        gathered = all_gather_objects({k: np.concatenate(v, axis=0) if v else
+                                       np.zeros((0, self.nd), np.float32)
+                                       for k, v in local.items()})
+        if not is_main_process():
+            return
+        points: Dict[str, np.ndarray] = {}
+        for g in gathered:
+            for k, arr in g.items():
+                points[k] = np.concatenate([points[k], arr], axis=0) if k in points else arr
+        # close-point removal per point type, by radius (the by-mask variant
+        # needs the whole volume's component labels)
+        radii = {"pre": float(syn.REMOVE_CLOSE_PRE_POINTS_RADIUS),
+                 "post": float(syn.REMOVE_CLOSE_POST_POINTS_RADIUS)}
+        for k, r in radii.items():
+            if r > 0 and k in points and len(points[k]):
+                points[k] = remove_close_points(points[k], r)
+        out_dir = cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES if self.save_to_disk else None
+        if out_dir:
+            os.makedirs(out_dir, exist_ok=True)
+            for k, arr in points.items():
+                write_points_csv(os.path.join(out_dir, f"{base}_all_{k}_points.csv"), arr,
+                                 self.nd, cast=float)
+        if self.synapse_method == "simpsyn" and "pre" in points and "post" in points:
+            connect_pre_post_points_by_distance(points["pre"], points["post"], out_dir=out_dir)
+        res = self._synapse_metrics_and_result(points, base)
+        self._predictions.append({"role": "synapse_points", **res})
+
     def after_merge_patches(self, pred, sample, fname):
         cfg = self.cfg
+        if self.synapse_mode:
+            out_dir = cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES if self.save_to_disk else None
+            res = self.synapse_seg_process(pred, fname, out_dir=out_dir)
+            self._predictions.append({"role": "synapse_points", **res})
+            return
         instances = self.instance_seg_process(pred)
         self._predictions.append({"role": "instances", "instances": instances, "file": fname})
         if self.save_to_disk:

@@ -1,9 +1,10 @@
-"""Losses and metrics of the semantic- and instance-segmentation workflows.
+"""Losses and metrics of the semantic-segmentation, instance-segmentation and
+detection workflows.
 
 Copied from the JAX package's ``engine/metrics.py`` (``bce_with_logits``,
 ``softmax_ce_with_logits``, ``weight_binary_ratio``, ``cross_entropy_loss``,
 ``dice_loss``, ``dice_ce_loss``, ``_channel_loss``,
-``instance_segmentation_loss``, ``jaccard_index``, ``jaccard_index_numpy``)
+``instance_segmentation_loss``, ``detection_loss``, ``jaccard_index``, ``jaccard_index_numpy``)
 and written with torch ops. Losses take channels-last tensors
 ``(B, ..., C)`` of logits (the engine applies activations only at
 inference) and return 0-d tensors on the logits' device; nothing here
@@ -240,6 +241,31 @@ def instance_segmentation_loss(
             total = total + w * _channel_loss(lname, pred_c, true_c, weight)
             off += n
         return total
+
+    return loss_fn
+
+
+def detection_loss(
+    channel_weights=(1.0,),
+    class_rebalance_within_channels: bool = True,
+    num_classes: int = 2,
+):
+    """Point-heatmap detection loss: rebalanced BCE on the point channel
+    (reference: detection_loss, metrics.py:571). The CE term of the
+    separated class head (``num_classes`` > 2) is not ported (ROADMAP
+    queue 1 item 9) and raises."""
+    if num_classes > 2:
+        raise NotImplementedError(
+            "the detection class head's CE term (DATA.N_CLASSES > 2) is not ported to "
+            "biapy_tpu_torch yet (ROADMAP: queue 1 item 9, other workflows)")
+    w0 = float(channel_weights[0])
+
+    def loss_fn(y_pred, y_true):
+        if isinstance(y_pred, dict):
+            y_pred = y_pred["pred"]
+        t = y_true[..., :1].to(y_pred.dtype)
+        weight = weight_binary_ratio(t) if class_rebalance_within_channels else None
+        return w0 * torch.mean(bce_with_logits(y_pred[..., :1], t, weight))
 
     return loss_fn
 

@@ -1,14 +1,19 @@
-"""Process-level helpers of the runtime: rank, world size and barrier.
+"""Process-level helpers of the runtime: rank, world size, barrier and the
+object gather.
 
-Counterpart of ``biapy_tpu/parallel/__init__.py:138-190``
-(``is_main_process``, ``process_count``, ``barrier``; ``process_index`` is
-``jax.process_index``). Over ``torch.distributed`` when a process group is
-initialised, a single process otherwise. The by-chunks engine shares its
-tiles out by these; distributed training (DDP) and the object gather of the
-instance merge are not ported yet (ROADMAP queue 1 items 8 and 9).
+Counterpart of ``biapy_tpu/parallel/__init__.py:138-195``
+(``is_main_process``, ``process_count``, ``barrier``,
+``all_gather_objects``; ``process_index`` is ``jax.process_index``). Over
+``torch.distributed`` when a process group is initialised, a single
+process otherwise. The by-chunks engine shares its tiles out by these, and
+the detection and synapse workflows gather their per-tile points with
+``all_gather_objects``; distributed training (DDP) is not ported yet
+(ROADMAP queue 1 item 8).
 """
 
 from __future__ import annotations
+
+from typing import Any, List
 
 import torch.distributed as dist
 
@@ -35,3 +40,15 @@ def barrier(name: str = "barrier") -> None:
     if process_count() > 1:
         dist.barrier()
 
+
+def all_gather_objects(obj: Any) -> List[Any]:
+    """Every process's picklable ``obj``, in rank order (reference analog:
+    ``dist.all_gather_object``); ranks may hold different structures, such
+    as ragged per-tile point lists or an empty dict on a rank without
+    tiles. One process: ``[obj]``."""
+    n = process_count()
+    if n <= 1:
+        return [obj]
+    out: List[Any] = [None] * n
+    dist.all_gather_object(out, obj)
+    return out

@@ -358,8 +358,6 @@ def test_augmented_batches_from_the_cache_match_jax(tmp_path):
 
 # ---------------------------------------------------------------- not ported
 UNPORTED = {
-    "synapses": {"PROBLEM": {"INSTANCE_SEG": {"TYPE": "synapses",
-                                              "DATA_CHANNELS": ["F_pre", "F_post"]}}},
     "embedseg": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["E_offset", "E_sigma",
                                                                  "E_seediness"]}}},
     "flows": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["F", "Gz", "Gv", "Gh"]}}},
