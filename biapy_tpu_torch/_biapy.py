@@ -3,7 +3,8 @@
 Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config load (YAML, dict, or
 a ``.ckpt`` checkpoint of either package with its embedded config),
 migrate/merge/check, the workflow build (SEMANTIC_SEG, INSTANCE_SEG,
-DETECTION), ``train()``,
+DETECTION, DENOISING, SUPER_RESOLUTION, SELF_SUPERVISED, IMAGE_TO_IMAGE),
+``train()``,
 ``test()``, ``run_job()`` and the in-memory ``predict``. BMZ is not ported
 yet (ROADMAP queue 1).
 
@@ -30,6 +31,10 @@ _WORKFLOW_MODULES = {
     "SEMANTIC_SEG": ("biapy_tpu_torch.engine.semantic_seg", "Semantic_Segmentation_Workflow"),
     "INSTANCE_SEG": ("biapy_tpu_torch.engine.instance_seg", "Instance_Segmentation_Workflow"),
     "DETECTION": ("biapy_tpu_torch.engine.detection", "Detection_Workflow"),
+    "DENOISING": ("biapy_tpu_torch.engine.denoising", "Denoising_Workflow"),
+    "SUPER_RESOLUTION": ("biapy_tpu_torch.engine.super_resolution", "Super_resolution_Workflow"),
+    "SELF_SUPERVISED": ("biapy_tpu_torch.engine.self_supervised", "Self_supervised_Workflow"),
+    "IMAGE_TO_IMAGE": ("biapy_tpu_torch.engine.image_to_image", "Image_to_Image_Workflow"),
 }
 
 
@@ -145,7 +150,7 @@ class BiaPy:
         wf = self.cfg.PROBLEM.TYPE
         if wf not in _WORKFLOW_MODULES:
             raise NotImplementedError(f"workflow {wf} is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 9, other workflows)")
+                                      "(ROADMAP queue 1 item 9.8, classification)")
         mod_name, cls_name = _WORKFLOW_MODULES[wf]
         cls = getattr(importlib.import_module(mod_name), cls_name)
         self.cfg.freeze()

@@ -114,11 +114,13 @@ def _fixed_point(x: np.ndarray) -> bool:
     return x.shape[-1] not in (1, 3, 4)
 
 
-def _warp_affine(x: np.ndarray, m2x3: np.ndarray, linear: bool, border: str) -> np.ndarray:
+def _warp_affine(x: np.ndarray, m2x3: np.ndarray, linear: bool, border: str,
+                 size: Optional[Tuple[int, int]] = None) -> np.ndarray:
     """``cv2.warpAffine(slice, m2x3, (w, h), flags, borderMode)`` on every
-    slice of ``x`` (n, h, w, c): the forward matrix is inverted as OpenCV
+    slice of ``x`` (n, y, x, c), to an output of ``size`` (h, w), the
+    slice's own by default: the forward matrix is inverted as OpenCV
     inverts it."""
-    h, w = x.shape[1:3]
+    h, w = size or x.shape[1:3]
     (a, b, e), (c, d, f) = m2x3
     det = a * d - b * c
     det = 1.0 / det if det != 0 else 0.0
@@ -228,7 +230,10 @@ def affine_2d(
     border = _BORDERS.get(mode, "reflect101")
 
     def warp(x, linear):
-        return _resampled(x, _warp_affine(_slices(x), m2x3, linear, border))
+        # the image's output size for the mask too, as the reference's
+        # cv2.warpAffine(mask, m2x3, (w, h)): a mask of another size (a
+        # super-resolution target) comes back at the image's size
+        return _resampled(x, _warp_affine(_slices(x), m2x3, linear, border, (h, w)))
 
     img_out = warp(img, True)
     mask_out = warp(mask, False) if mask is not None else None

@@ -12,10 +12,14 @@ Zarr/N5/HDF5 inputs as in the JAX package: the Zarr multiple-data layout
 file), ``DATA.*.INPUT_IMG_AXES_ORDER`` and, with ``IN_MEMORY: False``, lazy
 samples whose patches stream from disk (``io.read_patch_as_ndarray``).
 ``DATA.PREPROCESS`` runs on every image as it is read, before the patch
-grid and the normalisation statistics (``data/pre_processing.py``).
+grid and the normalisation statistics (``data/pre_processing.py``). The
+restoration workflows' options are the JAX package's too: the
+super-resolution GT grid scaled by ``y_upscaling``, image GT pre-processed
+as an image (``gt_as_image``) and the image-to-image
+multiple-raw-one-target layout (``scan_multiple_raw_one_target``).
 
 Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
-image-to-image multiple-raw-one-target layout (ROADMAP queue 1 item 9).
+classification workflow's stratified k-fold (ROADMAP queue 1 item 9.8).
 """
 
 from __future__ import annotations
@@ -30,7 +34,8 @@ from biapy_tpu_torch.data.dataset import BiaPyDataset, DataSample, DatasetFile
 from biapy_tpu_torch.data.io import (_is_chunked, lazy_image_shape, list_image_files,
                                      read_img_as_ndarray, read_patch_as_ndarray)
 from biapy_tpu_torch.data.norm import normalize_image
-from biapy_tpu_torch.data.patching import compute_patch_grid, extract_patch, pad_to_min_shape
+from biapy_tpu_torch.data.patching import (compute_patch_grid, extract_patch, pad_to_min_shape,
+                                           scale_coords)
 from biapy_tpu_torch.data.pre_processing import preprocess_image
 
 
@@ -48,6 +53,32 @@ def _scan_pairs(x_path: str, y_path: Optional[str]) -> List[Tuple[str, Optional[
     if len(xs) != len(ys):
         raise ValueError(f"Image/GT count mismatch: {len(xs)} in {x_path} vs {len(ys)} in {y_path}")
     return list(zip(xs, ys))
+
+
+def scan_multiple_raw_one_target(x_root: str, y_root: Optional[str]) -> List[Tuple[str, Optional[str]]]:
+    """Folder-of-folders layout: each subfolder of ``x_root`` holds several
+    acquisitions of the same scene, paired with the SINGLE target image in
+    the same-named subfolder of ``y_root`` (reference:
+    PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER,
+    data_manipulation.py:306 — the LightMyCells layout)."""
+    subs = sorted(d for d in os.listdir(x_root)
+                  if os.path.isdir(os.path.join(x_root, d)))
+    if not subs:
+        raise FileNotFoundError(
+            f"MULTIPLE_RAW_ONE_TARGET_LOADER expects subfolders under {x_root}")
+    pairs: List[Tuple[str, Optional[str]]] = []
+    for d in subs:
+        raws = list_image_files(os.path.join(x_root, d))
+        tgt = None
+        if y_root is not None:
+            tgts = list_image_files(os.path.join(y_root, d))
+            if len(tgts) != 1:
+                raise ValueError(
+                    f"Expected exactly one target in {os.path.join(y_root, d)}, "
+                    f"found {len(tgts)}")
+            tgt = tgts[0]
+        pairs.extend((r, tgt) for r in raws)
+    return pairs
 
 
 def _sample_props(img: np.ndarray, gt: Optional[np.ndarray]) -> Dict[str, float]:
@@ -196,6 +227,9 @@ def build_dataset(
     raw_path_in_file: Optional[str] = None,
     gt_path_in_file: Optional[str] = None,
     preprocess_cfg=None,
+    y_upscaling: Sequence[int] = (),
+    gt_as_image: bool = False,
+    multiple_raw_one_target: bool = False,
 ) -> BiaPyDataset:
     """Scan a directory pair into a BiaPyDataset with patch-grid samples.
 
@@ -207,10 +241,13 @@ def build_dataset(
     data_manipulation.py:1850). Chunked files with ``in_memory=False``
     become LAZY: only metadata is read here, pixels stream patch-by-patch
     at sample time. ``preprocess_cfg`` (DATA.PREPROCESS) runs on every
-    image read here, before the grid and the statistics. The
-    super-resolution workflow's GT upscaling comes with that workflow.
+    image read here, before the grid and the statistics. ``y_upscaling``: SR
+    factor — GT coords are scaled accordingly (reference: LR->HR crop
+    pairing through the data layer). ``gt_as_image``: True for image
+    targets, which the pre-processing resizes as images.
     """
     nd = 3 if is_3d else 2
+    up = list(y_upscaling) if y_upscaling else [1] * nd
     if zarr_multiple:
         xs = list_image_files(x_path)
         if not xs:
@@ -225,6 +262,8 @@ def build_dataset(
             pairs = list(zip(xs, ys))
         else:
             pairs = [(x, None) for x in xs]
+    elif multiple_raw_one_target:
+        pairs = scan_multiple_raw_one_target(x_path, y_path)
     else:
         pairs = _scan_pairs(x_path, y_path)
     ds = BiaPyDataset()
@@ -267,12 +306,12 @@ def build_dataset(
             # preprocess_data at load, pre_processing.py:3872)
             img = preprocess_image(preprocess_cfg, img, is_2d=not is_3d)
             if gt is not None:
-                gt = preprocess_image(preprocess_cfg, gt, is_mask=True, only_resize=True,
-                                      is_2d=not is_3d)
+                gt = preprocess_image(preprocess_cfg, gt, is_mask=not gt_as_image,
+                                      only_resize=True, is_2d=not is_3d)
         if reflect_to_complete_shape:
             img, _ = pad_to_min_shape(img, crop_shape[:nd])
             if gt is not None:
-                gt, _ = pad_to_min_shape(gt, crop_shape[:nd])
+                gt, _ = pad_to_min_shape(gt, [crop_shape[d] * up[d] for d in range(nd)])
         stats = None
         if norm_spec is not None:
             _, stats = normalize_image(img, norm_spec)
@@ -292,7 +331,7 @@ def build_dataset(
                 if in_memory:
                     s.img = extract_patch(img, pc)
                     if gt is not None:
-                        s.gt = extract_patch(gt, pc)
+                        s.gt = extract_patch(gt, scale_coords(pc, up))
                 ds.sample_list.append(s)
     return ds
 
@@ -323,16 +362,14 @@ def split_train_val(
     return tr, va
 
 
-def _check_ported(cfg) -> None:
-    """Raise for the data options this module does not port."""
-    if cfg.PROBLEM.TYPE == "IMAGE_TO_IMAGE" and bool(
-            cfg.PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER):
-        raise _not_ported("PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER",
-                          "queue 1 item 9, other workflows")
+def _multiple_raw_one_target(cfg) -> bool:
+    return cfg.PROBLEM.TYPE == "IMAGE_TO_IMAGE" and bool(
+        cfg.PROBLEM.IMAGE_TO_IMAGE.MULTIPLE_RAW_ONE_TARGET_LOADER)
 
 
-def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
-                                ) -> Tuple[BiaPyDataset, BiaPyDataset]:
+def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None,
+                                y_upscaling: Sequence[int] = (),
+                                gt_as_image: bool = False) -> Tuple[BiaPyDataset, BiaPyDataset]:
     """Top-level train+val preparation from config (reference:
     load_and_prepare_train_data, data_manipulation.py:83)."""
     is_3d = cfg.PROBLEM.NDIM == "3D"
@@ -340,7 +377,7 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
     random_crops = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
     use_gt = _needs_gt(cfg)
     pre = cfg.DATA.PREPROCESS
-    _check_ported(cfg)
+    mrot = _multiple_raw_one_target(cfg)
 
     train = build_dataset(
         cfg.DATA.TRAIN.PATH,
@@ -359,6 +396,9 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
         raw_path_in_file=str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
         gt_path_in_file=(str(cfg.DATA.TRAIN.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
         preprocess_cfg=pre if pre.TRAIN else None,
+        y_upscaling=y_upscaling,
+        gt_as_image=gt_as_image,
+        multiple_raw_one_target=mrot,
     )
     fs = cfg.DATA.TRAIN.FILTER_SAMPLES
     if fs.ENABLE:
@@ -390,6 +430,9 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
             raw_path_in_file=str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
             gt_path_in_file=(str(cfg.DATA.VAL.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
             preprocess_cfg=pre if pre.VAL else None,
+            y_upscaling=y_upscaling,
+            gt_as_image=gt_as_image,
+            multiple_raw_one_target=mrot,
         )
         vfs = cfg.DATA.VAL.FILTER_SAMPLES
         if vfs.ENABLE:
@@ -400,7 +443,7 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
     else:
         if cfg.PROBLEM.TYPE == "CLASSIFICATION" and bool(cfg.DATA.VAL.CROSS_VAL):
             raise _not_ported("the classification workflow's stratified k-fold",
-                              "queue 1 item 9, other workflows")
+                              "queue 1 item 9.8, classification")
         train, val = split_train_val(
             train,
             float(cfg.DATA.VAL.SPLIT_TRAIN),
@@ -412,14 +455,14 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None
     return train, val
 
 
-def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDataset:
+def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None,
+                               gt_as_image: bool = False) -> BiaPyDataset:
     """Per-image test dataset: one whole-image sample per file (reference:
     load_and_prepare_test_data, data_manipulation.py:955)."""
     is_3d = cfg.PROBLEM.NDIM == "3D"
     use_gt = bool(cfg.DATA.TEST.LOAD_GT)
     if cfg.PROBLEM.TYPE == "INSTANCE_SEG" and str(cfg.PROBLEM.INSTANCE_SEG.TYPE) == "synapses":
         use_gt = False  # synapse GT are CREMI point annotations, not arrays
-    _check_ported(cfg)
     ds = build_dataset(
         cfg.DATA.TEST.PATH,
         cfg.DATA.TEST.GT_PATH if use_gt else None,
@@ -437,6 +480,8 @@ def load_and_prepare_test_data(cfg, norm_spec: Optional[Dict] = None) -> BiaPyDa
         raw_path_in_file=str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_RAW_PATH) or None,
         gt_path_in_file=(str(cfg.DATA.TEST.INPUT_ZARR_MULTIPLE_DATA_GT_PATH) or None) if use_gt else None,
         preprocess_cfg=cfg.DATA.PREPROCESS if cfg.DATA.PREPROCESS.TEST else None,
+        gt_as_image=gt_as_image,
+        multiple_raw_one_target=_multiple_raw_one_target(cfg),
     )
     tfs = cfg.DATA.TEST.FILTER_SAMPLES
     if tfs.ENABLE:

@@ -17,7 +17,7 @@ from __future__ import annotations
 import os
 import queue
 import threading
-from typing import Dict, Iterator, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -26,7 +26,7 @@ from biapy_tpu_torch.data.augmentors import AugmentorPipeline
 from biapy_tpu_torch.data.dataset import BiaPyDataset
 from biapy_tpu_torch.data.io import _is_chunked, read_img_as_ndarray, read_patch_as_ndarray
 from biapy_tpu_torch.data.norm import normalize_image, normalize_mask
-from biapy_tpu_torch.data.patching import extract_patch
+from biapy_tpu_torch.data.patching import extract_patch, scale_coords
 from biapy_tpu_torch.data.pre_processing import preprocess_image
 
 PREFETCH = 2  # batches the loader's thread prepares ahead
@@ -41,7 +41,14 @@ class PairDataset:
     is the instance workflows' (``data/tta.py::TrainChannelHandler``): it
     remaps or regenerates the compiled channels under augmentation, and its
     label column is dropped before a sample leaves ``get``; semantic
-    segmentation passes None."""
+    segmentation passes None.
+
+    The restoration workflows' options: ``target_fn(img, gt, rng) -> (x, y)``
+    runs last, on the augmented sample with the sample's own rng (N2V
+    manipulation, crappify, image-target normalisation); ``y_upscaling``
+    scales the GT crops (super-resolution targets live in HR space); with
+    ``gt_as_image`` the targets are value-normalised like the inputs
+    instead of binarised as masks, CutMix partners included."""
 
     def __init__(
         self,
@@ -52,6 +59,9 @@ class PairDataset:
         random_crop: bool = False,
         n_classes: int = 2,
         channel_handler=None,
+        target_fn: Optional[Callable] = None,
+        y_upscaling: Sequence[int] = (),
+        gt_as_image: bool = False,
     ):
         self.ds = ds
         self.cfg = cfg
@@ -65,6 +75,9 @@ class PairDataset:
         self._grid_overlay = False  # save_aug_samples draws a grid on its samples
         self.random_crop = random_crop
         self.n_classes = n_classes
+        self.target_fn = target_fn
+        self.y_upscaling = list(y_upscaling) if y_upscaling else [1] * self.nd
+        self.gt_as_image = gt_as_image
 
     def __len__(self) -> int:
         return len(self.ds.sample_list)
@@ -83,7 +96,9 @@ class PairDataset:
                 img = read_patch_as_ndarray(f.path, s.coords, is_3d=self.is_3d,
                                             data_path=f.data_path, axes_order=f.input_axes)
                 if f.gt_path:
-                    gt = read_patch_as_ndarray(f.gt_path, s.coords, is_3d=self.is_3d,
+                    gt = read_patch_as_ndarray(f.gt_path,
+                                               scale_coords(s.coords, self.y_upscaling),
+                                               is_3d=self.is_3d,
                                                data_path=f.gt_data_path,
                                                axes_order=f.gt_input_axes)
                 if self.cfg.DATA.FORCE_RGB and img.shape[-1] == 1:
@@ -106,18 +121,20 @@ class PairDataset:
             if pre is not None:
                 img = preprocess_image(pre, img, is_2d=not self.is_3d)
                 if gt_full is not None:
-                    gt_full = preprocess_image(pre, gt_full, is_mask=True, only_resize=True,
-                                               is_2d=not self.is_3d)
+                    gt_full = preprocess_image(pre, gt_full, is_mask=not self.gt_as_image,
+                                               only_resize=True, is_2d=not self.is_3d)
             if bool(self.cfg.DATA.REFLECT_TO_COMPLETE_SHAPE) or self.random_crop:
                 from biapy_tpu_torch.data.patching import pad_to_min_shape
 
                 img, _ = pad_to_min_shape(img, self.crop_shape[: self.nd])
                 if gt_full is not None:
-                    gt_full, _ = pad_to_min_shape(gt_full, self.crop_shape[: self.nd])
+                    gt_full, _ = pad_to_min_shape(gt_full, [
+                        self.crop_shape[d] * self.y_upscaling[d] for d in range(self.nd)])
             if s.coords is not None:
                 img = extract_patch(img, s.coords)
             if gt_full is not None:
-                gt = extract_patch(gt_full, s.coords) if s.coords is not None else gt_full
+                gt = (extract_patch(gt_full, scale_coords(s.coords, self.y_upscaling))
+                      if s.coords is not None else gt_full)
         return img, gt
 
     def _prob_map_cdf(self, idx: int, gt: np.ndarray):
@@ -175,7 +192,11 @@ class PairDataset:
             starts = [int(rng.integers(0, max(1, img.shape[d] - ps[d] + 1)))
                       for d in range(self.nd)]
         sl = tuple(slice(st, st + ps[d]) for d, st in enumerate(starts))
-        return img[sl], (gt[sl] if gt is not None else None)
+        if gt is None:
+            return img[sl], None
+        gsl = tuple(slice(st * u, (st + ps[d]) * u)
+                    for d, (st, u) in enumerate(zip(starts, self.y_upscaling)))
+        return img[sl], gt[gsl]
 
     def get(self, idx: int, rng: np.random.Generator) -> Dict[str, np.ndarray]:
         img, gt = self._load(idx)
@@ -183,8 +204,8 @@ class PairDataset:
             img, gt = self._random_crop(img, gt, rng, idx)
         f = self.ds.dataset_info[self.ds.sample_list[idx].fid]
         img, _ = normalize_image(img, self.norm_spec, stats=f.norm_stats)
-        if gt is not None and gt.dtype.kind != "f":
-            gt = normalize_mask(gt, self.n_classes)
+        if gt is not None:
+            gt = self._norm_target(gt)
         if self.aug is not None:
             if self.aug.uses_cutmix and len(self) > 1:
                 j = int(rng.integers(0, len(self)))
@@ -193,8 +214,10 @@ class PairDataset:
                     img_b, gt_b = self._random_crop(img_b, gt_b, rng, j)
                 f_b = self.ds.dataset_info[self.ds.sample_list[j].fid]
                 img_b, _ = normalize_image(img_b, self.norm_spec, stats=f_b.norm_stats)
-                if gt_b is not None and gt_b.dtype.kind != "f":
-                    gt_b = normalize_mask(gt_b, self.n_classes)
+                if gt_b is not None:
+                    # the partner's target goes the primary's way: a binarised
+                    # image target would paste a silhouette into it
+                    gt_b = self._norm_target(gt_b)
                 img, gt = self.aug.maybe_cutmix(img, gt, img_b, gt_b, rng)
             if self._grid_overlay:
                 img = _draw_grid(img)
@@ -204,10 +227,21 @@ class PairDataset:
             # the compile cache's raw instance-label column serves only the
             # train-time regeneration of geometry-derived channels
             gt = np.delete(gt, ch.label_col, axis=-1)
+        if self.target_fn is not None:
+            img, gt = self.target_fn(img, gt, rng)
         out = {"x": np.ascontiguousarray(img, dtype=np.float32)}
         if gt is not None:
             out["y"] = np.ascontiguousarray(gt, dtype=np.float32)
         return out
+
+    def _norm_target(self, gt: np.ndarray) -> np.ndarray:
+        """An image target value-normalised on its own statistics; a mask
+        that is not float yet binarised."""
+        if self.gt_as_image:
+            return normalize_image(gt.astype(np.float32), self.norm_spec)[0]
+        if gt.dtype.kind != "f":
+            return normalize_mask(gt, self.n_classes)
+        return gt
 
 
 class BatchLoader:

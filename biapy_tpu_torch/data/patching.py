@@ -55,6 +55,15 @@ class PatchCoords:
         return d
 
 
+def scale_coords(pc: PatchCoords, up: Sequence[int]) -> PatchCoords:
+    """``pc`` in a grid ``up`` times finer per axis (a super-resolution
+    target's patch of an input patch)."""
+    if all(u == 1 for u in up):
+        return pc
+    return PatchCoords(starts=tuple(st * u for st, u in zip(pc.starts, up)),
+                       ends=tuple(en * u for en, u in zip(pc.ends, up)))
+
+
 @dataclass(frozen=True)
 class AxisGrid:
     n: int          # patches along this axis

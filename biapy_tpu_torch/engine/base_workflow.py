@@ -13,9 +13,12 @@ the card, normalisation of the raw volume included), ``predict_patches``
 (patch batches through the model on the card, with test-time augmentation
 when TEST.AUGMENTATION is on), ``process_test_sample`` (the device path, or
 the host crop/merge path under test-time augmentation; ROI masks;
-TEST.REUSE_PREDICTIONS), ``process_test_by_chunks`` (the by-chunks engine
-over Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and ``test`` from disk or
-from an in-memory image. The profiler hook and the contrastive and
+TEST.REUSE_PREDICTIONS; the host path also under super-resolution, with the
+output scaled), ``process_test_by_chunks`` (the by-chunks engine over
+Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and ``test`` from disk or from
+an in-memory image. The restoration workflows' hooks (``y_upscaling``,
+``gt_as_image``, ``prepare_targets_fn``, ``restoration_metric_calculation``)
+are the JAX package's. The profiler hook and the contrastive and
 multi-head training branches are not ported yet (ROADMAP queue 1) and raise
 ``NotImplementedError``.
 """
@@ -107,6 +110,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self.test_norm_spec = dict(self.norm_spec)
         if bool(cfg.TEST.REDUCE_MEMORY):
             self.test_norm_spec["out_dtype"] = "bfloat16"
+        self.y_upscaling = [1] * self.nd
 
         self.activations: List[str] = []
         self.output_channels: List[int] = []
@@ -117,10 +121,16 @@ class Base_Workflow(metaclass=ABCMeta):
         self._act_channels: Optional[List[int]] = None
         # the instance workflows' train-time channel handler (data/tta.py)
         self.aug_channel_handler = None
+        self.gt_as_image = False  # SR/I2I/SSL/denoising: the GT is an image, not a mask
         self.define_activations_and_channels()
         self.loss = None
         self.train_metrics: Dict[str, Any] = {}
         self.define_metrics()
+        # the set-level TEST.METRICS of the image-target workflows need the
+        # perceptual networks (the JAX package's engine/perceptual.py)
+        if self.gt_as_image and {str(n).lower() for n in self.cfg.TEST.METRICS or []} & {
+                "fid", "is", "lpips"}:
+            raise _not_ported("TEST.METRICS fid / is / lpips", "queue 1 item 9.8, the GAN slice")
 
         self.model: Optional[torch.nn.Module] = None
         # the model of the current inference pass (inference_pass)
@@ -144,8 +154,24 @@ class Base_Workflow(metaclass=ABCMeta):
     def define_metrics(self):
         """Set self.loss (callable) and self.train_metrics dict."""
 
+    def prepare_targets_fn(self) -> Optional[Callable]:
+        """Return target_fn(img, gt, rng) -> (x, y) for the generator."""
+        return None
+
     def metric_calculation(self, pred: np.ndarray, gt: np.ndarray) -> Dict[str, float]:
         return {}
+
+    def restoration_metric_calculation(self, pred, gt) -> Dict[str, float]:
+        """Shared per-image metrics for image-target workflows (SR / SSL /
+        denoising / I2I): TEST.METRICS restoration metrics on the normalized
+        GT (reference: check_configuration.py:1277 defaults psnr/mae/mse/ssim),
+        SSIM on the workflow's device."""
+        if gt is None:
+            return {}
+        from biapy_tpu_torch.engine.metrics import restoration_test_metrics
+
+        g, _ = normalize_image(gt.astype("float32"), self.norm_spec)
+        return restoration_test_metrics(pred, g, self.cfg.TEST.METRICS, device=self.device)
 
     def after_merge_patches(self, pred: np.ndarray, sample, fname: str) -> None:
         """Post-hook on the stitched prediction."""
@@ -242,17 +268,15 @@ class Base_Workflow(metaclass=ABCMeta):
         (reference: prepare_train_generators); sets ``train_loader``,
         ``val_loader`` and the steps per epoch the schedules read."""
         cfg = self.cfg
-        train_ds, val_ds = load_and_prepare_train_data(cfg, self.norm_spec)
-        n_classes = int(cfg.DATA.N_CLASSES)
-        random_crop = bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH)
+        train_ds, val_ds = load_and_prepare_train_data(cfg, self.norm_spec, self.y_upscaling,
+                                                       gt_as_image=self.gt_as_image)
         seed = int(cfg.SYSTEM.SEED)
-        ch = self.aug_channel_handler
-        self.train_data = PairDataset(train_ds, cfg, self.norm_spec, augment=True,
-                                      random_crop=random_crop, n_classes=n_classes,
-                                      channel_handler=ch)
-        self.val_data = PairDataset(val_ds, cfg, self.norm_spec, augment=False,
-                                    random_crop=random_crop, n_classes=n_classes,
-                                    channel_handler=ch)
+        kw = dict(random_crop=bool(cfg.DATA.TRAIN.EXTRACT_RANDOM_PATCH),
+                  n_classes=int(cfg.DATA.N_CLASSES), channel_handler=self.aug_channel_handler,
+                  target_fn=self.prepare_targets_fn(), y_upscaling=self.y_upscaling,
+                  gt_as_image=self.gt_as_image)
+        self.train_data = PairDataset(train_ds, cfg, self.norm_spec, augment=True, **kw)
+        self.val_data = PairDataset(val_ds, cfg, self.norm_spec, augment=False, **kw)
         bs = int(cfg.TRAIN.BATCH_SIZE)
         self.train_loader = BatchLoader(self.train_data, bs,
                                         num_workers=int(cfg.SYSTEM.NUM_WORKERS),
@@ -593,8 +617,13 @@ class Base_Workflow(metaclass=ABCMeta):
         # stats from the raw bytes; the device normalises (uint8 ships at
         # 1 byte/voxel); the host path normalises with the same stats
         stats = compute_norm_stats(img, self.test_norm_spec)
-        # one card: the JAX package's multi-chip z-slabbing does not apply
-        merged = self.predict_block_on_device(img, overlap=ov, padding=pad, norm_stats=stats)
+        up = self.y_upscaling
+        merged = None
+        if all(u == 1 for u in up):
+            # one card: the JAX package's multi-chip z-slabbing does not apply;
+            # super-resolution takes the host crop/merge path, as in JAX
+            merged = self.predict_block_on_device(img, overlap=ov, padding=pad,
+                                                  norm_stats=stats)
         if merged is None:
             # float32 on the host; predict_patches casts to the pass's dtype
             img_n = normalize_image(img, dict(self.test_norm_spec, out_dtype="float32"),
@@ -603,9 +632,10 @@ class Base_Workflow(metaclass=ABCMeta):
                 img_n[None], tuple(cfg.DATA.PATCH_SIZE), overlap=ov, padding=pad,
                 pad_type="median" if cfg.DATA.TEST.MEDIAN_PADDING else "reflect")
             preds = self.predict_patches(patches)
+            out_spatial = tuple(img.shape[d] * up[d] for d in range(self.nd))
             merged = merge_data_with_overlap(
-                preds, (1,) + img.shape[: self.nd] + (preds.shape[-1],), overlap=ov,
-                padding=pad)[0]
+                preds, (1,) + out_spatial + (preds.shape[-1],), overlap=ov,
+                padding=tuple(p * u for p, u in zip(pad, up)))[0]
         merged = self.apply_roi_mask(merged, fname)
         m = self.metric_calculation(merged, gt) if gt is not None else {}
         if m:
@@ -640,11 +670,13 @@ class Base_Workflow(metaclass=ABCMeta):
         elif cfg.DATA.TEST.USE_VAL_AS_TEST:
             # the held-out validation split (or cross-val fold) is the test
             # set (reference: DATA.TEST.USE_VAL_AS_TEST, base_workflow.py:1283)
-            _, ds = load_and_prepare_train_data(cfg, self.norm_spec)
+            _, ds = load_and_prepare_train_data(cfg, self.norm_spec, self.y_upscaling,
+                                                gt_as_image=self.gt_as_image)
             if self.verbose:
                 print(f"Using the validation split as test set ({len(ds.sample_list)} samples)")
         else:
-            ds = load_and_prepare_test_data(cfg, self.norm_spec)
+            ds = load_and_prepare_test_data(cfg, self.norm_spec,
+                                            gt_as_image=self.gt_as_image)
         if self.verbose:
             print("###############\n#  INFERENCE  #\n###############")
             print(f"Processing {len(ds.sample_list)} test images")
@@ -665,7 +697,8 @@ class Base_Workflow(metaclass=ABCMeta):
                 if cfg.DATA.PREPROCESS.TEST:
                     img = preprocess_image(cfg.DATA.PREPROCESS, img, is_2d=not self.is_3d)
                     if g is not None:
-                        g = preprocess_image(cfg.DATA.PREPROCESS, g, is_mask=True,
+                        g = preprocess_image(cfg.DATA.PREPROCESS, g,
+                                             is_mask=not self.gt_as_image,
                                              only_resize=True, is_2d=not self.is_3d)
                 if s.coords is not None:  # patch sample (e.g. USE_VAL_AS_TEST)
                     img = extract_patch(img, s.coords)

@@ -1,10 +1,13 @@
-"""Losses and metrics of the semantic-segmentation, instance-segmentation and
-detection workflows.
+"""Losses and metrics of the semantic-segmentation, instance-segmentation,
+detection and restoration workflows.
 
 Copied from the JAX package's ``engine/metrics.py`` (``bce_with_logits``,
 ``softmax_ce_with_logits``, ``weight_binary_ratio``, ``cross_entropy_loss``,
 ``dice_loss``, ``dice_ce_loss``, ``_channel_loss``,
-``instance_segmentation_loss``, ``detection_loss``, ``jaccard_index``, ``jaccard_index_numpy``)
+``instance_segmentation_loss``, ``detection_loss``, ``jaccard_index``,
+``jaccard_index_numpy``, and the restoration losses and metrics: ``n2v_loss_mse``, ``mse_metric``,
+``mae_metric``, ``psnr_metric``, ``ssim_metric`` and the SSIM losses,
+``build_restoration_train_metrics``, ``restoration_test_metrics``)
 and written with torch ops. Losses take channels-last tensors
 ``(B, ..., C)`` of logits (the engine applies activations only at
 inference) and return 0-d tensors on the logits' device; nothing here
@@ -13,6 +16,7 @@ reads a value back to the host.
 
 from __future__ import annotations
 
+import math
 from typing import Dict, Optional, Sequence
 
 import numpy as np
@@ -270,6 +274,100 @@ def detection_loss(
     return loss_fn
 
 
+def n2v_loss_mse(pred, target, mask):
+    """Noise2Void masked MSE: loss only on manipulated pixels
+    (reference: n2v_loss_mse, metrics.py:2247)."""
+    m = mask.to(pred.dtype)
+    return torch.sum(torch.square(pred - target) * m) / torch.clamp(torch.sum(m), min=1.0)
+
+
+# --------------------------------------------------------------------------
+# image-quality losses / metrics (SR, denoising, I2I, SSL)
+# --------------------------------------------------------------------------
+def mse_metric(pred, target):
+    return torch.mean(torch.square(pred - target))
+
+
+def mae_metric(pred, target):
+    return torch.mean(torch.abs(pred - target))
+
+
+def psnr_metric(pred, target, data_range: float = 1.0):
+    mse = torch.mean(torch.square(pred - target))
+    return 20.0 * math.log10(data_range) - 10.0 * torch.log10(torch.clamp(mse, min=1e-12))
+
+
+def _gaussian_kernel1d(size: int = 11, sigma: float = 1.5, device=None):
+    x = torch.arange(size, dtype=torch.float32, device=device) - (size - 1) / 2.0
+    g = torch.exp(-0.5 * torch.square(x / sigma))
+    return g / torch.sum(g)
+
+
+def _ssim_filter(img, ndim: int, size: int = 11, sigma: float = 1.5):
+    """Separable Gaussian filter over the spatial dims of (B, ..., C): per
+    axis numpy's ``symmetric`` padding (the edge sample repeated, as
+    ``jnp.pad(mode="symmetric")``; its indices from ``np.pad`` itself, so a
+    pad longer than the axis reflects again as numpy does), then a VALID
+    correlation. Float32 without TF32 in the library convolution."""
+    g = _gaussian_kernel1d(size, sigma, img.device)
+    conv = (F.conv1d, F.conv2d, F.conv3d)[ndim - 1]
+    # (B, *spatial, C) -> (B * C, 1, *spatial): each channel on its own
+    x = img.movedim(-1, 1)
+    lead = x.shape[:2]
+    out = x.reshape((-1, 1) + tuple(x.shape[2:]))
+    with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+        for d in range(ndim):
+            axis = 2 + d
+            idx = np.pad(np.arange(out.shape[axis]), (size // 2, size // 2), mode="symmetric")
+            out = torch.index_select(out, axis, torch.from_numpy(idx).to(out.device))
+            w = g.view((1, 1) + tuple(size if e == d else 1 for e in range(ndim)))
+            out = conv(out, w)
+    return out.reshape(lead + tuple(out.shape[2:])).movedim(1, -1)
+
+
+def ssim_metric(pred, target, data_range: float = 1.0, size: int = 11, sigma: float = 1.5):
+    """SSIM over channels-last batches (matches pytorch_msssim defaults used
+    by the reference's SSIM losses, metrics.py:2109)."""
+    ndim = pred.dim() - 2
+    c1 = (0.01 * data_range) ** 2
+    c2 = (0.03 * data_range) ** 2
+    mu_x = _ssim_filter(pred, ndim, size, sigma)
+    mu_y = _ssim_filter(target, ndim, size, sigma)
+    mu_x2, mu_y2, mu_xy = mu_x * mu_x, mu_y * mu_y, mu_x * mu_y
+    sx = _ssim_filter(pred * pred, ndim, size, sigma) - mu_x2
+    sy = _ssim_filter(target * target, ndim, size, sigma) - mu_y2
+    sxy = _ssim_filter(pred * target, ndim, size, sigma) - mu_xy
+    ssim_map = ((2 * mu_xy + c1) * (2 * sxy + c2)) / ((mu_x2 + mu_y2 + c1) * (sx + sy + c2))
+    return torch.mean(ssim_map)
+
+
+def ssim_loss(pred, target, data_range: float = 1.0):
+    return 1.0 - ssim_metric(pred, target, data_range)
+
+
+def w_mae_ssim_loss(pred, target, w_mae: float = 0.5, w_ssim: float = 0.5):
+    """Weighted MAE + SSIM (reference: W_MAE_SSIM_loss, metrics.py:2155)."""
+    return w_mae * mae_metric(pred, target) + w_ssim * ssim_loss(pred, target)
+
+
+def w_mse_ssim_loss(pred, target, w_mse: float = 0.5, w_ssim: float = 0.5):
+    """Weighted MSE + SSIM (reference: W_MSE_SSIM_loss, metrics.py:2200)."""
+    return w_mse * mse_metric(pred, target) + w_ssim * ssim_loss(pred, target)
+
+
+def restoration_loss(ltype: str, weights, workflow: str):
+    """LOSS.TYPE of the super-resolution, self-supervised and image-to-image
+    workflows (default MAE; LOSS.WEIGHTS default [0.5, 0.5])."""
+    ltype = (ltype or "MAE").upper()
+    w = list(weights) if weights else [0.5, 0.5]
+    fns = {"MAE": mae_metric, "MSE": mse_metric, "SSIM": ssim_loss,
+           "W_MAE_SSIM": lambda p, t: w_mae_ssim_loss(p, t, w[0], w[1]),
+           "W_MSE_SSIM": lambda p, t: w_mse_ssim_loss(p, t, w[0], w[1])}
+    if ltype not in fns:
+        raise ValueError(f"Unsupported LOSS.TYPE for {workflow}: {ltype}")
+    return fns[ltype]
+
+
 # --------------------------------------------------------------------------
 # segmentation metrics
 # --------------------------------------------------------------------------
@@ -313,3 +411,46 @@ def jaccard_index_numpy(y_true: np.ndarray, y_pred: np.ndarray) -> float:
     fn = np.count_nonzero((y_pred <= 0.5) & (y_true > 0.5))
     denom = tp + fp + fn
     return 1.0 if denom == 0 else tp / denom
+
+
+# ---------------------------------------------------------------------------
+# TRAIN/TEST.METRICS selection for the restoration workflows (SR, I2I, SSL,
+# denoising). Reference: per-name torchmetrics construction in
+# super_resolution.py:130-200 / multiple_metrics metrics.py:249.
+# ---------------------------------------------------------------------------
+
+RESTORATION_METRIC_NAMES = ("psnr", "mae", "mse", "ssim")
+
+
+def build_restoration_train_metrics(cfg_names):
+    """Train-step metric dict from TRAIN.METRICS names (default: all four)."""
+    names = [str(n).lower() for n in (cfg_names or [])] or list(RESTORATION_METRIC_NAMES)
+    fns = {"psnr": psnr_metric, "mae": mae_metric, "mse": mse_metric, "ssim": ssim_metric}
+    return {n: fns[n] for n in names if n in fns}
+
+
+def restoration_test_metrics(pred: np.ndarray, gt_norm: np.ndarray, cfg_names,
+                             device=None) -> dict:
+    """Host-side per-image metrics from TEST.METRICS names, in float64; SSIM
+    in float32 on ``device`` (default the CPU). ``gt_norm`` must already be
+    value-normalized like the prediction. The set-level fid / is / lpips are
+    refused by the workflow before it gets here."""
+    names = [str(n).lower() for n in (cfg_names or [])] or list(RESTORATION_METRIC_NAMES)
+    out = {}
+    diff = pred.astype(np.float64) - gt_norm.astype(np.float64)
+    rng_ = max(float(gt_norm.max() - gt_norm.min()), 1e-6)
+    for n in names:
+        if n == "mse":
+            out["mse"] = float((diff ** 2).mean())
+        elif n == "mae":
+            out["mae"] = float(np.abs(diff).mean())
+        elif n == "psnr":
+            mse = float((diff ** 2).mean())
+            out["psnr"] = float(20 * np.log10(rng_) - 10 * np.log10(max(mse, 1e-12)))
+        elif n == "ssim":
+            def t(a):
+                return torch.from_numpy(np.ascontiguousarray(a, np.float32))[None].to(device)
+
+            with torch.no_grad():
+                out["ssim"] = float(ssim_metric(t(pred), t(gt_norm), data_range=rng_))
+    return out

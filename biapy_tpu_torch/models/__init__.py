@@ -1,8 +1,9 @@
 """Model factory.
 
 Counterpart of ``biapy_tpu/models/__init__.py::build_model`` for the U-Net
-family (``unet`` and ``resunet`` in 3D) as the semantic segmentation
-workflow builds it. Other architectures are not ported yet and raise
+family (``unet`` and ``resunet`` in 3D), with the separated decoders of
+IMAGE_TO_IMAGE, INSTANCE_SEG and DETECTION and the super-resolution
+upsampling. Other architectures are not ported yet and raise
 ``NotImplementedError`` naming the ROADMAP item.
 
 Returns ``(module, model_build_kwargs)`` like the JAX factory.
@@ -29,6 +30,19 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         raise NotImplementedError(
             f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 10, rest of the zoo); "
             "the port builds the U-Net family")
+    separated_decoders = False
+    divide = False
+    for wf, node in (("IMAGE_TO_IMAGE", cfg.PROBLEM.IMAGE_TO_IMAGE),
+                     ("INSTANCE_SEG", cfg.PROBLEM.INSTANCE_SEG),
+                     ("DETECTION", cfg.PROBLEM.DETECTION)):
+        if cfg.PROBLEM.TYPE == wf and node.SEPARATED_DECODERS_PER_HEAD:
+            separated_decoders = True
+            divide = bool(node.SEPARATED_DECODERS_DIVIDE_FEATURE_MAPS)
+    upsampling_factor: Tuple[int, ...] = ()
+    upsampling_position = "pre"
+    if cfg.PROBLEM.TYPE == "SUPER_RESOLUTION":
+        upsampling_factor = tuple(int(u) for u in cfg.PROBLEM.SUPER_RESOLUTION.UPSCALING)
+        upsampling_position = str(cfg.MODEL.UNET_SR_UPSAMPLE_POSITION)
     iso = cfg.MODEL.ISOTROPY
     if isinstance(iso, bool):
         iso = (iso,)
@@ -45,6 +59,10 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         yx_down=tuple(cfg.MODEL.YX_DOWN),
         z_down=tuple(cfg.MODEL.Z_DOWN),
         output_channels=tuple(output_channels),
+        separated_decoders=separated_decoders,
+        divide_decoder_feature_maps=divide,
+        upsampling_factor=upsampling_factor,
+        upsampling_position=upsampling_position,
         isotropy=tuple(iso),
         larger_io=bool(cfg.MODEL.LARGER_IO),
         conv_layers=tuple(cfg.MODEL.CONV_LAYERS),

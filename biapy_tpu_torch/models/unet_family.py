@@ -5,24 +5,28 @@ variants ``unet`` and ``resunet`` in 3D. ``seunet``, ``resunet_se`` and
 ``attention_unet`` need SqExBlock and AttentionGate, which are not ported
 yet (ROADMAP queue 1).
 
-Contract (as the JAX module's, for semantic segmentation): input
-channels-last ``(B, z, y, x, C)``, output the heads concatenated
-channel-wise; activations are applied by the engine, not here. Per-head
-separated decoders, class heads and super-resolution upsampling serve
-workflows that are not ported yet. Children carry Flax's auto-names (see
-blocks.py). ``train()`` / ``eval()`` select the mode of BatchNorm and of
-the per-level dropout (``drop_values``).
+Contract (as the JAX module's): input channels-last ``(B, z, y, x, C)``,
+output the heads concatenated channel-wise; activations are applied by the
+engine, not here. Separated decoders (one per head, optionally with
+divided feature maps) and the super-resolution upsampling before the stem
+(``pre``) or after each decoder (``post``) are the JAX module's; class
+heads come with the workflows that have them (ROADMAP queue 1 item 9.5).
+Children carry Flax's auto-names (see blocks.py): a ``pre`` / ``post``
+upsampling is a top-level ``ConvTranspose_<j>``, and the ``UpBlock_<i>``
+numbering runs on across separated decoders. ``train()`` / ``eval()``
+select the mode of BatchNorm and of the per-level dropout (``drop_values``).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import List, Optional, Sequence
 
 import torch
 
 from biapy_tpu_torch.models.blocks import (
     Conv,
     ConvBlock,
+    ConvTranspose,
     FlaxNamed,
     ResConvBlock,
     UpBlock,
@@ -33,9 +37,19 @@ from biapy_tpu_torch.models.blocks import (
 PORTED_VARIANTS = ("unet", "resunet")
 
 
+def get_decoder_feature_maps(feature_maps, num_decoders: int, divide: bool) -> List[int]:
+    """Per-decoder feature maps when separated decoders are enabled
+    (reference: blocks.py get_decoder_feature_maps)."""
+    if num_decoders <= 1 or not divide:
+        return list(feature_maps)
+    return [max(1, f // num_decoders) for f in feature_maps]
+
+
 class UNetFamily(FlaxNamed):
-    """3D U-Net / ResUNet: optional LARGER_IO stem, ``len(feature_maps) - 1``
-    encoder levels with max-pooling, a bottleneck, the decoder, one 1x1x1
+    """3D U-Net / ResUNet: optional SR upsampling (``pre``), optional
+    LARGER_IO stem, ``len(feature_maps) - 1`` encoder levels with
+    max-pooling, a bottleneck, the decoder (one per head with
+    ``separated_decoders``), optional SR upsampling (``post``), one 1x1x1
     head per output (concatenated)."""
 
     def __init__(self, variant: str = "unet", ndim: int = 3, in_channels: int = 1,
@@ -43,7 +57,10 @@ class UNetFamily(FlaxNamed):
                  drop_values: Optional[Sequence[float]] = None, normalization: str = "none", k_size: int = 3,
                  upsample_layer: str = "convtranspose",
                  yx_down: Sequence[int] = (2, 2, 2, 2), z_down: Sequence[int] = (2, 2, 2, 2),
-                 output_channels: Sequence[int] = (1,), isotropy: Sequence[bool] = (True,),
+                 output_channels: Sequence[int] = (1,), separated_decoders: bool = False,
+                 divide_decoder_feature_maps: bool = False,
+                 upsampling_factor: Sequence[int] = (), upsampling_position: str = "pre",
+                 isotropy: Sequence[bool] = (True,),
                  larger_io: bool = True, conv_layers: Sequence[int] = (2, 2, 2, 2, 2),
                  contrast: bool = False, conv_block_order: str = "conv_norm_act",
                  gen: Optional[torch.Generator] = None):
@@ -80,6 +97,9 @@ class UNetFamily(FlaxNamed):
             return self.child("ConvBlock", ConvBlock(cin, feats, k, dropout=drop,
                                                      nconvs=conv_layers[level], **kw))
 
+        up = tuple(upsampling_factor)
+        self.parts["up_pre"] = self.child("ConvTranspose", ConvTranspose(
+            in_channels, in_channels, up, gen=gen)) if up and upsampling_position == "pre" else None
         c = in_channels
         self.parts["stem"] = None
         if larger_io:
@@ -90,19 +110,29 @@ class UNetFamily(FlaxNamed):
             self.encoder.append(enc_block(c, fm[i], i, i == 0, drops[i]))
             c = fm[i]
         self.parts["bottleneck"] = enc_block(c, fm[-1], len(fm) - 1, False, drops[-1])
-        self.decoder = []
-        c = fm[-1]
-        for i in range(depth - 1, -1, -1):
-            self.decoder.append(self.child("UpBlock", UpBlock(
-                c, fm[i], fm[i], self.windows[i], aniso_kernel(k_size, ndim, iso[i]),
-                up_mode=upsample_layer, dropout=drops[i], residual=residual,
-                nconvs=conv_layers[i], **kw)))
-            c = fm[i]
-        self.parts["out_block"] = io_block(fm[0], fm[0]) if larger_io else None
-        self.heads = [self.child("Conv", Conv(fm[0], oc, (1,) * ndim, gen=gen))
+        n_dec = len(output_channels) if separated_decoders else 1
+        dec_fm = get_decoder_feature_maps(fm, n_dec, divide_decoder_feature_maps)
+        # per decoder: its stages, then its LARGER_IO out block (Flax's order)
+        self.decoders = []
+        for _ in range(n_dec):
+            stages = []
+            c = fm[-1]
+            for i in range(depth - 1, -1, -1):
+                stages.append(self.child("UpBlock", UpBlock(
+                    c, fm[i], dec_fm[i], self.windows[i], aniso_kernel(k_size, ndim, iso[i]),
+                    up_mode=upsample_layer, dropout=drops[i], residual=residual,
+                    nconvs=conv_layers[i], **kw)))
+                c = dec_fm[i]
+            self.decoders.append((stages, io_block(dec_fm[0], dec_fm[0]) if larger_io else None))
+        self.up_post = [self.child("ConvTranspose", ConvTranspose(
+            dec_fm[0], dec_fm[0], up, gen=gen)) for _ in range(n_dec)] \
+            if up and upsampling_position == "post" else []
+        self.heads = [self.child("Conv", Conv(dec_fm[0], oc, (1,) * ndim, gen=gen))
                       for oc in output_channels]
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.parts["up_pre"] is not None:
+            x = self.parts["up_pre"](x)
         if self.parts["stem"] is not None:
             x = self.parts["stem"](x)
         skips = []
@@ -110,9 +140,16 @@ class UNetFamily(FlaxNamed):
             x = blk(x)
             skips.append(x)
             x = max_pool(x, win)
-        h = self.parts["bottleneck"](x)
-        for stage, skip in zip(self.decoder, reversed(skips)):
-            h = stage(h, skip)
-        if self.parts["out_block"] is not None:
-            h = self.parts["out_block"](h)
-        return torch.cat([head(h) for head in self.heads], dim=-1)
+        bottom = self.parts["bottleneck"](x)
+        feats = []
+        for j, (stages, out_block) in enumerate(self.decoders):
+            h = bottom
+            for stage, skip in zip(stages, reversed(skips)):
+                h = stage(h, skip)
+            if out_block is not None:
+                h = out_block(h)
+            if self.up_post:
+                h = self.up_post[j](h)
+            feats.append(h)
+        return torch.cat([head(feats[i] if len(feats) > 1 else feats[0])
+                          for i, head in enumerate(self.heads)], dim=-1)

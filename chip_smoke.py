@@ -12,7 +12,10 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 3. kernels vs plain: each of the seven kernels at every shape the serving
    and training paths give it, and the pool, its backward and zcat at the
    templates' (their three pools, the zcats of their 14 convs at batch 2, at
-   depth 40 and at the detection template's 20) (bf16 and f32, plus
+   depth 40 and at the detection template's 20; the denoising,
+   super-resolution and image-to-image templates' two pools, two zd2s and
+   zs2d and the zcats of their ten convs, at each template's batch and
+   patch) (bf16 and f32, plus
    odd shapes: ragged sizes,
    c = 1, kz = 5, two images, tied pool windows with a NaN; for conv3d also
    odd shapes on the tensor-core route: overhanging bricks, a channel tail,
@@ -110,12 +113,32 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     in (b);
     (d) the best checkpoint of (a) on a 20 x 256 x 256 crop in float32 on
     the card and on the CPU: heatmaps within 1e-4, the same points;
-14. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+14. the four 3D restoration templates: (a)
+    ``templates/{denoising,super-resolution,self-supervised,image-to-image}/3d_*.yaml``
+    as they are but for their data (seeded uint8 TIFFs of smooth structures
+    in noise under ``chiprun_out/chip_smoke_restoration/``, deleted at the
+    end: 64 x 256 x 256 noisy volumes; LR 64 x 256 x 256 with HR 64 x 512 x
+    512 targets; 80 x 256 x 256 volumes; 80 x 256 x 256 sources with
+    inverted blurred targets), EPOCHS 2 and, for super-resolution only,
+    RANDOM_ROT off (the reference's rotation crops the SR target: ROADMAP
+    section 3): run_job, train and test seconds, the loop's patches/s and
+    the device's idle share over a profiled epoch, host seconds per sample
+    of the target function (N2V manipulation, crappify) and of
+    augmentation, test Mvox/s, PSNR and SSIM where there is GT, peak
+    memory, launches by kernel and route against the counts read off the
+    model for every forward it ran (zd2s and zs2d on the Z_DOWN 2 templates'
+    decoders, none on the self-supervised template's Z_DOWN 1); (b) each
+    best checkpoint on a crop of its test volume, card against CPU (float32
+    within 1e-4; bf16 under the template's REDUCE_MEMORY no farther from
+    float32 than the CPU's), and one float32 training step card against CPU
+    (phase 8's rule);
+15. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
-result line; ``--instance-only`` runs phases 1, 2 and 12 alone, and
-``--detection-only`` phases 1, 2 and 13; neither prints a result line.
+result line; ``--instance-only`` runs phases 1, 2 and 12 alone,
+``--detection-only`` phases 1, 2 and 13, and ``--restoration-only`` phases
+1, 2, 3 and 14; none prints a result line.
 
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
@@ -162,6 +185,33 @@ TEMPLATE_CONVS = [(128, 1, 28), (128, 28, 28), (64, 28, 36), (64, 36, 36), (32, 
                   (32, 48, 48), (16, 48, 64), (16, 64, 64), (32, 112, 48), (32, 48, 48),
                   (64, 84, 36), (64, 36, 36), (128, 64, 28), (128, 28, 28)]
 MAIN_ZD2S = [((32, 64, 64, 256), 2), ((64, 128, 128, 128), 2)]
+# the restoration templates' unet 16/32/64 with Z_DOWN 2 (the default), at
+# each template's own patch and batch: the two pools (window 2 x 2 x 2, 16
+# and 32 channels), the decoder's two zd2s (sz 2, to 32 and 16 channels) on
+# folded rows, and the zcats of its ten 3x3x3 convs' weight gradients (kz 3,
+# the conv's input (batch x depth, y, x, Cin) at its level's depth), in
+# network order: (level, Cin) below; the super-resolution template's post
+# up-sampling (1, 2, 2) adds no 3x3x3 conv
+UNET_CONVS = [(0, 1), (0, 16), (1, 16), (1, 32), (2, 32), (2, 64), (1, 64), (1, 32), (0, 32),
+              (0, 16)]
+
+
+def _unet_rows(b, d, h, w):
+    lv = [(d >> i, h >> i, w >> i) for i in range(3)]
+    pools = [((b * d, h, w, 16), (2, 2, 2)), ((b * d // 2, h // 2, w // 2, 32), (2, 2, 2))]
+    zd2s = [((b * d // 4, h // 2, w // 2, 2 * 32), 2), ((b * d // 2, h, w, 2 * 16), 2)]
+    zcats = [((b * lv[i][0], lv[i][1], lv[i][2], cin), 3, lv[i][0]) for i, cin in UNET_CONVS]
+    return pools, zd2s, zcats
+
+
+# templates/denoising/3d_denoising.yaml (16 x 64 x 64 at batch 4),
+# templates/super-resolution/3d_super-resolution.yaml (8 x 128 x 128 LR at
+# batch 4) and templates/image-to-image/3d_image-to-image.yaml (20 x 128 x
+# 128 at batch 2); the self-supervised template's resunet 28/36/48/64 at 20 x
+# 128 x 128 and batch 2 runs the detection template's rows
+RESTORATION_ROWS = {"denoising": _unet_rows(4, 16, 64, 64),
+                    "sr": _unet_rows(4, 8, 128, 128),
+                    "i2i": _unet_rows(2, 20, 128, 128)}
 # the LARGER_IO model's two 5x5x5 convs (stem, out block) at batch 1: zcat's
 # input and kz; the out block's input needs a gradient, the stem's does not
 LARGER_IO_ZCATS = [((128, 128, 128, 1), 5), ((128, 128, 128, 32), 5)]
@@ -464,9 +514,11 @@ def phase_kernels(card, conv3d_only=False):
     # odd, with ties, a NaN and a -0: ragged, c = 5, window 3x2x1; 28
     # channels under a 3x2x2 window (the rows16 route in bf16); the
     # templates' three pools at batch 2, at depth 40 and at the detection
-    # template's 20 (the first of these also the 40-deep template at batch 1)
+    # template's 20 (the first of these also the 40-deep template at batch 1);
+    # the denoising, super-resolution and image-to-image templates' two pools
     pools = (MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((6, 10, 12, 28), (3, 2, 2))]
-             + TEMPLATE_POOLS + DETECTION_POOLS)
+             + TEMPLATE_POOLS + DETECTION_POOLS
+             + [row for pools_at, _, _ in RESTORATION_ROWS.values() for row in pools_at])
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
         for shape, win in pools:
@@ -496,7 +548,10 @@ def phase_kernels(card, conv3d_only=False):
                     "max_pool3d backward", nbytes=2 * (x.numel() + y.numel()) * item, win=win)
             del x, y, gy, x5, g5, idx
 
-        for shape, sz in MAIN_ZD2S + [((3, 5, 7, 9), 3)]:  # odd: ragged, c = 3, sz = 3
+        # the bench's, the restoration templates' and an odd one (ragged, c =
+        # 3, sz = 3)
+        for shape, sz in (MAIN_ZD2S + [row for _, zd2s, _ in RESTORATION_ROWS.values()
+                                       for row in zd2s] + [((3, 5, 7, 9), 3)]):
             x = rand(shape, dt)
             r, h, w, szc = shape
             out.add("zd2s", dt, shape, zd2s_fwd(x, sz), zd2s_plain(x, sz), 0.0,
@@ -511,14 +566,17 @@ def phase_kernels(card, conv3d_only=False):
             del x, gy
 
         # zcat: the dw operand of every 3x3x3 conv (kz = 3), the LARGER_IO
-        # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), an odd shape, and
-        # the templates' at batch 2 (depth 40 and the detection template's 20)
+        # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), an odd shape, the
+        # templates' at batch 2 (depth 40 and the detection template's 20),
+        # and the restoration templates' at their own batch and depths
         zcats = ([((s, s, s, cin), 3, None) for s, cin in sorted({(s, c) for s, c, _ in MAIN_CONVS})]
                  + [(shape, kz, None) for shape, kz in LARGER_IO_ZCATS]
                  + [((128, 64, 64, 64), 3, 64), ((6, 5, 7, 1), 5, 3)]
                  + [((TEMPLATE_BATCH * depth, s, s, cin), 3, depth)
                     for depth in (TEMPLATE_DEPTH, DETECTION_DEPTH)
-                    for s, cin in sorted({(s, c) for s, c, _ in TEMPLATE_CONVS})])
+                    for s, cin in sorted({(s, c) for s, c, _ in TEMPLATE_CONVS})]
+                 + list(dict.fromkeys(row for _, _, zc in RESTORATION_ROWS.values()
+                                      for row in zc)))
         for shape, kz, depth in zcats:
             x = rand(shape, dt)
             hz = kz // 2
@@ -2609,7 +2667,427 @@ def _detection_card_vs_cpu(cfg, ckpt, crop, root):
     return out
 
 
-def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, detection):
+# phase 14: the repository's four 3D restoration templates on seeded TIFFs,
+# each through run_job, then its best checkpoint card vs CPU
+RESTORATION_TEMPLATES = {
+    "denoising": "templates/denoising/3d_denoising.yaml",
+    "super_resolution": "templates/super-resolution/3d_super-resolution.yaml",
+    "self_supervised": "templates/self-supervised/3d_self-supervised.yaml",
+    "image_to_image": "templates/image-to-image/3d_image-to-image.yaml",
+}
+# the input volumes (z, y, x); the super-resolution GT is twice the input in
+# y and x
+RESTORATION_SHAPES = {"denoising": (64, 256, 256), "super_resolution": (64, 256, 256),
+                      "self_supervised": (80, 256, 256), "image_to_image": (80, 256, 256)}
+# (b): the test volumes' crops through the best checkpoint on both devices,
+# sized for the CPU's plain convolutions (the self-supervised one a single
+# core of the template's stitch: the CPU's resunet 28/36/48/64 took 31 s on
+# 20 x 128 x 128, eight patches), and the y-x size of the one-sample
+# training step
+RESTORATION_CROPS = {"denoising": (16, 96, 96), "super_resolution": (8, 128, 128),
+                     "self_supervised": (12, 96, 96), "image_to_image": (20, 128, 128)}
+RESTORATION_STEP_YX = 64
+
+
+def _smooth_volume(g, shape, noise):
+    """A uint8 volume of smooth seeded structures (a random field on a coarse
+    grid, trilinearly upsampled) plus Gaussian noise, made on the card."""
+    import torch
+    import torch.nn.functional as F
+
+    coarse = [max(2, n // 16) for n in shape]
+    field = F.interpolate(torch.randn([1, 1] + coarse, generator=g, device=DEVICE), size=shape,
+                          mode="trilinear", align_corners=False)[0, 0]
+    field = (field - field.min()) / (field.max() - field.min())
+    img = 40 + 170 * field + noise * torch.randn(shape, generator=g, device=DEVICE)
+    return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+
+
+def _write_restoration_data(kind, root):
+    """Two training volumes and one test volume: inputs under x/ and, for
+    super-resolution (HR 2x in y and x; the LR the 2 x 2 y-x block mean) and
+    image-to-image (255 minus a Gaussian blur of the source), targets under
+    y/. Returns the test volume and its target (or None)."""
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    g = torch.Generator(device=DEVICE).manual_seed(14)
+    shape = RESTORATION_SHAPES[kind]
+    test = None
+    for split, n in (("train", 2), ("test", 1)):
+        for i in range(n):
+            name = f"{split}_{i:03d}.tif"
+            tgt = None
+            if kind == "super_resolution":
+                hr = _smooth_volume(g, (shape[0], 2 * shape[1], 2 * shape[2]), 6)
+                img = hr.reshape(shape[0], shape[1], 2, shape[2], 2).mean(axis=(2, 4))
+                img, tgt = np.round(img).astype(np.uint8), hr
+            else:
+                img = _smooth_volume(g, shape, 12)
+                if kind == "image_to_image":
+                    blur = ndimage.gaussian_filter(img.astype(np.float32), (0.5, 1.5, 1.5))
+                    tgt = (255 - blur).round().clip(0, 255).astype(np.uint8)
+            (root / split / "x").mkdir(parents=True, exist_ok=True)
+            write_tiff(str(root / split / "x" / name), img)
+            if tgt is not None:
+                (root / split / "y").mkdir(parents=True, exist_ok=True)
+                write_tiff(str(root / split / "y" / name), tgt)
+            if split == "test":
+                test = (img, tgt)
+    return test
+
+
+def _model_launches(model, dtype, training):
+    """Kernel launches of one forward (``training``: one training step,
+    forward and backward) of a 3D U-Net, read off the model: a conv3d per
+    3x3x3 conv (and in training its input gradient, but the stem's, whose
+    input needs none, and one zcat for its weight gradient), a pool (in
+    training and its backward) per encoder level, a zd2s (and zs2d) per
+    transposed conv with a z factor; conv3d's routes by dtype and widths."""
+    from biapy_tpu_torch.models.blocks import Conv, ConvTranspose
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_route
+
+    convs = [tuple(m.kernel.shape) for m in model.modules() if isinstance(m, Conv)]
+    odd = [k for k in convs if k[:3] not in ((3, 3, 3), (1, 1, 1))]
+    if odd or model.parts.get("up_pre") is not None:
+        raise AssertionError(f"launch count: convs {odd} or a pre-upsampling not counted here")
+    k3 = [k[3:] for k in convs if k[:3] == (3, 3, 3)]
+    z_ups = sum(1 for m in model.modules() if isinstance(m, ConvTranspose) and m.ks[0] > 1)
+    pools = len(model.windows)
+    routes = {"wgmma": 0, "fma": 0}
+    for cin, cout in k3:
+        routes[conv3d_route(dtype, cin, cout)] += 1
+    out = {"conv3d": len(k3), "pool_max_folded": pools, "zd2s": z_ups, "zcat": 0,
+           "zcat_bwd": 0, "pool_max_folded_bwd": 0, "zs2d": 0}
+    if training:
+        for cin, cout in k3[1:]:  # the stem's input needs no gradient
+            routes[conv3d_route(dtype, cout, cin)] += 1
+        out.update(conv3d=2 * len(k3) - 1, zcat=len(k3), pool_max_folded_bwd=pools, zs2d=z_ups)
+    return out, routes
+
+
+def _count_forwards(wf):
+    """Record (training, input dtype) of every forward of ``wf``'s model from
+    the moment ``prepare_model`` builds it (the bf16 test copy keeps the
+    hook)."""
+    calls = []
+    prepare = wf.prepare_model
+
+    def prepare_model():
+        prepare()
+        if not hasattr(wf.model, "_counted"):
+            wf.model._counted = True
+            wf.model.register_forward_hook(
+                lambda m, args, out: calls.append((m.training, args[0].dtype)))
+
+    wf.prepare_model = prepare_model
+    return calls
+
+
+def _expected_launches(model, calls):
+    """The launches and conv3d routes of the recorded forwards (a training
+    forward runs in its input's dtype, bf16 under mixed precision)."""
+    want, routes = {}, {"wgmma": 0, "fma": 0}
+    for training, dt in calls:
+        n, r = _model_launches(model, dt, training)
+        for k, v in n.items():
+            want[k] = want.get(k, 0) + v
+        for k, v in r.items():
+            routes[k] += v
+    return want, routes
+
+
+def _restoration_step_vs_plain(cfg, ckpt, batch, root, name):
+    """One float32 training step from the best checkpoint on the card and on
+    the CPU from the same batch: the loss, every gradient and every updated
+    weight within 1e-4 of its scale, phase 8's rule (SGD at 0.05, as there:
+    a rate at which one update shows; Adam's first update is lr x sign(g),
+    which makes a whole step of float32 noise in a near-zero gradient)."""
+    import copy
+
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.engine.train_engine import loss_and_grads, make_train_step
+
+    c = copy.deepcopy(cfg)
+    c["MODEL"]["LOAD_CHECKPOINT"] = True
+    c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+    c["TRAIN"].update(OPTIMIZER=["SGD"], LR=[0.05], LR_SCHEDULER={"NAME": ""})
+    sides = []
+    for dev in (DEVICE, "cpu"):
+        job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{name}_step_{dev[:3]}",
+                    silent=True, device=dev)
+        job._build_workflow()
+        wf = job.workflow
+        wf.prepare_model()
+        x, y = (torch.from_numpy(batch[k]).to(dev) for k in ("x", "y"))
+        loss, _, grads = loss_and_grads(wf.model, wf.loss, x, y)
+        make_train_step(wf.loss, {})(wf.state, {"x": x, "y": y})
+        sides.append((float(loss), {k: v.cpu() for k, v in grads.items()},
+                      {k: v.detach().cpu() for k, v in wf.model.named_parameters()}))
+    worst = {"loss": abs(sides[0][0] - sides[1][0]) / max(1.0, abs(sides[1][0]))}
+    for what, i in (("grad", 1), ("weight", 2)):
+        worst[what] = max(((sides[0][i][k] - ref).abs().max()
+                           / max(1.0, ref.abs().max().item())).item()
+                          for k, ref in sides[1][i].items())
+    if not max(worst.values()) <= 1e-4:
+        raise AssertionError(f"{name}: one training step, card and CPU differ: {worst}")
+    return worst
+
+
+def _restoration_card_vs_cpu(kind, cfg, ckpt, test, root):
+    """(b) ``predict`` of the best checkpoint on a crop of the test volume on
+    the card and on the CPU (plain versions), float32 and, under the
+    template's TEST.REDUCE_MEMORY, bf16: float32 within 1e-4; bf16 card no
+    farther from the card's float32 map than the CPU's bf16 (1.5x at the
+    worst voxel, 1.2x on the mean: phase 12 b's rule). For super-resolution
+    the upscaled output."""
+    import copy
+
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+
+    crop = test[0][tuple(slice(0, n) for n in RESTORATION_CROPS[kind])]
+    dts = [("float32", False)] + ([("bfloat16", True)] if cfg["TEST"].get("REDUCE_MEMORY")
+                                  else [])
+    runs = {}
+    for dt, reduce_mem in dts:
+        c = copy.deepcopy(cfg)
+        c["TRAIN"]["ENABLE"] = False
+        c["MODEL"]["LOAD_CHECKPOINT"] = True
+        c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+        c["TEST"]["REDUCE_MEMORY"] = reduce_mem
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{kind}_{dt}_{side}",
+                        silent=True, device=dev)
+            t0 = time.perf_counter()
+            runs[dt, side] = (np.asarray(job.predict(crop)[0]["pred"], np.float32),
+                              time.perf_counter() - t0)
+    ref = runs["float32", "card"][0]
+    out = {}
+    for dt, _ in dts:
+        (p_card, s_card), (p_cpu, s_cpu) = runs[dt, "card"], runs[dt, "cpu"]
+        diff = np.abs(p_card - p_cpu)
+        out[dt] = dict(shape=list(p_card.shape), max_abs=float(diff.max()),
+                       mean_abs=float(diff.mean()), card_s=s_card, cpu_s=s_cpu,
+                       to_f32={side: dict(max_abs=float(np.abs(runs[dt, side][0] - ref).max()),
+                                          mean_abs=float(np.abs(runs[dt, side][0] - ref).mean()))
+                               for side in ("card", "cpu")})
+    f = out["float32"]
+    ok = f["max_abs"] <= 1e-4
+    if "bfloat16" in out:
+        card, cpu = out["bfloat16"]["to_f32"]["card"], out["bfloat16"]["to_f32"]["cpu"]
+        ok = ok and (card["max_abs"] <= 1.5 * cpu["max_abs"]
+                     and card["mean_abs"] <= 1.2 * cpu["mean_abs"])
+    if not ok:
+        raise AssertionError(f"{kind} test pass: card and CPU differ: {out}")
+    return out
+
+
+def phase_restoration(smi):
+    """(a) The four 3D restoration templates (denoising, super-resolution,
+    self-supervised, image-to-image) loaded as they are, with only their data
+    paths (seeded uint8 TIFFs: two training volumes and one test volume),
+    EPOCHS 2 (WARMUP_COSINE_DECAY_EPOCHS 1 where the template has a warm-up)
+    and, for super-resolution, RANDOM_ROT off (ROADMAP section 3), through
+    ``run_job``: training with the templates' augmentations and
+    target functions (N2V manipulation, crappify), checkpoints, the test
+    pass (super-resolution on the host crop/merge path) and its metrics.
+    Seconds, the loop's patches/s and the device's idle share over a
+    profiled epoch's steady steps, the host seconds per sample of the
+    target function and of augmentation, test Mvox/s, PSNR and SSIM where
+    there is GT, peak memory, and launches by kernel and route against the
+    counts read off the model for every forward it ran. (b) Each best
+    checkpoint on a crop of its test volume, card against CPU, and one
+    training step card against CPU."""
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml  # the templates are YAML; PyYAML is optional for the port itself
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.tiff import read_tiff
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    root0 = OUT_DIR / "chip_smoke_restoration"
+    shutil.rmtree(root0, ignore_errors=True)
+    total = {"launches": {}, "conv3d_routes": {}, "shuffle_routes": {}}
+    res = {}
+    try:
+        for kind, tpl in RESTORATION_TEMPLATES.items():
+            root = root0 / kind
+            t0 = time.perf_counter()
+            test = _write_restoration_data(kind, root)
+            data_s = time.perf_counter() - t0
+            with open(REPO / tpl) as f:
+                cfg = yaml.safe_load(f)
+            cfg["DATA"]["TRAIN"]["PATH"] = str(root / "train/x")
+            cfg["DATA"]["TEST"]["PATH"] = str(root / "test/x")
+            if test[1] is not None:
+                cfg["DATA"]["TRAIN"]["GT_PATH"] = str(root / "train/y")
+                cfg["DATA"]["TEST"]["GT_PATH"] = str(root / "test/y")
+            cfg["TRAIN"]["EPOCHS"] = 2
+            sched = cfg["TRAIN"].get("LR_SCHEDULER", {})
+            if "WARMUP_COSINE_DECAY_EPOCHS" in sched:
+                # the configuration check wants the warm-up shorter than the
+                # run, as in phases 11 d, 12 and 13
+                sched["WARMUP_COSINE_DECAY_EPOCHS"] = 1
+            if kind == "super_resolution":
+                # the template's one change beyond data and epochs (ROADMAP
+                # section 3): the reference's affine_2d warps the SR target to
+                # the input's size, so a rotated sample breaks the batch
+                cfg["AUGMENTOR"]["RANDOM_ROT"] = False
+            job = BiaPy(cfg, result_dir=str(root / "results"), name=kind, silent=True,
+                        device=DEVICE)
+            job._build_workflow()
+            wf = job.workflow
+            calls = _count_forwards(wf)
+            target_s, loop_s, train_s, test_s, predict_s = [], [], [], [], []
+            def timed_targets(make=wf.prepare_targets_fn):
+                fn = make()
+                return None if fn is None else _timed(fn, target_s)
+
+            wf.prepare_targets_fn = timed_targets
+            one_epoch = wf.train_one_epoch
+            wf.train_one_epoch = _timed(one_epoch, loop_s)
+            wf.train, wf.test = _timed(wf.train, train_s), _timed(wf.test, test_s)
+            wf.predict_block_on_device = _timed(wf.predict_block_on_device, predict_s)
+            wf.predict_patches = _timed(wf.predict_patches, predict_s)
+            torch.cuda.synchronize()
+            build.reset_launches()
+            torch.cuda.reset_peak_memory_stats()
+            t0 = time.perf_counter()
+            job.run_job()
+            torch.cuda.synchronize()
+            secs = time.perf_counter() - t0
+            peak = torch.cuda.max_memory_allocated()
+            launches = dict(build.LAUNCHES)
+            routes = dict(build.CONV3D_ROUTES)
+            shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+            _launch_totals(total)
+            mixed = resolve_mixed_precision(wf.cfg.TRAIN.MIXED_PRECISION, wf.device)
+            want, want_routes = _expected_launches(wf.model, calls)
+            hist = wf.history
+            ck = sorted(p.name for p in Path(wf.cfg.PATHS.CHECKPOINT).iterdir())
+            pred = read_tiff(str(Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE) / "test_000.tif"))
+            up = wf.y_upscaling
+            out_shape = tuple(n * u for n, u in zip(RESTORATION_SHAPES[kind], up))
+            stats = getattr(wf, "stats", None) or {}
+            if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist)
+                    or ck != [f"{kind}-checkpoint-1.ckpt", f"{kind}-checkpoint-best.ckpt"]
+                    or pred.shape[:3] != out_shape or not np.all(np.isfinite(pred))
+                    or (test[1] is not None and not {"psnr", "ssim"} <= set(stats))):
+                raise AssertionError(f"{kind}: epochs {hist}, checkpoints {ck}, prediction "
+                                     f"{pred.shape} (want {out_shape}), stats {stats}")
+            # zd2s and zs2d on the Z_DOWN 2 templates' decoders, none at Z_DOWN 1
+            z_down = any(int(z) > 1 for z in wf.cfg.MODEL.Z_DOWN)
+            if (launches != want or routes != want_routes
+                    or bool(launches["zd2s"] and launches["zs2d"]) != z_down
+                    or any(v["scalar"] for v in shuffle_routes.values())):
+                raise AssertionError(f"{kind}: launches {launches} (want {want}), conv3d routes "
+                                     f"{routes} (want {want_routes}), shuffle routes "
+                                     f"{shuffle_routes}, {len(calls)} forwards")
+            # the loop alone: one more epoch profiled (a trace can lose a conv3d
+            # event: up to three traces, as phase 9)
+            step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=mixed)
+            gen = torch.Generator(device=wf.device).manual_seed(1)
+            steps = len(wf.train_loader)
+            per = _model_launches(wf.model, torch.bfloat16, True)[0]["conv3d"]
+            for attempt in range(1, 4):
+                wall, _, _, events = _profile_device(
+                    lambda: one_epoch(step, 2 + attempt, gen))
+                try:
+                    idle, window_ms = _steady_idle_share(events, per, steps, f"{kind} epoch")
+                    break
+                except AssertionError as e:
+                    if attempt == 3:
+                        raise
+                    print(f"[profile] {e} (trace {attempt}); profiling again")
+            build.reset_launches()
+            target_calls = len(target_s)
+            target_mean = statistics.mean(target_s) if target_s else None
+            get_s, aug_s, _ = _augment_seconds(wf.train_data, n=4)
+            bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+            vin = float(np.prod(RESTORATION_SHAPES[kind]))
+            r = res[kind] = dict(
+                template=tpl, seconds=secs, data_seconds=data_s, train_seconds=train_s[0],
+                test_seconds=test_s[0], epoch_seconds=[h["time"] for h in hist],
+                loss=[h["loss"] for h in hist], val_loss=[h.get("val_loss") for h in hist],
+                loop_seconds=loop_s, loop_patches_per_s=[steps * bs / t for t in loop_s],
+                idle_share=idle, idle_window_ms=window_ms, profiled_epoch_s=wall,
+                target_fn_seconds_per_sample=target_mean, target_fn_calls=target_calls,
+                augment_seconds_per_sample=aug_s,
+                get_seconds_per_sample=get_s, predict_seconds=predict_s,
+                test_mvox_in_per_s=vin / test_s[0] / 1e6,
+                test_mvox_out_per_s=vin * np.prod(up) / test_s[0] / 1e6,
+                metrics={k: stats[k] for k in ("psnr", "ssim") if k in stats},
+                peak_bytes=peak, launches=launches, conv3d_routes=routes,
+                shuffle_routes=shuffle_routes, forwards=len(calls),
+                train_patches=len(wf.train_data), val_patches=len(wf.val_data), steps=steps,
+                batch=bs, change=("AUGMENTOR.RANDOM_ROT False" if kind == "super_resolution"
+                                  else None))
+            tf = f"{1e3 * target_mean:.2f} ms" if target_calls else "none"
+            print(f"[restoration] {smi}: {tpl}: {wf.cfg.MODEL.ARCHITECTURE} "
+                  f"{list(wf.cfg.MODEL.FEATURE_MAPS)}, Z_DOWN {list(wf.cfg.MODEL.Z_DOWN)}, patch "
+                  f"{list(wf.cfg.DATA.PATCH_SIZE)}, batch {bs}, {len(wf.train_data)} train / "
+                  f"{len(wf.val_data)} val patches, 2 epochs"
+                  + (f", changed: {r['change']} (ROADMAP section 3: the reference's affine_2d "
+                     "crops the SR target to the input's size)" if r["change"] else "")
+                  + f": run_job {secs:.2f} s (train {train_s[0]:.2f}, test {test_s[0]:.2f}; "
+                  f"data written in {data_s:.1f} s); loop s per epoch "
+                  f"{[round(t, 3) for t in loop_s]} "
+                  f"({[round(v, 2) for v in r['loop_patches_per_s']]} patches/s), device idle "
+                  f"{100 * idle:.1f}% of a profiled epoch's steps 2-{steps}; loss "
+                  f"{[round(v, 5) for v in r['loss']]}")
+            print(f"[restoration] {kind}: host s per sample: target function {tf} "
+                  f"({target_calls} calls in the job), augmentation {1e3 * aug_s:.2f} ms, the whole sample "
+                  f"{1e3 * get_s:.2f} ms; test {r['test_mvox_in_per_s']:.3f} Mvox/s in"
+                  + (f", {r['test_mvox_out_per_s']:.3f} out" if np.prod(up) > 1 else "")
+                  + f" (predict {[round(t, 3) for t in predict_s]} s); "
+                  + (f"PSNR {stats['psnr']:.4f} SSIM {stats['ssim']:.4f}; " if stats else "")
+                  + f"peak memory {peak / 2**30:.2f} GiB")
+            used = {k: v for k, v in shuffle_routes.items() if sum(v.values())}
+            print(f"[restoration] {kind}: launches {launches} over {len(calls)} forwards = the "
+                  f"model's count; conv3d routes {routes}; pool routes {used}")
+
+            # (b) card against CPU: serving on a crop, one training step
+            best = str(Path(wf.cfg.PATHS.CHECKPOINT) / f"{kind}-checkpoint-best.ckpt")
+            vs = _restoration_card_vs_cpu(kind, cfg, best, test, root)
+            sample = wf.val_data.get(0, np.random.default_rng(0))
+            yx = RESTORATION_STEP_YX
+            batch = {"x": sample["x"][None, :, :yx, :yx],
+                     "y": sample["y"][None, :, :yx * up[1], :yx * up[2]]}
+            step_worst = _restoration_step_vs_plain(cfg, best, batch, root, kind)
+            build.reset_launches()
+            r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
+            for dt, v in vs.items():
+                print(f"[restoration-vs-plain] {kind} best checkpoint, crop "
+                      f"{RESTORATION_CROPS[kind]} -> {tuple(v['shape'])}, {dt}: max |p_card - "
+                      f"p_cpu| = {v['max_abs']:.3g}, mean {v['mean_abs']:.3g}; against the card's "
+                      f"float32: card max {v['to_f32']['card']['max_abs']:.3g} mean "
+                      f"{v['to_f32']['card']['mean_abs']:.3g}, CPU max "
+                      f"{v['to_f32']['cpu']['max_abs']:.3g} mean "
+                      f"{v['to_f32']['cpu']['mean_abs']:.3g}; card {v['card_s']:.2f} s, CPU "
+                      f"{v['cpu_s']:.2f} s")
+            print(f"[restoration-vs-plain] {kind}: one float32 training step on "
+                  f"{tuple(batch['x'].shape)}: max scaled differences {step_worst} (tol 1e-4)")
+        res["launches"] = total["launches"]
+        res["conv3d_routes"] = total["conv3d_routes"]
+        res["shuffle_routes"] = total["shuffle_routes"]
+        return res
+    finally:
+        shutil.rmtree(root0, ignore_errors=True)
+
+
+def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, detection,
+              restoration):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -2619,12 +3097,17 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
-    each counted from zero, the instance template's (phase 12) and phase 13's
-    (the detection template, by chunks, the synapse jobs, card vs CPU). The pool,
-    pool backward and zcat entries also carry ``template_*`` sums: the
-    templates' three pools (one forward or backward) and their 14 zcats (one
-    training step) at batch 2 and depth 40, and ``detection_*`` sums, the
-    same at the detection template's depth 20."""
+    each counted from zero, the instance template's (phase 12), phase 13's
+    (the detection template, by chunks, the synapse jobs, card vs CPU) and
+    the four restoration templates' ``run_job`` (phase 14). The pool, pool
+    backward and zcat entries also carry ``template_*`` sums: the templates'
+    three pools (one forward or backward) and their 14 zcats (one training
+    step) at batch 2 and depth 40, and ``detection_*`` sums, the same at the
+    detection template's depth 20; the pool, pool backward, zd2s, zs2d and
+    zcat entries ``denoising_*``, ``sr_*`` and ``i2i_*`` sums: the
+    denoising, super-resolution and image-to-image templates' two of each
+    and their ten zcats (one forward batch or training step at the
+    template's batch and patch)."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -2666,6 +3149,15 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
             "zcat": [dict(shape=[TEMPLATE_BATCH * depth, s, s, cin], kz=3, depth=depth)
                      for s, cin, _ in TEMPLATE_CONVS],
         }
+
+    def per_restoration(pools, zd2s, zcats):
+        return {
+            "pool_max_folded": [dict(shape=list(s)) for s, _ in pools],
+            "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in pools],
+            "zd2s": [dict(shape=list(s)) for s, _ in zd2s],
+            "zs2d": [dict(shape=[r * sz, h, w, c // sz]) for (r, h, w, c), sz in zd2s],
+            "zcat": [dict(shape=list(s), kz=kz, depth=depth) for s, kz, depth in zcats],
+        }
     kernels = []
     for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
@@ -2675,7 +3167,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
                    "augmented_and_tta": aug["launches"].get(name, 0),
                    "template": template["launches"].get(name, 0),
                    "instance_template": instance["launches"].get(name, 0),
-                   "detection": detection["launches"].get(name, 0)}
+                   "detection": detection["launches"].get(name, 0),
+                   "restoration": restoration["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -2687,6 +3180,10 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
             rows_at = per_template(depth, pools).get(name)
             if rows_at:
                 entry.update(sums(pick(name, rows_at), prefix))
+        for key, rows_of in RESTORATION_ROWS.items():
+            rows_at = per_restoration(*rows_of).get(name)
+            if rows_at:
+                entry.update(sums(pick(name, rows_at), key + "_"))
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: no main path launched it")
         kernels.append(entry)
@@ -2697,8 +3194,10 @@ def main():
     conv3d_only = sys.argv[1:] == ["--conv3d-only"]
     instance_only = sys.argv[1:] == ["--instance-only"]
     detection_only = sys.argv[1:] == ["--detection-only"]
-    if sys.argv[1:] and not (conv3d_only or instance_only or detection_only):
-        sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only | --detection-only]")
+    restoration_only = sys.argv[1:] == ["--restoration-only"]
+    if sys.argv[1:] and not (conv3d_only or instance_only or detection_only or restoration_only):
+        sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only | --detection-only | "
+                 "--restoration-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
     build_s, ptxas = phase_build()
@@ -2722,6 +3221,17 @@ def main():
             seconds=time.perf_counter() - t_start), indent=1))
         print(f"[done] phases 1, 2 and 13 in {time.perf_counter() - t_start:.0f} s")
         return
+    if restoration_only:
+        # phases 1-3 and 14 alone: the quick check of the restoration
+        # templates; prints no result line
+        rows = phase_kernels(smi)
+        rest = phase_restoration(smi)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_restoration.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, kernel_rows=rows, restoration=rest,
+            seconds=time.perf_counter() - t_start), indent=1))
+        print(f"[done] phases 1, 2, 3 and 14 in {time.perf_counter() - t_start:.0f} s")
+        return
     if conv3d_only:
         # phases 1-2 and the conv3d rows of phase 3 alone: the quick check of
         # a change to the conv kernels; prints no result line
@@ -2730,29 +3240,42 @@ def main():
         (OUT_DIR / "chip_smoke_conv3d.json").write_text(json.dumps(dict(
             card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows), indent=1))
         return
-    rows = phase_kernels(smi)
-    serve = phase_main_path()
-    diff = phase_whole_vs_plain()
-    diff_bf16 = phase_whole_vs_plain_bf16()
-    train = phase_train()
-    larger_io = phase_train_larger_io()
-    grads = phase_grads_vs_plain()
-    job = phase_job(serve, train)
-    chunks = phase_by_chunks()
-    aug = phase_augmented(serve, train)
-    tta = phase_tta_vs_plain()
-    template = phase_template()
-    instance = phase_instance_template()
-    det = phase_detection(smi)
-    kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, det)
+    phase_s = {}
+
+    def timed(phase, fn, *args):
+        t0 = time.perf_counter()
+        out = fn(*args)
+        phase_s[phase] = round(time.perf_counter() - t0, 1)
+        return out
+
+    rows = timed("3 kernels", phase_kernels, smi)
+    serve = timed("4 serving", phase_main_path)
+    diff = timed("5 vs plain", phase_whole_vs_plain)
+    diff_bf16 = timed("5 vs plain bf16", phase_whole_vs_plain_bf16)
+    train = timed("6 training", phase_train)
+    larger_io = timed("7 LARGER_IO", phase_train_larger_io)
+    grads = timed("8 grads vs plain", phase_grads_vs_plain)
+    job = timed("9 job", phase_job, serve, train)
+    chunks = timed("10 by chunks", phase_by_chunks)
+    aug = timed("11 augmented", phase_augmented, serve, train)
+    tta = timed("11 c TTA vs plain", phase_tta_vs_plain)
+    template = timed("11 d template", phase_template)
+    instance = timed("12 instance", phase_instance_template)
+    det = timed("13 detection", phase_detection, smi)
+    rest = timed("14 restoration", phase_restoration, smi)
+    print(f"[time] seconds by phase (build {build_s:.1f}): {phase_s}")
+    kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, det,
+                        rest)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
         train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
         tta_vs_plain=tta, template=template, instance_template=instance, detection=det,
+        restoration=rest,
         whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
-        kernels=kernels, seconds=time.perf_counter() - t_start), indent=1))
+        kernels=kernels, phase_seconds=phase_s, seconds=time.perf_counter() - t_start),
+        indent=1))
     import torch
 
     print(f"[done] all phases in {time.perf_counter() - t_start:.0f} s")
@@ -2763,9 +3286,12 @@ def main():
           "train_step_* too), bf16; the template_* sums of pool_max_folded, pool_max_folded_bwd "
           "and zcat are over the templates' three pools and their 14 zcats of a training step at "
           "batch 2 and depth 40, the detection_* sums the same at the detection template's depth "
-          "20; launches add "
+          "20, the denoising_*, sr_* and i2i_* sums of pool_max_folded, pool_max_folded_bwd, "
+          "zd2s and zs2d over those templates' two of each and of zcat over their ten, at each "
+          "template's batch and patch; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
-          "TTA passes, the template's, the instance template's and phase 13's included)")
+          "TTA passes, the template's, the instance template's, phase 13's and the restoration "
+          "templates' included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))
