@@ -3,7 +3,8 @@
 Counterpart of ``biapy_tpu/_biapy.py::BiaPy``: config load (YAML, dict, or
 a ``.ckpt`` checkpoint of either package with its embedded config),
 migrate/merge/check, the workflow build (SEMANTIC_SEG, INSTANCE_SEG,
-DETECTION, DENOISING, SUPER_RESOLUTION, SELF_SUPERVISED, IMAGE_TO_IMAGE),
+DETECTION, DENOISING, SUPER_RESOLUTION, SELF_SUPERVISED, IMAGE_TO_IMAGE,
+CLASSIFICATION),
 ``train()``,
 ``test()``, ``run_job()`` and the in-memory ``predict``. BMZ is not ported
 yet (ROADMAP queue 1).
@@ -35,6 +36,7 @@ _WORKFLOW_MODULES = {
     "SUPER_RESOLUTION": ("biapy_tpu_torch.engine.super_resolution", "Super_resolution_Workflow"),
     "SELF_SUPERVISED": ("biapy_tpu_torch.engine.self_supervised", "Self_supervised_Workflow"),
     "IMAGE_TO_IMAGE": ("biapy_tpu_torch.engine.image_to_image", "Image_to_Image_Workflow"),
+    "CLASSIFICATION": ("biapy_tpu_torch.engine.classification", "Classification_Workflow"),
 }
 
 
@@ -147,11 +149,8 @@ class BiaPy:
     def _build_workflow(self):
         if self.workflow is not None:
             return
-        wf = self.cfg.PROBLEM.TYPE
-        if wf not in _WORKFLOW_MODULES:
-            raise NotImplementedError(f"workflow {wf} is not ported to biapy_tpu_torch yet "
-                                      "(ROADMAP queue 1 item 9.8, classification)")
-        mod_name, cls_name = _WORKFLOW_MODULES[wf]
+        # check_configuration admits only these eight workflows
+        mod_name, cls_name = _WORKFLOW_MODULES[self.cfg.PROBLEM.TYPE]
         cls = getattr(importlib.import_module(mod_name), cls_name)
         self.cfg.freeze()
         self.workflow = cls(self.cfg, self.job_identifier, verbose=not self._silent,

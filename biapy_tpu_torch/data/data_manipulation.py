@@ -18,8 +18,10 @@ super-resolution GT grid scaled by ``y_upscaling``, image GT pre-processed
 as an image (``gt_as_image``) and the image-to-image
 multiple-raw-one-target layout (``scan_multiple_raw_one_target``).
 
-Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
-classification workflow's stratified k-fold (ROADMAP queue 1 item 9.8).
+Not ported, raising ``NotImplementedError`` that names the roadmap: a
+stratified k-fold through ``load_and_prepare_train_data`` (the JAX
+package's StratifiedKFold branch, which its classification workflow never
+reaches; ROADMAP section 3).
 """
 
 from __future__ import annotations
@@ -442,8 +444,10 @@ def load_and_prepare_train_data(cfg, norm_spec: Optional[Dict] = None,
                 norm_spec=(norm_spec if vfs.NORM_BEFORE else None))
     else:
         if cfg.PROBLEM.TYPE == "CLASSIFICATION" and bool(cfg.DATA.VAL.CROSS_VAL):
-            raise _not_ported("the classification workflow's stratified k-fold",
-                              "queue 1 item 9.8, classification")
+            # the classification workflow splits its own datasets, unstratified
+            # as the JAX workflow does; only this direct call would stratify
+            raise _not_ported("the stratified k-fold of a direct call",
+                              "section 3, the classification k-fold is never stratified")
         train, val = split_train_val(
             train,
             float(cfg.DATA.VAL.SPLIT_TRAIN),

@@ -1,11 +1,11 @@
 """Losses and metrics of the semantic-segmentation, instance-segmentation,
-detection and restoration workflows.
+detection, restoration and classification workflows.
 
 Copied from the JAX package's ``engine/metrics.py`` (``bce_with_logits``,
 ``softmax_ce_with_logits``, ``weight_binary_ratio``, ``cross_entropy_loss``,
 ``dice_loss``, ``dice_ce_loss``, ``_channel_loss``,
 ``instance_segmentation_loss``, ``detection_loss``, ``jaccard_index``,
-``jaccard_index_numpy``, and the restoration losses and metrics: ``n2v_loss_mse``, ``mse_metric``,
+``jaccard_index_numpy``, ``accuracy_metric``, ``top_k_accuracy``, and the restoration losses and metrics: ``n2v_loss_mse``, ``mse_metric``,
 ``mae_metric``, ``psnr_metric``, ``ssim_metric`` and the SSIM losses,
 ``build_restoration_train_metrics``, ``restoration_test_metrics``)
 and written with torch ops. Losses take channels-last tensors
@@ -402,6 +402,24 @@ def jaccard_index(y_pred, y_true, num_classes: int = 2, t: float = 0.5,
     union = torch.sum(pb | gb)
     return torch.where(union > 0, inter / torch.clamp(union, min=1),
                        torch.ones((), device=inter.device))
+
+
+def accuracy_metric(logits, labels):
+    """Top-1 accuracy for classification; ``torch.argmax`` returns the first
+    of tied maxima, as ``jnp.argmax`` does."""
+    pred = torch.argmax(logits, dim=-1)
+    labels = labels.reshape(pred.shape)
+    return (pred == labels).float().mean()
+
+
+def top_k_accuracy(logits, labels, k: int = 5):
+    """Share of samples whose label is among the ``k`` largest logits. Ties
+    rank the lower class index first, as ``jax.lax.top_k`` does (a stable
+    descending sort; ``torch.topk`` promises no order among ties)."""
+    k = min(k, logits.shape[-1])
+    topk = torch.sort(logits, dim=-1, descending=True, stable=True).indices[..., :k]
+    labels = labels.reshape(labels.shape[0], 1)
+    return (topk == labels).any(dim=-1).float().mean()
 
 
 def jaccard_index_numpy(y_true: np.ndarray, y_pred: np.ndarray) -> float:

@@ -1,10 +1,12 @@
 """Model factory.
 
 Counterpart of ``biapy_tpu/models/__init__.py::build_model`` for the U-Net
-family (``unet`` and ``resunet`` in 3D), with the separated decoders of
-IMAGE_TO_IMAGE, INSTANCE_SEG and DETECTION and the super-resolution
-upsampling. Other architectures are not ported yet and raise
-``NotImplementedError`` naming the ROADMAP item.
+family in 3D (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
+``attention_unet``), with the separated decoders of IMAGE_TO_IMAGE,
+INSTANCE_SEG and DETECTION and the super-resolution upsampling, and for the
+3D classifiers ``simple_cnn`` and ``vit``. Other architectures, and 2D
+models, are not ported yet and raise ``NotImplementedError`` naming the
+ROADMAP item.
 
 Returns ``(module, model_build_kwargs)`` like the JAX factory.
 """
@@ -16,6 +18,36 @@ from typing import Dict, List, Optional, Tuple
 import torch
 
 UNET_FAMILY = ("unet", "resunet", "resunet++", "seunet", "resunet_se", "attention_unet")
+CLASSIFIERS = ("simple_cnn", "vit")
+
+# ViT presets selectable by MODEL.VIT_MODEL ("custom" takes the MODEL.VIT_*
+# values); the JAX package's table but for the 2D-only sam3_vit
+_VIT_PRESETS = {
+    "vit_base_patch16": dict(patch_size=16, embed_dim=768, depth=12, num_heads=12, mlp_ratio=4.0),
+    "vit_large_patch16": dict(patch_size=16, embed_dim=1024, depth=24, num_heads=16,
+                              mlp_ratio=4.0),
+    "vit_huge_patch14": dict(patch_size=14, embed_dim=1280, depth=32, num_heads=16,
+                             mlp_ratio=4.0),
+}
+
+
+def _vit_kwargs(cfg, ndim: int) -> Dict:
+    """The ViT's keyword arguments from MODEL.VIT_* and the preset (a copy of
+    ``biapy_tpu/models/__init__.py::_vit_kwargs``)."""
+    kw = dict(
+        ndim=ndim,
+        patch_size=int(cfg.MODEL.VIT_TOKEN_SIZE),
+        embed_dim=int(cfg.MODEL.VIT_EMBED_DIM),
+        depth=int(cfg.MODEL.VIT_NUM_LAYERS),
+        num_heads=int(cfg.MODEL.VIT_NUM_HEADS),
+        mlp_ratio=float(cfg.MODEL.VIT_MLP_RATIO),
+        in_channels=int(cfg.DATA.PATCH_SIZE[-1]),
+        img_size=int(cfg.DATA.PATCH_SIZE[0]),
+        drop_rate=float(cfg.MODEL.DROPOUT_VALUES[0]) if cfg.MODEL.DROPOUT_VALUES else 0.0,
+        norm_eps=float(cfg.MODEL.VIT_NORM_EPS),
+    )
+    kw.update(_VIT_PRESETS.get(str(cfg.MODEL.VIT_MODEL).lower(), {}))
+    return kw
 
 
 def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
@@ -26,10 +58,27 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         raise NotImplementedError(
             f"MODEL.SOURCE '{cfg.MODEL.SOURCE}' is not ported yet (ROADMAP queue 1 "
             "items 10-11, rest of the zoo / BMZ)")
+    ndim = 3 if cfg.PROBLEM.NDIM == "3D" else 2
+    if arch in CLASSIFIERS:
+        if ndim != 3:
+            raise NotImplementedError(f"'{arch}' in 2D is not ported yet (ROADMAP queue 1 "
+                                      "item 10.1, 2D)")
+        if arch == "simple_cnn":
+            from biapy_tpu_torch.models.simple_cnn import SimpleCNN
+
+            kwargs = dict(ndim=ndim, n_classes=int(output_channels[0]))
+            return (SimpleCNN(**kwargs, input_shape=tuple(cfg.DATA.PATCH_SIZE), gen=gen),
+                    {"class": "SimpleCNN", **kwargs})
+        from biapy_tpu_torch.models.vit import ViT
+
+        kwargs = _vit_kwargs(cfg, ndim)
+        kwargs["n_classes"] = int(output_channels[0]) if output_channels else int(
+            cfg.DATA.N_CLASSES)
+        return ViT(**kwargs, gen=gen), {"class": "ViT", **kwargs}
     if arch not in UNET_FAMILY or arch == "resunet++":
         raise NotImplementedError(
             f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 10, rest of the zoo); "
-            "the port builds the U-Net family")
+            "the port builds the U-Net family, simple_cnn and vit")
     separated_decoders = False
     divide = False
     for wf, node in (("IMAGE_TO_IMAGE", cfg.PROBLEM.IMAGE_TO_IMAGE),
@@ -48,7 +97,7 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         iso = (iso,)
     kwargs = dict(
         variant=arch,
-        ndim=3 if cfg.PROBLEM.NDIM == "3D" else 2,
+        ndim=ndim,
         in_channels=int(cfg.DATA.PATCH_SIZE[-1]),
         activation=str(cfg.MODEL.ACTIVATION).lower(),
         feature_maps=tuple(cfg.MODEL.FEATURE_MAPS),

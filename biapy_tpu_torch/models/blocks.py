@@ -1,8 +1,9 @@
 """Building blocks of the U-Net family.
 
-Counterpart of ``biapy_tpu/models/blocks.py`` (Conv, ConvTranspose,
-get_activation, Norm, ConvBlock, ResConvBlock, UpLayer, UpBlock, max_pool),
-with the options the ``unet`` and ``resunet`` variants use.
+Counterpart of ``biapy_tpu/models/blocks.py`` (Conv, ConvTranspose, Dense,
+get_activation, Norm, SqExBlock, ConvBlock, ResConvBlock, AttentionGate,
+UpLayer, UpBlock, max_pool), with the options the five U-Net variants use
+(``unet``, ``resunet``, ``seunet``, ``resunet_se``, ``attention_unet``).
 ``nn.Module.train()`` / ``eval()`` select what Flax's ``train`` flag
 selects: batch statistics and their running update in BatchNorm, and
 dropout. Every op is differentiable (the kernels through their
@@ -91,6 +92,24 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_same(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+class Dense(nn.Module):
+    """Flax ``Dense``: ``kernel`` ``(in, out)``, ``bias`` ``(out,)`` (none
+    with ``use_bias=False``), computed in the input's dtype."""
+
+    def __init__(self, in_features: int, features: int, use_bias: bool = True,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.kernel = nn.Parameter(xavier_uniform_(torch.empty(in_features, features), gen))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        y = torch.matmul(x, self.kernel.to(x.dtype))
+        return y if self.bias is None else y + self.bias.to(y.dtype)
 
 
 class ConvTranspose(nn.Module):
@@ -281,14 +300,38 @@ class Norm(FlaxNamed):
         return mod(x)
 
 
+class SqExBlock(FlaxNamed):
+    """Squeeze-and-excitation: the per-sample channel means (in 3D over y
+    and x, then over z, as the JAX package's z-folded form takes them; in
+    float32 one mean over the three axes differs only by rounding), two
+    bias-free Dense layers (C -> max(1, C // r) -> C) with ReLU and
+    sigmoid between and after, and the input scaled channel by channel."""
+
+    def __init__(self, features: int, r: int = 16, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        mid = max(1, features // r)
+        self.child("Dense", Dense(features, mid, use_bias=False, gen=gen))
+        self.child("Dense", Dense(mid, features, use_bias=False, gen=gen))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        n, c = x.shape[0], x.shape[-1]
+        if x.dim() == 5:
+            s = x.mean(dim=(2, 3)).mean(dim=1)
+        else:
+            s = x.mean(dim=tuple(range(1, x.dim() - 1)))
+        s = torch.sigmoid(self.Dense_1(F.relu(self.Dense_0(s))))
+        return x * s.view((n,) + (1,) * (x.dim() - 2) + (c,))
+
+
 class ConvBlock(FlaxNamed):
-    """``nconvs`` stacked (conv, norm, act, dropout) units, order
-    ``conv_norm_act`` or ``norm_act_conv``."""
+    """``nconvs`` stacked (conv, norm, act, dropout[, SE]) units, order
+    ``conv_norm_act`` or ``norm_act_conv``; with ``se_block`` each unit ends
+    in its own SqExBlock."""
 
     def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
                  act: Optional[str] = None, norm: str = "none", dropout: float = 0.0,
-                 nconvs: int = 1, order: str = "conv_norm_act", ndim: int = 3,
-                 gen: Optional[torch.Generator] = None):
+                 se_block: bool = False, nconvs: int = 1, order: str = "conv_norm_act",
+                 ndim: int = 3, gen: Optional[torch.Generator] = None):
         super().__init__()
         self.act = get_activation(act)
         self.order = order
@@ -299,40 +342,49 @@ class ConvBlock(FlaxNamed):
         for _ in range(nconvs):
             conv = self.child("Conv", Conv(c, features, k, gen=gen))
             nrm = self.child("Norm", Norm(norm, c if order == "norm_act_conv" else features))
-            self.units.append((conv, nrm))
+            se = self.child("SqExBlock", SqExBlock(features, gen=gen)) if se_block else None
+            self.units.append((conv, nrm, se))
             c = features
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        for conv, nrm in self.units:
+        for conv, nrm, se in self.units:
             if self.order == "norm_act_conv":
                 x = conv(self.act(nrm(x)))
             else:
                 x = self.act(nrm(conv(x)))
             if self.drop is not None:
                 x = self.drop(x)
+            if se is not None:
+                x = se(x)
         return x
 
 
 class ResConvBlock(FlaxNamed):
     """Residual block, in the JAX package's structure (``models/blocks.py
-    ResConvBlock``, without the SE and extra-conv options of
-    ``resunet_se``): post-activation by default ([norm, act] prelude unless
+    ResConvBlock``): post-activation by default ([norm, act] prelude unless
     first, ``nconvs`` ConvBlocks whose last conv is bare), or full
-    pre-activation with ``order='norm_act_conv'``; 1x1x1 projection
-    shortcut."""
+    pre-activation with ``order='norm_act_conv'``; a 1x1x1 projection
+    shortcut. ``extra_conv`` (``resunet_se``) puts one more ConvBlock first
+    (after the prelude), whose output feeds the main path and is the
+    shortcut itself; ``se_block`` recalibrates the sum once."""
 
     def __init__(self, in_features: int, features: int, k_size: IntOrTuple = 3,
                  act: Optional[str] = None, norm: str = "none", dropout: float = 0.0,
-                 first_block: bool = False, nconvs: int = 2, order: str = "conv_norm_act",
-                 ndim: int = 3, gen: Optional[torch.Generator] = None):
+                 first_block: bool = False, se_block: bool = False, extra_conv: bool = False,
+                 nconvs: int = 2, order: str = "conv_norm_act", ndim: int = 3,
+                 gen: Optional[torch.Generator] = None):
         super().__init__()
         self.act = get_activation(act)
         k = _expand(k_size, ndim)
         kw = dict(act=act, norm=norm, dropout=dropout, ndim=ndim, gen=gen)
-        self.parts["prelude"] = None
+        self.parts["prelude"] = self.parts["extra"] = None
         self.main = []
+        c = in_features
         if order == "norm_act_conv":
-            c = in_features
+            if extra_conv:
+                self.parts["extra"] = self.child("ConvBlock", ConvBlock(
+                    c, features, k, order="norm_act_conv", **kw))
+                c = features
             for _ in range(nconvs):
                 self.main.append(self.child("ConvBlock", ConvBlock(
                     c, features, k, order="norm_act_conv", **kw)))
@@ -340,22 +392,53 @@ class ResConvBlock(FlaxNamed):
         else:
             if not first_block:
                 self.parts["prelude"] = self.child("Norm", Norm(norm, in_features))
-            self.main.append(self.child("ConvBlock", ConvBlock(in_features, features, k, **kw)))
+            if extra_conv:
+                self.parts["extra"] = self.child("ConvBlock", ConvBlock(c, features, k, **kw))
+                c = features
+            self.main.append(self.child("ConvBlock", ConvBlock(c, features, k, **kw)))
             for _ in range(max(0, nconvs - 2)):
                 self.main.append(self.child("ConvBlock", ConvBlock(features, features, k, **kw)))
             if nconvs >= 2:
                 self.main.append(self.child("ConvBlock", ConvBlock(
                     features, features, k, ndim=ndim, gen=gen)))
-        self.parts["shortcut"] = self.child("Conv", Conv(in_features, features, (1,) * ndim,
-                                                         gen=gen))
+        self.parts["shortcut"] = None if extra_conv else self.child(
+            "Conv", Conv(in_features, features, (1,) * ndim, gen=gen))
+        self.parts["se"] = self.child("SqExBlock", SqExBlock(features, gen=gen)) \
+            if se_block else None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        h = x
-        if self.parts["prelude"] is not None:
-            h = self.act(self.parts["prelude"](h))
+        prelude, extra = self.parts["prelude"], self.parts["extra"]
+        h = x if prelude is None else self.act(prelude(x))
+        if extra is not None:
+            h = shortcut = extra(h)
+        else:
+            shortcut = self.parts["shortcut"](x)  # the raw block input
         for blk in self.main:
             h = blk(h)
-        return h + self.parts["shortcut"](x)
+        out = h + shortcut
+        return out if self.parts["se"] is None else self.parts["se"](out)
+
+
+class AttentionGate(FlaxNamed):
+    """Attention U-Net gating of the skip connection: a 1x1x1 conv on the
+    gate (then Norm) and one on the skip (no Norm, as the JAX package has
+    it), ReLU of their sum, a 1x1x1 conv to one channel, Norm, sigmoid; the
+    skip scaled by the result."""
+
+    def __init__(self, skip_features: int, gate_features: int, features: int,
+                 norm: str = "none", ndim: int = 3, gen: Optional[torch.Generator] = None):
+        super().__init__()
+        one = (1,) * ndim
+        self.parts["w_g"] = self.child("Conv", Conv(gate_features, features, one, gen=gen))
+        self.parts["norm_g"] = self.child("Norm", Norm(norm, features))
+        self.parts["w_x"] = self.child("Conv", Conv(skip_features, features, one, gen=gen))
+        self.parts["psi"] = self.child("Conv", Conv(features, 1, one, gen=gen))
+        self.parts["norm_psi"] = self.child("Norm", Norm(norm, 1))
+
+    def forward(self, x_skip: torch.Tensor, g: torch.Tensor) -> torch.Tensor:
+        p = self.parts
+        psi = F.relu(p["norm_g"](p["w_g"](g)) + p["w_x"](x_skip))
+        return x_skip * torch.sigmoid(p["norm_psi"](p["psi"](psi)))
 
 
 def upsample_linear(x: torch.Tensor, scale: Sequence[int]) -> torch.Tensor:
@@ -394,34 +477,46 @@ class UpLayer(FlaxNamed):
 
 
 class UpBlock(FlaxNamed):
-    """Decoder stage: upsample, concat the skip, refine (ConvBlock, or
-    ResConvBlock after a channel-preserving upsample when ``residual``)."""
+    """Decoder stage: upsample, (with ``attention_gate``) gate the skip by
+    the upsampled features, concat the skip, refine (ConvBlock, or
+    ResConvBlock after a channel-preserving upsample when ``residual``;
+    ``se_block`` and ``extra_conv`` go to the refining block)."""
 
     def __init__(self, in_features: int, skip_features: int, features: int,
                  scale: Tuple[int, ...], k_size: IntOrTuple = 3,
                  up_mode: str = "convtranspose", act: Optional[str] = None,
-                 norm: str = "none", dropout: float = 0.0, residual: bool = False,
+                 norm: str = "none", dropout: float = 0.0, attention_gate: bool = False,
+                 se_block: bool = False, residual: bool = False, extra_conv: bool = False,
                  nconvs: int = 2, order: str = "conv_norm_act", ndim: int = 3,
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.scale = tuple(scale)
-        kw = dict(act=act, norm=norm, dropout=dropout, nconvs=nconvs, order=order, ndim=ndim,
-                  gen=gen)
+        kw = dict(act=act, norm=norm, dropout=dropout, se_block=se_block, nconvs=nconvs,
+                  order=order, ndim=ndim, gen=gen)
         if residual:
             self.parts["up"] = (self.child("ConvTranspose", ConvTranspose(
                 in_features, in_features, self.scale, gen=gen))
                 if up_mode == "convtranspose" else None)
-            self.parts["refine"] = self.child("ResConvBlock", ResConvBlock(
-                in_features + skip_features, features, k_size, **kw))
+            up_features = in_features
         else:
             self.parts["up"] = self.child("UpLayer", UpLayer(
                 in_features, features, self.scale, up_mode, norm=norm, act=act, gen=gen))
+            up_features = features
+        self.parts["gate"] = self.child("AttentionGate", AttentionGate(
+            skip_features, up_features, max(1, features // 2), norm=norm, ndim=ndim,
+            gen=gen)) if attention_gate else None
+        if residual:
+            self.parts["refine"] = self.child("ResConvBlock", ResConvBlock(
+                in_features + skip_features, features, k_size, extra_conv=extra_conv, **kw))
+        else:
             self.parts["refine"] = self.child("ConvBlock", ConvBlock(
                 features + skip_features, features, k_size, **kw))
 
     def forward(self, x: torch.Tensor, skip: torch.Tensor) -> torch.Tensor:
         up_fn = self.parts["up"]
         up = upsample_linear(x, self.scale) if up_fn is None else up_fn(x)
+        if self.parts["gate"] is not None:
+            skip = self.parts["gate"](skip, up)
         return self.parts["refine"](torch.cat([up, skip], dim=-1))
 
 

@@ -1,9 +1,9 @@
 """The U-Net family as one configurable module.
 
-Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` for the
-variants ``unet`` and ``resunet`` in 3D. ``seunet``, ``resunet_se`` and
-``attention_unet`` need SqExBlock and AttentionGate, which are not ported
-yet (ROADMAP queue 1).
+Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` in 3D, for
+its five variants: ``unet``, ``resunet``, ``seunet`` (SqExBlock after every
+conv), ``resunet_se`` (residual blocks with an extra conv and one
+SqExBlock each) and ``attention_unet`` (AttentionGate on every skip).
 
 Contract (as the JAX module's): input channels-last ``(B, z, y, x, C)``,
 output the heads concatenated channel-wise; activations are applied by the
@@ -34,9 +34,6 @@ from biapy_tpu_torch.models.blocks import (
     max_pool,
 )
 
-PORTED_VARIANTS = ("unet", "resunet")
-
-
 def get_decoder_feature_maps(feature_maps, num_decoders: int, divide: bool) -> List[int]:
     """Per-decoder feature maps when separated decoders are enabled
     (reference: blocks.py get_decoder_feature_maps)."""
@@ -46,7 +43,7 @@ def get_decoder_feature_maps(feature_maps, num_decoders: int, divide: bool) -> L
 
 
 class UNetFamily(FlaxNamed):
-    """3D U-Net / ResUNet: optional SR upsampling (``pre``), optional
+    """3D U-Net family: optional SR upsampling (``pre``), optional
     LARGER_IO stem, ``len(feature_maps) - 1`` encoder levels with
     max-pooling, a bottleneck, the decoder (one per head with
     ``separated_decoders``), optional SR upsampling (``post``), one 1x1x1
@@ -65,10 +62,6 @@ class UNetFamily(FlaxNamed):
                  contrast: bool = False, conv_block_order: str = "conv_norm_act",
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if variant not in PORTED_VARIANTS:
-            raise NotImplementedError(
-                f"UNetFamily variant '{variant}' is not ported yet (ROADMAP queue 1 item 10: "
-                "SqExBlock / AttentionGate); ported: " + ", ".join(PORTED_VARIANTS))
         if ndim != 3:
             raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 10)")
         if contrast:
@@ -79,7 +72,9 @@ class UNetFamily(FlaxNamed):
         iso = list(isotropy)
         if len(iso) == 1:
             iso = iso * len(fm)
-        residual = variant == "resunet"
+        residual = variant in ("resunet", "resunet_se")
+        se = variant in ("seunet", "resunet_se")
+        extra_conv = variant == "resunet_se"
         drops = [0.0] * len(fm) if drop_values is None else [float(v) for v in drop_values]
         self.windows = [(z_down[i], yx_down[i], yx_down[i]) for i in range(depth)]
         kw = dict(act=activation, norm=normalization, order=conv_block_order, ndim=ndim, gen=gen)
@@ -92,9 +87,9 @@ class UNetFamily(FlaxNamed):
             k = aniso_kernel(k_size, ndim, iso[level])
             if residual:
                 return self.child("ResConvBlock", ResConvBlock(
-                    cin, feats, k, dropout=drop, first_block=first,
-                    nconvs=conv_layers[level], **kw))
-            return self.child("ConvBlock", ConvBlock(cin, feats, k, dropout=drop,
+                    cin, feats, k, dropout=drop, first_block=first, se_block=se,
+                    extra_conv=extra_conv, nconvs=conv_layers[level], **kw))
+            return self.child("ConvBlock", ConvBlock(cin, feats, k, dropout=drop, se_block=se,
                                                      nconvs=conv_layers[level], **kw))
 
         up = tuple(upsampling_factor)
@@ -120,8 +115,9 @@ class UNetFamily(FlaxNamed):
             for i in range(depth - 1, -1, -1):
                 stages.append(self.child("UpBlock", UpBlock(
                     c, fm[i], dec_fm[i], self.windows[i], aniso_kernel(k_size, ndim, iso[i]),
-                    up_mode=upsample_layer, dropout=drops[i], residual=residual,
-                    nconvs=conv_layers[i], **kw)))
+                    up_mode=upsample_layer, dropout=drops[i],
+                    attention_gate=variant == "attention_unet", se_block=se, residual=residual,
+                    extra_conv=extra_conv, nconvs=conv_layers[i], **kw)))
                 c = dec_fm[i]
             self.decoders.append((stages, io_block(dec_fm[0], dec_fm[0]) if larger_io else None))
         self.up_post = [self.child("ConvTranspose", ConvTranspose(

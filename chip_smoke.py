@@ -132,13 +132,40 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     within 1e-4; bf16 under the template's REDUCE_MEMORY no farther from
     float32 than the CPU's), and one float32 training step card against CPU
     (phase 8's rule);
-15. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+15. 3D classification and the U-Net variants: (a)
+    ``templates/classification/3d_classification.yaml`` as it is but for its
+    data (seeded uint8 TIFFs in three class folders that differ in texture
+    and intensity, 40 x 80 x 80 volumes that RESIZE takes to the 32 x 64 x
+    64 patch, under ``chiprun_out/chip_smoke_classification/``, deleted at
+    the end) and EPOCHS 2, through ``run_job`` with simple_cnn at batch 8:
+    run_job seconds, the loop's patches/s and the device's idle share over
+    a profiled epoch, host seconds per sample of the resize and of
+    augmentation, peak memory, test accuracy (a record: two epochs),
+    predictions.csv row by row, launches by kernel and route against the
+    counts read off the model; its best checkpoint card against CPU
+    (float32 logits within 1e-4 of their scale and the same classes; bf16
+    by phase 12 b's rule) and one float32 training step at batch 8 card
+    against CPU (``CLS_STEP_TOLS``); (b) the
+    same with ``MODEL.ARCHITECTURE: vit`` at the config's ViT defaults (the
+    patch and RESIZE at 64^3: a ViT's patch must be the same on every
+    axis); (c) the semantic template with ``seunet``, ``resunet_se`` and
+    ``attention_unet``: bf16 training steps at its batch and patch and one
+    ``predict``, launches against the model's count, no ``scalar`` route,
+    card against CPU at a reduced patch;
+16. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+
+Phase 3 also holds the classification template's kernel shapes (its four
+3x3x3 convs and their input gradients, its two 5x5x5 convs' zcats at kz 5
+and zcat_bwds, its weight-gradient zcats and its two pools, forward and
+backward, at batch 8; bf16 and float32) and the U-Net variants' conv3d
+(bf16) and zcat shapes that no other row covers.
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
 result line; ``--instance-only`` runs phases 1, 2 and 12 alone,
-``--detection-only`` phases 1, 2 and 13, and ``--restoration-only`` phases
-1, 2, 3 and 14; none prints a result line.
+``--detection-only`` phases 1, 2 and 13, ``--restoration-only`` phases
+1, 2, 3 and 14, and ``--classification-only`` phases 1, 2, phase 3's
+classification and variant rows and 15; none prints a result line.
 
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
@@ -212,6 +239,75 @@ def _unet_rows(b, d, h, w):
 RESTORATION_ROWS = {"denoising": _unet_rows(4, 16, 64, 64),
                     "sr": _unet_rows(4, 8, 128, 128),
                     "i2i": _unet_rows(2, 20, 128, 128)}
+# templates/classification/3d_classification.yaml: simple_cnn at batch 8 on 32
+# x 64 x 64 patches, two blocks of (3x3x3, 3x3x3, 5x5x5) convs at 32 then 64
+# channels, each ending in a 2 x 2 x 2 pool: the block levels (d, h, w), the
+# 3x3x3 convs as (level, Cin, Cout) and the 5x5x5 convs (cat2d: zcat at kz 5,
+# one 2D conv, zcat_bwd for the input gradient) as (level, C), network order
+CLS_BATCH = 8
+CLS_LEVELS = [(32, 64, 64), (16, 32, 32)]
+CLS_CONVS = [(0, 1, 32), (0, 32, 32), (1, 32, 64), (1, 64, 64)]
+CLS_CAT2D = [(0, 32), (1, 64)]
+
+
+def _cls_rows(b=CLS_BATCH):
+    """The classification template's kernel shapes: the 3x3x3 convs (vol,
+    Cin, Cout), their input gradients (all but the stem's), the two pools,
+    the 5x5x5 convs' zcats (kz 5) and zcat_bwds, and the 3x3x3 convs'
+    weight-gradient zcats (kz 3), all at batch ``b``."""
+    def rows(lv, c):
+        d, h, w = CLS_LEVELS[lv]
+        return (b * d, h, w, c), d
+    convs = [((b,) + CLS_LEVELS[lv], cin, cout) for lv, cin, cout in CLS_CONVS]
+    dx = [((b,) + CLS_LEVELS[lv], cout, cin) for lv, cin, cout in CLS_CONVS[1:]]
+    pools = [(rows(lv, c)[0], (2, 2, 2)) for lv, c in CLS_CAT2D]
+    zcat5 = [(rows(lv, c)[0], 5, rows(lv, c)[1]) for lv, c in CLS_CAT2D]
+    zcat3 = [(rows(lv, cin)[0], 3, rows(lv, cin)[1]) for lv, cin, _ in CLS_CONVS]
+    return convs, dx, pools, zcat5, zcat3
+
+
+# the U-Net variants on the semantic template (28/36/48/64, Z_DOWN 1, batch 2,
+# 40 x 128 x 128: level i at 40 x 128 / 2^i squared): their 3x3x3 convs as
+# (level, Cin, Cout) in network order. seunet and attention_unet decode as
+# unet does (the up-sampled features at the level's width beside the skip),
+# resunet_se as resunet (the up-sampled features keep the level below's
+# width) with one more conv per block (the extra conv, then the block's two)
+TEMPLATE_FM = (28, 36, 48, 64)
+
+
+def _variant_convs(variant, fm=TEMPLATE_FM):
+    residual = variant in ("resunet", "resunet_se")
+    per = 3 if variant == "resunet_se" else 2
+    out, cin = [], 1
+    for lv, f in enumerate(fm):
+        out += [(lv, cin, f)] + [(lv, f, f)] * (per - 1)
+        cin = f
+    for lv in range(len(fm) - 2, -1, -1):
+        up = fm[lv + 1] if residual else fm[lv]
+        out += [(lv, up + fm[lv], fm[lv])] + [(lv, fm[lv], fm[lv])] * (per - 1)
+    return out
+
+
+UNET_VARIANTS = ("seunet", "resunet_se", "attention_unet")
+
+
+def _variant_rows():
+    """The variants' bf16 conv3d shapes (forward, and the input gradients
+    of all but the stem) and weight-gradient zcats (kz 3) at the template's
+    batch 2 and depth 40, each once."""
+    b, d = TEMPLATE_BATCH, TEMPLATE_DEPTH
+    convs, zcats = [], []
+    for v in UNET_VARIANTS:
+        k3 = _variant_convs(v)
+        for i, (lv, cin, cout) in enumerate(k3):
+            s = 128 >> lv
+            convs.append(((b, d, s, s), cin, cout))
+            if i:
+                convs.append(((b, d, s, s), cout, cin))
+            zcats.append(((b * d, s, s, cin), 3, d))
+    return list(dict.fromkeys(convs)), list(dict.fromkeys(zcats))
+
+
 # the LARGER_IO model's two 5x5x5 convs (stem, out block) at batch 1: zcat's
 # input and kz; the out block's input needs a gradient, the stem's does not
 LARGER_IO_ZCATS = [((128, 128, 128, 1), 5), ((128, 128, 128, 32), 5)]
@@ -448,9 +544,12 @@ ODD_CONVS = [((2, 13, 7, 9), 24, 40), ((2, 13, 7, 9), 32, 40), ((2, 13, 7, 9), 4
 TENSOR_CORE_PROOF_TFLOPS = 67.0
 
 
-def conv_rows(out, rand, g, dev):
+def conv_rows(out, rand, g, dev, classification_only=False):
     """conv3d against its plain version: every main-path forward and dx shape
-    and the odd shapes, in both dtypes, each row with the route it took."""
+    and the odd shapes, and the classification template's, in both dtypes,
+    and the U-Net variants' (their runs train and serve in bf16) in bf16;
+    each row with the route it took. ``classification_only``: the
+    classification template's and the variants' rows alone."""
     import torch
     import torch.nn.functional as F
 
@@ -461,8 +560,14 @@ def conv_rows(out, rand, g, dev):
     # differ by at most about one bf16 ulp of the output (2^-8 relative)
     tols = {torch.float32: 1e-4, torch.bfloat16: 1e-2}
     shapes = [((1, s, s, s), cin, cout) for s, cin, cout in sorted(set(MAIN_CONVS + DX_CONVS))]
+    cls_convs, cls_dx = _cls_rows()[:2]
+    cls_shapes = list(dict.fromkeys(cls_convs + cls_dx))
+    variant_shapes = [r for r in _variant_rows()[0] if r not in cls_shapes]
     for dt in (torch.bfloat16, torch.float32):
-        for vol, cin, cout in shapes + ODD_CONVS:
+        todo = ([] if classification_only else shapes + ODD_CONVS) + cls_shapes
+        if dt == torch.bfloat16:
+            todo = todo + variant_shapes
+        for vol, cin, cout in todo:
             shape = vol + (cin,)
             x = rand(shape, dt)
             w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dt)
@@ -475,7 +580,7 @@ def conv_rows(out, rand, g, dev):
                     nbytes=(x.numel() + w.numel() + m * cout) * x.element_size(),
                     flops=2 * 27 * cin * cout * m, cout=cout, route=conv3d_route(dt, cin, cout))
             del x, w, xc, wc
-    if out.failures:
+    if out.failures or classification_only:
         return
     main = [r for r in out.rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
             and r["shape"][0] == 1]
@@ -488,8 +593,10 @@ def conv_rows(out, rand, g, dev):
                              f"TFLOP/s: best {best}")
 
 
-def phase_kernels(card, conv3d_only=False):
-    """Each kernel against its plain version at the main paths' shapes."""
+def phase_kernels(card, conv3d_only=False, classification_only=False):
+    """Each kernel against its plain version at the main paths' shapes;
+    ``classification_only``: the classification template's and the U-Net
+    variants' rows alone."""
     import torch
     import torch.nn.functional as F
 
@@ -505,7 +612,7 @@ def phase_kernels(card, conv3d_only=False):
     def rand(shape, dt):
         return torch.randn(shape, generator=g).to(dev, dt)
 
-    conv_rows(out, rand, g, dev)
+    conv_rows(out, rand, g, dev, classification_only)
     if out.failures:
         raise AssertionError(f"{len(out.failures)} conv3d checks failed: {out.failures}")
     if conv3d_only:
@@ -516,9 +623,13 @@ def phase_kernels(card, conv3d_only=False):
     # templates' three pools at batch 2, at depth 40 and at the detection
     # template's 20 (the first of these also the 40-deep template at batch 1);
     # the denoising, super-resolution and image-to-image templates' two pools
-    pools = (MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((6, 10, 12, 28), (3, 2, 2))]
+    # the classification template's two pools; the U-Net variants run the
+    # semantic template's three (TEMPLATE_POOLS)
+    _, _, cls_pools, cls_zcat5, cls_zcat3 = _cls_rows()
+    pools = ([] if classification_only else
+             MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((6, 10, 12, 28), (3, 2, 2))]
              + TEMPLATE_POOLS + DETECTION_POOLS
-             + [row for pools_at, _, _ in RESTORATION_ROWS.values() for row in pools_at])
+             + [row for pools_at, _, _ in RESTORATION_ROWS.values() for row in pools_at]) + cls_pools
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
         for shape, win in pools:
@@ -550,7 +661,8 @@ def phase_kernels(card, conv3d_only=False):
 
         # the bench's, the restoration templates' and an odd one (ragged, c =
         # 3, sz = 3)
-        for shape, sz in (MAIN_ZD2S + [row for _, zd2s, _ in RESTORATION_ROWS.values()
+        for shape, sz in ([] if classification_only else
+                          MAIN_ZD2S + [row for _, zd2s, _ in RESTORATION_ROWS.values()
                                        for row in zd2s] + [((3, 5, 7, 9), 3)]):
             x = rand(shape, dt)
             r, h, w, szc = shape
@@ -568,8 +680,11 @@ def phase_kernels(card, conv3d_only=False):
         # zcat: the dw operand of every 3x3x3 conv (kz = 3), the LARGER_IO
         # 5x5x5 convs (kz = 5), batch 2 (depth = rows / 2), an odd shape, the
         # templates' at batch 2 (depth 40 and the detection template's 20),
-        # and the restoration templates' at their own batch and depths
-        zcats = ([((s, s, s, cin), 3, None) for s, cin in sorted({(s, c) for s, c, _ in MAIN_CONVS})]
+        # the restoration templates' at their own batch and depths, the
+        # classification template's (its two 5x5x5 convs at kz 5 and its four
+        # 3x3x3 convs' weight gradients) and the U-Net variants' new ones
+        zcats = ([] if classification_only else
+                 [((s, s, s, cin), 3, None) for s, cin in sorted({(s, c) for s, c, _ in MAIN_CONVS})]
                  + [(shape, kz, None) for shape, kz in LARGER_IO_ZCATS]
                  + [((128, 64, 64, 64), 3, 64), ((6, 5, 7, 1), 5, 3)]
                  + [((TEMPLATE_BATCH * depth, s, s, cin), 3, depth)
@@ -577,6 +692,10 @@ def phase_kernels(card, conv3d_only=False):
                     for s, cin in sorted({(s, c) for s, c, _ in TEMPLATE_CONVS})]
                  + list(dict.fromkeys(row for _, _, zc in RESTORATION_ROWS.values()
                                       for row in zc)))
+        template_zcats = {((TEMPLATE_BATCH * TEMPLATE_DEPTH, s, s, cin), 3, TEMPLATE_DEPTH)
+                          for s, cin, _ in TEMPLATE_CONVS}
+        zcats += cls_zcat5 + cls_zcat3 + [r for r in _variant_rows()[1]
+                                          if r not in template_zcats]
         for shape, kz, depth in zcats:
             x = rand(shape, dt)
             hz = kz // 2
@@ -592,10 +711,12 @@ def phase_kernels(card, conv3d_only=False):
                     lambda: torch.cat(taps, dim=-1), "torch.cat",
                     nbytes=(1 + kz) * x.numel() * item, kz=kz, depth=depth)
             del x, xp, taps
-        # zcat backward: the LARGER_IO out-block conv's input gradient, and
-        # the odd shapes; float32 sums of up to kz terms in tap order
-        for shape, kz, depth in [ZCAT_BWD_MAIN + (None,), ((128, 64, 64, 64), 3, 64),
-                                 ((6, 5, 7, 1), 5, 3), ((6, 5, 7, 24), 3, None)]:
+        # zcat backward: the LARGER_IO out-block conv's input gradient, the
+        # classification template's two 5x5x5 convs' and the odd shapes;
+        # float32 sums of up to kz terms in tap order
+        for shape, kz, depth in ([] if classification_only else
+                                 [ZCAT_BWD_MAIN + (None,), ((128, 64, 64, 64), 3, 64),
+                                  ((6, 5, 7, 1), 5, 3), ((6, 5, 7, 24), 3, None)]) + cls_zcat5:
             gy = rand(shape[:3] + (kz * shape[3],), dt)
             out.add("zcat_bwd", dt, shape, zcat_bwd(gy, kz, depth), zcat_bwd_plain(gy, kz, depth),
                     1e-6 if dt == torch.float32 else 2 ** -8,
@@ -1102,13 +1223,7 @@ def _steady_idle_share(events, per, units, what):
         print(f"[profile] {what}: the trace lacks {per * units - len(convs)} of the first "
               f"unit's {per} conv3d events; units 2-{units} are whole")
     t0 = events[convs[-steady]][0]
-    busy, end = 0.0, t0
-    for st, _, ms in sorted(e for e in events if e[0] >= t0):
-        en = st + ms * 1e3
-        busy += max(0.0, en - max(st, end)) / 1e3
-        end = max(end, en)
-    window = (end - t0) / 1e3
-    return 1.0 - busy / window, window
+    return _window_idle_share(sorted(e for e in events if e[0] >= t0))
 
 
 def phase_job(serve, train):
@@ -1498,11 +1613,13 @@ TEMPLATE = REPO / "templates/semantic_segmentation/3d_semantic_segmentation.yaml
 TEMPLATE_TRAIN_SHAPE, TEMPLATE_TEST_SHAPE = (80, 256, 256), (80, 256, 256)
 
 
-def _augment_seconds(ds, n=8):
+def _augment_seconds(ds, n=8, image_only=False):
     """Host seconds per training sample in one loader thread (torch threads
     as the loader's): ``PairDataset.get`` whole, the augmentation pass alone
     on the normalised sample, and one rotation of the image and mask
-    (``affine_2d``, the warp RANDOM_ROT takes half of the time)."""
+    (``affine_2d``, the warp RANDOM_ROT takes half of the time);
+    ``image_only``: a classifier's sample, whose target is a label and not
+    augmented."""
     from concurrent.futures import ThreadPoolExecutor
 
     import numpy as np
@@ -1518,11 +1635,12 @@ def _augment_seconds(ds, n=8):
             t0 = time.perf_counter()
             s = ds.get(i % len(ds), rng)
             get_s.append(time.perf_counter() - t0)
+            mask = None if image_only else s["y"]
             t0 = time.perf_counter()
-            ds.aug(s["x"], s["y"], rng)
+            ds.aug(s["x"], mask, rng)
             aug_s.append(time.perf_counter() - t0)
             t0 = time.perf_counter()
-            augmentors.affine_2d(s["x"], s["y"], rng, rot_deg=float(rng.uniform(-180, 180)))
+            augmentors.affine_2d(s["x"], mask, rng, rot_deg=float(rng.uniform(-180, 180)))
             rot_s.append(time.perf_counter() - t0)
         return (statistics.mean(get_s), statistics.mean(aug_s), statistics.mean(rot_s))
 
@@ -2769,30 +2887,37 @@ def _model_launches(model, dtype, training):
     return out, routes
 
 
-def _count_forwards(wf):
+def _count_forwards(wf, outputs=None):
     """Record (training, input dtype) of every forward of ``wf``'s model from
     the moment ``prepare_model`` builds it (the bf16 test copy keeps the
-    hook)."""
+    hook); ``outputs``, a list: also every forward's output, as float32
+    numpy."""
     calls = []
     prepare = wf.prepare_model
+
+    def hook(m, args, out):
+        calls.append((m.training, args[0].dtype))
+        if outputs is not None:
+            outputs.append(out.detach().float().cpu().numpy())
 
     def prepare_model():
         prepare()
         if not hasattr(wf.model, "_counted"):
             wf.model._counted = True
-            wf.model.register_forward_hook(
-                lambda m, args, out: calls.append((m.training, args[0].dtype)))
+            wf.model.register_forward_hook(hook)
 
     wf.prepare_model = prepare_model
     return calls
 
 
-def _expected_launches(model, calls):
+def _expected_launches(model, calls, count=None):
     """The launches and conv3d routes of the recorded forwards (a training
-    forward runs in its input's dtype, bf16 under mixed precision)."""
+    forward runs in its input's dtype, bf16 under mixed precision), each
+    forward's read off the model by ``count`` (``_model_launches``)."""
+    count = count or _model_launches
     want, routes = {}, {"wgmma": 0, "fma": 0}
     for training, dt in calls:
-        n, r = _model_launches(model, dt, training)
+        n, r = count(model, dt, training)
         for k, v in n.items():
             want[k] = want.get(k, 0) + v
         for k, v in r.items():
@@ -2800,12 +2925,19 @@ def _expected_launches(model, calls):
     return want, routes
 
 
-def _restoration_step_vs_plain(cfg, ckpt, batch, root, name):
-    """One float32 training step from the best checkpoint on the card and on
-    the CPU from the same batch: the loss, every gradient and every updated
-    weight within 1e-4 of its scale, phase 8's rule (SGD at 0.05, as there:
+def _restoration_step_vs_plain(cfg, ckpt, batch, root, name, tols=None, lr=0.05):
+    """One float32 training step from the best checkpoint (None: from the
+    seeded initial weights, the same on both devices) on the card and on
+    the CPU from the same batch, SGD at ``lr`` (phase 8's 0.05 unless given:
     a rate at which one update shows; Adam's first update is lr x sign(g),
-    which makes a whole step of float32 noise in a near-zero gradient)."""
+    which makes a whole step of float32 noise in a near-zero gradient): the
+    loss, every gradient and every updated weight within 1e-4 of its scale,
+    phase 8's rule, or within ``tols`` ({"loss", "grad", "weight"} and, if
+    given, "stats": every BatchNorm running statistic after the step).
+    Dropout is held off on both sides (its masks come from each device's
+    generator); BatchNorm trains."""
+    from biapy_tpu_torch.models.blocks import Dropout
+
     import copy
 
     import torch
@@ -2814,48 +2946,68 @@ def _restoration_step_vs_plain(cfg, ckpt, batch, root, name):
     from biapy_tpu_torch.engine.train_engine import loss_and_grads, make_train_step
 
     c = copy.deepcopy(cfg)
-    c["MODEL"]["LOAD_CHECKPOINT"] = True
-    c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
-    c["TRAIN"].update(OPTIMIZER=["SGD"], LR=[0.05], LR_SCHEDULER={"NAME": ""})
-    sides = []
-    for dev in (DEVICE, "cpu"):
+    if ckpt is not None:
+        c["MODEL"]["LOAD_CHECKPOINT"] = True
+        c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+    c["TRAIN"].update(OPTIMIZER=["SGD"], LR=[lr], LR_SCHEDULER={"NAME": ""})
+
+    def step_on(dev):
         job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{name}_step_{dev[:3]}",
-                    silent=True, device=dev)
+                    silent=True, check_data_paths=False, device=dev)
         job._build_workflow()
         wf = job.workflow
         wf.prepare_model()
+        for m in wf.model.modules():
+            if isinstance(m, Dropout):
+                m.rate = 0.0
         x, y = (torch.from_numpy(batch[k]).to(dev) for k in ("x", "y"))
         loss, _, grads = loss_and_grads(wf.model, wf.loss, x, y)
         make_train_step(wf.loss, {})(wf.state, {"x": x, "y": y})
-        sides.append((float(loss), {k: v.cpu() for k, v in grads.items()},
-                      {k: v.detach().cpu() for k, v in wf.model.named_parameters()}))
-    worst = {"loss": abs(sides[0][0] - sides[1][0]) / max(1.0, abs(sides[1][0]))}
-    for what, i in (("grad", 1), ("weight", 2)):
-        worst[what] = max(((sides[0][i][k] - ref).abs().max()
-                           / max(1.0, ref.abs().max().item())).item()
-                          for k, ref in sides[1][i].items())
-    if not max(worst.values()) <= 1e-4:
-        raise AssertionError(f"{name}: one training step, card and CPU differ: {worst}")
+        return (float(loss), {k: v.cpu() for k, v in grads.items()},
+                {k: v.detach().cpu() for k, v in wf.model.named_parameters()},
+                {k: v.cpu() for k, v in wf.model.named_buffers() if v.is_floating_point()})
+
+    card, cpu = step_on(DEVICE), step_on("cpu")
+    tols = dict(tols or dict.fromkeys(("loss", "grad", "weight"), 1e-4))
+    worst = {"loss": abs(card[0] - cpu[0]) / max(1.0, abs(cpu[0]))}
+    for what, i in (("grad", 1), ("weight", 2), ("stats", 3)):
+        if what in tols and cpu[i]:
+            worst[what] = max(((card[i][k] - ref).abs().max()
+                               / max(1.0, ref.abs().max().item())).item()
+                              for k, ref in cpu[i].items())
+    if not all(worst[k] <= tols[k] for k in worst):
+        raise AssertionError(f"{name}: one training step, card and CPU differ: {worst} "
+                             f"(tolerances {tols})")
+    worst["tolerances"] = tols
     return worst
 
 
 def _restoration_card_vs_cpu(kind, cfg, ckpt, test, root):
     """(b) ``predict`` of the best checkpoint on a crop of the test volume on
-    the card and on the CPU (plain versions), float32 and, under the
-    template's TEST.REDUCE_MEMORY, bf16: float32 within 1e-4; bf16 card no
-    farther from the card's float32 map than the CPU's bf16 (1.5x at the
-    worst voxel, 1.2x on the mean: phase 12 b's rule). For super-resolution
+    the card and on the CPU: ``_card_vs_cpu``'s rule. For super-resolution
     the upscaled output."""
+    crop = test[0][tuple(slice(0, n) for n in RESTORATION_CROPS[kind])]
+    return _card_vs_cpu(kind, cfg, ckpt, [crop], root)
+
+
+def _card_vs_cpu(name, cfg, ckpt, inputs, root, classifier=False):
+    """``predict`` of ``ckpt`` on each of ``inputs`` on the card and on the
+    CPU (plain versions), float32 and, under the config's TEST.REDUCE_MEMORY,
+    bf16: float32 within 1e-4; bf16 card no farther from the card's float32
+    output than the CPU's bf16 (1.5x at the worst voxel, 1.2x on the mean:
+    phase 12 b's rule). ``classifier``: the rule holds the model's logits
+    (read by a hook: the trained head saturates the probabilities), float32
+    within 1e-4 of their scale; the float32 probabilities must also lie
+    within 1e-4 and each input's predicted class must agree."""
     import copy
 
     import numpy as np
 
     from biapy_tpu_torch import BiaPy
 
-    crop = test[0][tuple(slice(0, n) for n in RESTORATION_CROPS[kind])]
     dts = [("float32", False)] + ([("bfloat16", True)] if cfg["TEST"].get("REDUCE_MEMORY")
                                   else [])
-    runs = {}
+    runs, probs = {}, {}
     for dt, reduce_mem in dts:
         c = copy.deepcopy(cfg)
         c["TRAIN"]["ENABLE"] = False
@@ -2863,29 +3015,46 @@ def _restoration_card_vs_cpu(kind, cfg, ckpt, test, root):
         c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
         c["TEST"]["REDUCE_MEMORY"] = reduce_mem
         for side, dev in (("card", DEVICE), ("cpu", "cpu")):
-            job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{kind}_{dt}_{side}",
-                        silent=True, device=dev)
+            job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{name}_{dt}_{side}",
+                        silent=True, check_data_paths=False, device=dev)
+            logits = []
+            if classifier:
+                job._build_workflow()
+                _count_forwards(job.workflow, logits)
             t0 = time.perf_counter()
-            runs[dt, side] = (np.asarray(job.predict(crop)[0]["pred"], np.float32),
-                              time.perf_counter() - t0)
+            preds = np.stack([np.asarray(job.predict(v)[0]["pred"], np.float32) for v in inputs])
+            secs = time.perf_counter() - t0
+            if classifier:
+                probs[dt, side] = preds
+                preds = np.concatenate(logits)
+            runs[dt, side] = (preds, secs)
     ref = runs["float32", "card"][0]
     out = {}
     for dt, _ in dts:
         (p_card, s_card), (p_cpu, s_cpu) = runs[dt, "card"], runs[dt, "cpu"]
         diff = np.abs(p_card - p_cpu)
-        out[dt] = dict(shape=list(p_card.shape), max_abs=float(diff.max()),
+        out[dt] = dict(shape=list(p_card.shape[1:]), max_abs=float(diff.max()),
                        mean_abs=float(diff.mean()), card_s=s_card, cpu_s=s_cpu,
                        to_f32={side: dict(max_abs=float(np.abs(runs[dt, side][0] - ref).max()),
                                           mean_abs=float(np.abs(runs[dt, side][0] - ref).mean()))
                                for side in ("card", "cpu")})
+        if classifier:
+            out[dt]["argmax"] = {side: probs[dt, side].argmax(-1).tolist()
+                                 for side in ("card", "cpu")}
+            out[dt]["prob_max_abs"] = float(np.abs(probs[dt, "card"] - probs[dt, "cpu"]).max())
     f = out["float32"]
-    ok = f["max_abs"] <= 1e-4
+    scale = max(1.0, float(np.abs(ref).max())) if classifier else 1.0
+    if classifier:
+        f["scale"] = scale
+    ok = f["max_abs"] <= 1e-4 * scale and (not classifier
+                                           or (f["prob_max_abs"] <= 1e-4
+                                               and f["argmax"]["card"] == f["argmax"]["cpu"]))
     if "bfloat16" in out:
         card, cpu = out["bfloat16"]["to_f32"]["card"], out["bfloat16"]["to_f32"]["cpu"]
         ok = ok and (card["max_abs"] <= 1.5 * cpu["max_abs"]
                      and card["mean_abs"] <= 1.2 * cpu["mean_abs"])
     if not ok:
-        raise AssertionError(f"{kind} test pass: card and CPU differ: {out}")
+        raise AssertionError(f"{name} test pass: card and CPU differ: {out}")
     return out
 
 
@@ -3077,7 +3246,7 @@ def phase_restoration(smi):
                       f"{v['to_f32']['cpu']['mean_abs']:.3g}; card {v['card_s']:.2f} s, CPU "
                       f"{v['cpu_s']:.2f} s")
             print(f"[restoration-vs-plain] {kind}: one float32 training step on "
-                  f"{tuple(batch['x'].shape)}: max scaled differences {step_worst} (tol 1e-4)")
+                  f"{tuple(batch['x'].shape)}: max scaled differences {step_worst}")
         res["launches"] = total["launches"]
         res["conv3d_routes"] = total["conv3d_routes"]
         res["shuffle_routes"] = total["shuffle_routes"]
@@ -3086,8 +3255,440 @@ def phase_restoration(smi):
         shutil.rmtree(root0, ignore_errors=True)
 
 
+# phase 15: the repository's 3D classification template on seeded class
+# folders, through run_job with simple_cnn (a) and vit (b), then the U-Net
+# variants on the semantic template (c)
+CLASSIFICATION_TEMPLATE = "templates/classification/3d_classification.yaml"
+# three classes that differ in texture and intensity: a smooth dim field,
+# mid-grey grain, bright stripes along x
+CLS_CLASSES = ("smooth", "grainy", "striped")
+CLS_SHAPE = (40, 80, 80)  # RESIZE takes each volume to the 32 x 64 x 64 patch
+CLS_PER_CLASS = {"train": 30, "test": 5}
+# (b): the template with vit at the config's ViT defaults; the configuration
+# check wants a ViT's patch the same on every axis, so the patch (and RESIZE)
+# goes to 64 x 64 x 64: 4 x 4 x 4 tokens of 16^3
+VIT_PATCH = (64, 64, 64)
+# (c): bf16 training steps at the template's batch on its patch, and a
+# predict on a volume of 2 x 2 x 2 stitch cores (40 x 128 x 128 patches,
+# padding 8 x 16 x 16); card against CPU at a reduced patch (the U-Nets'
+# weights do not depend on it) on a crop of 2 x 2 x 2 of its cores
+VARIANT_STEPS = 3
+VARIANT_TEST_SHAPE = (48, 192, 192)
+VARIANT_SMALL_PATCH, VARIANT_SMALL_PADDING = [8, 64, 64, 1], [2, 8, 8]
+VARIANT_SMALL_CROP = (8, 96, 96)
+# one float32 training step card against CPU, SGD at the template's rate
+# (1e-3): the loss within 1e-6 of its scale, the gradients within 1e-5, the
+# updated weights within 1e-6 and the BatchNorm statistics within 1e-5.
+# simple_cnn's step cannot be held so close by a float32 implementation:
+# its gradients change discontinuously where a rounding flips a max-pool
+# winner or a ReLU's sign (at the template's batch about 200 pool windows
+# lie within 1e-6 of a tie), and on a batch made as this phase makes it,
+# from the same initial weights, the JAX package's own float32 step lies
+# 4.1e-5 (loss), 1.5e-2 (gradients) and 8.9e-6 (statistics) from a float64
+# step (``tools/torch_classification_step_witness.py``). Its limits are ones
+# that the reference's float32 step meets against float64: loss 5e-5,
+# gradients 3e-2, statistics 2e-5, and the weights 3e-4 (the rate times the
+# gradient limit times 10: the gradients' scale reaches about 7)
+CLS_STEP_TOLS = {"simple_cnn": {"loss": 5e-5, "grad": 3e-2, "weight": 3e-4, "stats": 2e-5},
+                 "vit": {"loss": 1e-6, "grad": 1e-5, "weight": 1e-6, "stats": 1e-5}}
+CLS_STEP_TOLS["unet"] = CLS_STEP_TOLS["vit"]
+
+
+def _class_volume(g, ci, shape):
+    """A uint8 volume of class ``ci``, made on the card."""
+    import math
+
+    import torch
+    import torch.nn.functional as F
+
+    noise = torch.randn(shape, generator=g, device=DEVICE)
+    if ci == 0:
+        coarse = [max(2, n // 10) for n in shape]
+        field = F.interpolate(torch.randn([1, 1] + coarse, generator=g, device=DEVICE),
+                              size=shape, mode="trilinear", align_corners=False)[0, 0]
+        img = 60 + 25 * field + 4 * noise
+    elif ci == 1:
+        img = 120 + 35 * noise
+    else:
+        phase = float(torch.rand((), generator=g, device=DEVICE)) * 2 * math.pi
+        x = torch.arange(shape[2], device=DEVICE, dtype=torch.float32)
+        img = 180 + 45 * torch.sin(2 * math.pi * x / 6 + phase) + 6 * noise
+    return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+
+
+def _write_classification_data(root):
+    """Class folders under train/ and test/; returns one test volume per
+    class."""
+    import torch
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    g = torch.Generator(device=DEVICE).manual_seed(15)
+    firsts = []
+    for split, n in CLS_PER_CLASS.items():
+        for ci, cname in enumerate(CLS_CLASSES):
+            (root / split / cname).mkdir(parents=True, exist_ok=True)
+            for i in range(n):
+                vol = _class_volume(g, ci, CLS_SHAPE)
+                write_tiff(str(root / split / cname / f"{cname}_{i:03d}.tif"), vol)
+                if split == "test" and i == 0:
+                    firsts.append(vol)
+    return firsts
+
+
+def _classifier_launches(model, dtype, training):
+    """Kernel launches of one forward (``training``: one training step) of a
+    classifier, read off the model. SimpleCNN: a conv3d per 3x3x3 conv, a
+    zcat (kz 5) per 5x5x5 conv (cat2d), a pool after each block's 5x5x5
+    conv; in training the input gradients of all 3x3x3 convs but the stem,
+    a weight-gradient zcat (kz 3) per 3x3x3 conv, a zcat_bwd per 5x5x5 conv
+    (none is first) and a pool backward per pool. The ViT computes with
+    PyTorch matmuls: no kernel of the port."""
+    from biapy_tpu_torch.models.blocks import Conv
+    from biapy_tpu_torch.models.simple_cnn import SimpleCNN
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_route
+
+    out = dict.fromkeys(("conv3d", "pool_max_folded", "zd2s", "zcat", "zcat_bwd",
+                         "pool_max_folded_bwd", "zs2d"), 0)
+    routes = {"wgmma": 0, "fma": 0}
+    if not isinstance(model, SimpleCNN):
+        return out, routes
+    convs = [tuple(m.kernel.shape) for m in model.modules() if isinstance(m, Conv)]
+    k3 = [k[3:] for k in convs if k[:3] == (3, 3, 3)]
+    k5 = [k for k in convs if k[:3] == (5, 5, 5)]
+    if len(k3) + len(k5) != len(convs) or convs[0][:3] != (3, 3, 3):
+        raise AssertionError(f"launch count: convs {convs} not counted here")
+    for cin, cout in k3:
+        routes[conv3d_route(dtype, cin, cout)] += 1
+    out.update(conv3d=len(k3), zcat=len(k5), pool_max_folded=len(k5))
+    if training:
+        for cin, cout in k3[1:]:  # the stem's input needs no gradient
+            routes[conv3d_route(dtype, cout, cin)] += 1
+        out.update(conv3d=2 * len(k3) - 1, zcat=len(k3) + len(k5), zcat_bwd=len(k5),
+                   pool_max_folded_bwd=len(k5))
+    return out, routes
+
+
+def _window_idle_share(events):
+    """Idle share of the device from the first to the last of ``events``
+    (in start order; the union of their intervals on every stream is
+    busy) and the window's ms."""
+    t0 = events[0][0]
+    busy, end = 0.0, t0
+    for st, _, ms in events:
+        en = st + ms * 1e3
+        busy += max(0.0, en - max(st, end)) / 1e3
+        end = max(end, en)
+    window = (end - t0) / 1e3
+    return 1.0 - busy / window, window
+
+
+def _classification_job(name, cfg, root, smi, firsts, total):
+    """One classification run_job on the card with its measurements, its
+    launches held to the model's count and added to ``total``, then its
+    best checkpoint card against CPU and one float32 training step card
+    against CPU."""
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.engine import classification as cls_engine
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    job = BiaPy(cfg, result_dir=str(root / "results"), name=name, silent=True, device=DEVICE)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    loop_s, train_s, test_s, resize_s = [], [], [], []
+    one_epoch = wf.train_one_epoch
+    wf.train_one_epoch = _timed(one_epoch, loop_s)
+    wf.train, wf.test = _timed(wf.train, train_s), _timed(wf.test, test_s)
+    preprocess = cls_engine.preprocess_image
+    cls_engine.preprocess_image = _timed(preprocess, resize_s)
+    try:
+        torch.cuda.synchronize()
+        build.reset_launches()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        job.run_job()
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    finally:
+        cls_engine.preprocess_image = preprocess
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
+    shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+    _launch_totals(total)
+    want, want_routes = _expected_launches(wf.model, calls, _classifier_launches)
+    hist = wf.history
+    ck = sorted(p.name for p in Path(wf.cfg.PATHS.CHECKPOINT).iterdir())
+    csv_rows = (Path(wf.cfg.PATHS.RESULT_DIR.PATH) / "predictions.csv").read_text().splitlines()
+    n_test = CLS_PER_CLASS["test"] * len(CLS_CLASSES)
+    acc = wf.stats["accuracy"]
+    if (len(hist) != 2 or not all(np.isfinite(h["loss"]) and np.isfinite(h["val_loss"])
+                                  for h in hist)
+            or ck != [f"{name}-checkpoint-best.ckpt"] or csv_rows[0] != "filename,class"
+            or len(csv_rows) != 1 + n_test or len(wf._predictions) != n_test
+            or not all(np.all(np.isfinite(p["pred"])) and p["pred"].shape == (len(CLS_CLASSES),)
+                       and abs(float(p["pred"].sum()) - 1) < 1e-4 for p in wf._predictions)):
+        raise AssertionError(f"{name}: epochs {hist}, checkpoints {ck}, predictions.csv "
+                             f"{csv_rows}")
+    if (launches != want or routes != want_routes
+            or any(v["scalar"] for v in shuffle_routes.values())):
+        raise AssertionError(f"{name}: launches {launches} (want {want}), conv3d routes "
+                             f"{routes} (want {want_routes}), shuffle routes {shuffle_routes}, "
+                             f"{len(calls)} forwards")
+    # the loop alone: one more epoch profiled (up to three traces, as phase
+    # 14: a trace can lose a conv3d event)
+    mixed = resolve_mixed_precision(wf.cfg.TRAIN.MIXED_PRECISION, wf.device)
+    step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=mixed)
+    gen = torch.Generator(device=wf.device).manual_seed(1)
+    steps = len(wf.train_loader)
+    per = _classifier_launches(wf.model, torch.bfloat16, True)[0]["conv3d"]
+    for attempt in range(1, 4):
+        wall, _, _, events = _profile_device(lambda: one_epoch(step, 2 + attempt, gen))
+        try:
+            if per:
+                idle, window_ms = _steady_idle_share(events, per, steps, f"{name} epoch")
+            else:
+                idle, window_ms = _window_idle_share(events)
+            break
+        except AssertionError as e:
+            if attempt == 3:
+                raise
+            print(f"[profile] {e} (trace {attempt}); profiling again")
+    build.reset_launches()
+    get_s, aug_s, _ = _augment_seconds(wf.train_data, n=8, image_only=True)
+    bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+    r = dict(template=CLASSIFICATION_TEMPLATE, arch=str(wf.cfg.MODEL.ARCHITECTURE),
+             patch=list(wf.cfg.DATA.PATCH_SIZE), seconds=secs, train_seconds=train_s[0],
+             test_seconds=test_s[0], epoch_seconds=[h["time"] for h in hist],
+             loss=[h["loss"] for h in hist], val_loss=[h["val_loss"] for h in hist],
+             accuracy=[h["accuracy"] for h in hist], val_accuracy=[h["val_accuracy"] for h in hist],
+             loop_seconds=loop_s, loop_patches_per_s=[steps * bs / t for t in loop_s],
+             idle_share=idle, idle_window_ms=window_ms, profiled_epoch_s=wall,
+             resize_seconds_per_sample=statistics.mean(resize_s), resize_calls=len(resize_s),
+             augment_seconds_per_sample=aug_s, get_seconds_per_sample=get_s,
+             test_images_per_s=n_test / test_s[0], test_accuracy=acc, predictions_csv=csv_rows,
+             peak_bytes=peak, launches=launches, conv3d_routes=routes,
+             shuffle_routes=shuffle_routes, forwards=len(calls), steps=steps, batch=bs,
+             train_samples=len(wf.train_data), val_samples=len(wf.val_data),
+             params=sum(p.numel() for p in wf.model.parameters()))
+    print(f"[classification] {smi}: {CLASSIFICATION_TEMPLATE} with {r['arch']}, patch "
+          f"{r['patch']}, batch {bs}, {len(wf.train_data)} train / {len(wf.val_data)} val "
+          f"volumes, {r['params']:,} parameters, 2 epochs: run_job {secs:.2f} s (train "
+          f"{train_s[0]:.2f}, test {test_s[0]:.2f}); loop s per epoch "
+          f"{[round(t, 3) for t in loop_s]} ({[round(v, 2) for v in r['loop_patches_per_s']]} "
+          f"patches/s), device idle {100 * idle:.1f}% of a profiled epoch"
+          + (f"'s steps 2-{steps}" if per else "") + f"; loss {[round(v, 5) for v in r['loss']]}, "
+          f"val_loss {[round(v, 5) for v in r['val_loss']]}; test accuracy {acc:.4f} "
+          "(a record, not a gate: 2 epochs)")
+    print(f"[classification] {name}: host ms per sample: resize {1e3 * r['resize_seconds_per_sample']:.2f} "
+          f"({len(resize_s)} volumes), augmentation {1e3 * aug_s:.2f}, the whole sample "
+          f"{1e3 * get_s:.2f}; test {r['test_images_per_s']:.2f} volumes/s; peak memory "
+          f"{peak / 2**30:.2f} GiB; launches {launches} over {len(calls)} forwards = the model's "
+          f"count; conv3d routes {routes}; pool and zcat routes "
+          f"{ {k: v for k, v in shuffle_routes.items() if sum(v.values())} }")
+    print(f"[classification] {name}: predictions.csv: " + " | ".join(csv_rows))
+
+    # card against CPU: the best checkpoint's logits on one test volume per
+    # class, and one float32 training step at the template's batch of
+    # validation samples from the seeded initial weights
+    best = str(Path(wf.cfg.PATHS.CHECKPOINT) / f"{name}-checkpoint-best.ckpt")
+    vcfg = dict(cfg, TEST=dict(cfg["TEST"], REDUCE_MEMORY=True))
+    # predict takes a volume as it is: resized and fitted as the test pass does
+    patch = tuple(wf.cfg.DATA.PATCH_SIZE)[:3]
+    vols = [cls_engine._fit_to_patch(preprocess(wf.cfg.DATA.PREPROCESS, v[..., None],
+                                                is_2d=False), patch) for v in firsts]
+    vs = _card_vs_cpu(name, vcfg, best, vols, root, classifier=True)
+    _print_vs_plain(name, vs)
+    samples = [wf.val_data.get(i % len(wf.val_data), np.random.default_rng(0))
+               for i in range(bs)]
+    batch = {k: np.stack([smp[k] for smp in samples]) for k in ("x", "y")}
+    step_worst = _restoration_step_vs_plain(cfg, None, batch, root, name,
+                                            CLS_STEP_TOLS[r["arch"]], float(wf.cfg.TRAIN.LR[0]))
+    build.reset_launches()
+    r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
+    _print_step_vs_plain(name, step_worst, batch["x"].shape)
+    return r
+
+
+def _print_vs_plain(name, vs):
+    for dt, v in vs.items():
+        print(f"[classification-vs-plain] {name} {dt}: max |card - CPU| = "
+              f"{v['max_abs']:.3g}, mean {v['mean_abs']:.3g}"
+              + (f" (scale {v['scale']:.3g}; probabilities {v['prob_max_abs']:.3g})"
+                 if "scale" in v else "")
+              + f"; against the card's float32: card "
+              f"max {v['to_f32']['card']['max_abs']:.3g} mean "
+              f"{v['to_f32']['card']['mean_abs']:.3g}, CPU max "
+              f"{v['to_f32']['cpu']['max_abs']:.3g} mean {v['to_f32']['cpu']['mean_abs']:.3g}"
+              + (f"; argmax card {v['argmax']['card']} CPU {v['argmax']['cpu']}"
+                 if "argmax" in v else "")
+              + f"; card {v['card_s']:.2f} s, CPU {v['cpu_s']:.2f} s")
+
+
+def _print_step_vs_plain(name, step_worst, step_shape):
+    print(f"[classification-vs-plain] {name}: one float32 training step on {tuple(step_shape)}: "
+          f"max scaled differences {step_worst}")
+
+
+def _variant_run(variant, base_cfg, vols, root, smi, total):
+    """(c) One U-Net variant on the semantic template: VARIANT_STEPS bf16
+    training steps at the template's batch and patch and one ``predict``
+    (bf16 under the template's REDUCE_MEMORY), launches held to the model's
+    count and added to ``total``; then card against CPU at a reduced
+    patch."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.norm import normalize_image
+    from biapy_tpu_torch.engine.train_engine import make_train_step
+    from biapy_tpu_torch.ops.kernels import build
+
+    cfg = copy.deepcopy(base_cfg)
+    cfg["MODEL"]["ARCHITECTURE"] = variant
+    job = BiaPy(cfg, result_dir=str(root / "results"), name=variant, silent=True,
+                check_data_paths=False, device=DEVICE)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    wf.prepare_model()
+    d, h, w = (int(v) for v in wf.cfg.DATA.PATCH_SIZE[:3])
+    bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+    (img, msk), test_vol = vols
+    rng = np.random.default_rng(0)
+    batches = []
+    for _ in range(VARIANT_STEPS):
+        xs, ys = [], []
+        for _ in range(bs):
+            z0, y0, x0 = (int(rng.integers(0, n - p + 1)) for n, p in zip(img.shape, (d, h, w)))
+            sl = (slice(z0, z0 + d), slice(y0, y0 + h), slice(x0, x0 + w))
+            xs.append(normalize_image(img[sl][..., None], wf.norm_spec)[0])
+            ys.append((msk[sl][..., None] > 0).astype(np.float32))
+        batches.append({"x": torch.from_numpy(np.stack(xs).astype(np.float32)).to(DEVICE),
+                        "y": torch.from_numpy(np.stack(ys)).to(DEVICE)})
+    step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=True)
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    losses = []
+    for b in batches:
+        wf.state, m = step(wf.state, b, gen)
+        losses.append(float(m["loss"]))
+    torch.cuda.synchronize()
+    step_s = (time.perf_counter() - t0) / VARIANT_STEPS
+    t0 = time.perf_counter()
+    pred = job.predict(test_vol)[0]["pred"]
+    torch.cuda.synchronize()
+    predict_s = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
+    shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+    _launch_totals(total)
+    want, want_routes = _expected_launches(wf.model, calls)
+    if (not all(np.isfinite(losses)) or pred.shape != VARIANT_TEST_SHAPE + (1,)
+            or not np.all(np.isfinite(pred))):
+        raise AssertionError(f"{variant}: losses {losses}, prediction {pred.shape}")
+    if (launches != want or routes != want_routes
+            or any(v["scalar"] for v in shuffle_routes.values())):
+        raise AssertionError(f"{variant}: launches {launches} (want {want}), conv3d routes "
+                             f"{routes} (want {want_routes}), shuffle routes {shuffle_routes}, "
+                             f"{len(calls)} forwards")
+    n_par = sum(p.numel() for p in wf.model.parameters())
+    print(f"[variants] {smi}: {variant} on the semantic template ({list(wf.cfg.MODEL.FEATURE_MAPS)}, "
+          f"patch {[d, h, w]}, batch {bs}, {n_par:,} parameters): {VARIANT_STEPS} bf16 steps at "
+          f"{step_s:.3f} s ({bs / step_s:.2f} patches/s), loss {[round(v, 5) for v in losses]}; "
+          f"predict {VARIANT_TEST_SHAPE} {predict_s:.2f} s; peak memory {peak / 2**30:.2f} GiB; "
+          f"launches {launches} = the model's count; conv3d routes {routes}; pool and zcat "
+          f"routes { {k: v for k, v in shuffle_routes.items() if sum(v.values())} }")
+    ckpt = wf.save_checkpoint(0, metric="best")
+    small = copy.deepcopy(cfg)
+    small["DATA"]["PATCH_SIZE"] = VARIANT_SMALL_PATCH
+    small["DATA"]["TEST"]["PADDING"] = VARIANT_SMALL_PADDING
+    crop = test_vol[tuple(slice(0, n) for n in VARIANT_SMALL_CROP)]
+    vs = _card_vs_cpu(variant, small, ckpt, [crop], root)
+    _print_vs_plain(variant, vs)
+    sd, sh, sw = VARIANT_SMALL_PATCH[:3]
+    x = batches[0]["x"][:1, :sd, :sh, :sw].cpu().numpy()
+    y = batches[0]["y"][:1, :sd, :sh, :sw].cpu().numpy()
+    step_worst = _restoration_step_vs_plain(small, ckpt, {"x": x, "y": y}, root, variant,
+                                            CLS_STEP_TOLS["unet"], float(wf.cfg.TRAIN.LR[0]))
+    build.reset_launches()
+    _print_step_vs_plain(variant, step_worst, x.shape)
+    return dict(steps=VARIANT_STEPS, step_seconds=step_s, loss=losses, predict_seconds=predict_s,
+                peak_bytes=peak, launches=launches, conv3d_routes=routes,
+                shuffle_routes=shuffle_routes, params=n_par, card_vs_cpu=vs,
+                step_vs_plain=step_worst)
+
+
+def phase_classification(smi):
+    """(a) ``templates/classification/3d_classification.yaml`` as it is but
+    for its data paths (seeded class folders: CLS_PER_CLASS volumes of
+    CLS_SHAPE per class) and EPOCHS 2, through ``run_job``: RESIZE, the
+    template's augmentations, simple_cnn at batch 8 on 32 x 64 x 64, ADAMW
+    and one-cycle, the best checkpoint, the test pass and predictions.csv;
+    (b) the same with ``MODEL.ARCHITECTURE: vit`` at the config's ViT
+    defaults (and the patch and RESIZE at VIT_PATCH); each with run_job
+    seconds, the loop's patches/s and the device's idle share over a
+    profiled epoch, host seconds per sample of the resize and of
+    augmentation, peak memory, test accuracy, predictions.csv and launches
+    by kernel and route against the counts read off the model; its best
+    checkpoint card against CPU and one float32 training step card against
+    CPU. (c) The semantic template with ``seunet``, ``resunet_se`` and
+    ``attention_unet``: bf16 training steps and a predict, launches against
+    the model's count, card against CPU."""
+    import copy
+    import shutil
+
+    import torch
+    import yaml  # the templates are YAML; PyYAML is optional for the port itself
+
+    root0 = OUT_DIR / "chip_smoke_classification"
+    shutil.rmtree(root0, ignore_errors=True)
+    res = {}
+    total = {"launches": {}, "conv3d_routes": {}, "shuffle_routes": {}}
+    try:
+        t0 = time.perf_counter()
+        firsts = _write_classification_data(root0 / "data")
+        res["data_seconds"] = time.perf_counter() - t0
+        with open(REPO / CLASSIFICATION_TEMPLATE) as f:
+            base = yaml.safe_load(f)
+        base["DATA"]["TRAIN"]["PATH"] = str(root0 / "data/train")
+        base["DATA"]["TEST"]["PATH"] = str(root0 / "data/test")
+        base["TRAIN"]["EPOCHS"] = 2
+        res["simple_cnn"] = _classification_job("classification", base, root0 / "simple_cnn",
+                                                smi, firsts, total)
+        vit = copy.deepcopy(base)
+        vit["MODEL"]["ARCHITECTURE"] = "vit"
+        vit["DATA"]["PATCH_SIZE"] = list(VIT_PATCH) + [1]
+        vit["DATA"]["PREPROCESS"]["RESIZE"]["OUTPUT_SHAPE"] = list(VIT_PATCH)
+        res["vit"] = _classification_job("classification_vit", vit, root0 / "vit", smi, firsts,
+                                         total)
+
+        with open(TEMPLATE) as f:
+            sem = yaml.safe_load(f)
+        g = torch.Generator(device=DEVICE).manual_seed(16)
+        vols = (_job_volume(g, TEMPLATE_TRAIN_SHAPE, DEVICE),
+                _job_volume(g, VARIANT_TEST_SHAPE, DEVICE)[0])
+        for variant in UNET_VARIANTS:
+            res[variant] = _variant_run(variant, sem, vols, root0 / variant, smi, total)
+        res.update(total)
+        return res
+    finally:
+        shutil.rmtree(root0, ignore_errors=True)
+
+
 def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, detection,
-              restoration):
+              restoration, classification):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -3107,7 +3708,13 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     zcat entries ``denoising_*``, ``sr_*`` and ``i2i_*`` sums: the
     denoising, super-resolution and image-to-image templates' two of each
     and their ten zcats (one forward batch or training step at the
-    template's batch and patch)."""
+    template's batch and patch); the conv3d, pool, pool backward, zcat and
+    zcat_bwd entries ``classification_*`` sums: the classification
+    template's (simple_cnn, batch 8, 32 x 64 x 64) four 3x3x3 convs (one
+    forward batch), its two pools and pool backwards, its six zcats of a
+    training step (two at kz 5, four at kz 3) and its two zcat_bwds.
+    ``launches`` also counts phase 15's runs (the classification template
+    with simple_cnn and vit, and the U-Net variants)."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -3158,6 +3765,14 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
             "zs2d": [dict(shape=[r * sz, h, w, c // sz]) for (r, h, w, c), sz in zd2s],
             "zcat": [dict(shape=list(s), kz=kz, depth=depth) for s, kz, depth in zcats],
         }
+    cls_convs, _, cls_pools, cls_zcat5, cls_zcat3 = _cls_rows()
+    per_classification = {
+        "conv3d": [dict(shape=list(vol) + [cin], cout=cout) for vol, cin, cout in cls_convs],
+        "pool_max_folded": [dict(shape=list(s)) for s, _ in cls_pools],
+        "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in cls_pools],
+        "zcat": [dict(shape=list(s), kz=kz, depth=d) for s, kz, d in cls_zcat5 + cls_zcat3],
+        "zcat_bwd": [dict(shape=list(s), kz=kz, depth=d) for s, kz, d in cls_zcat5],
+    }
     kernels = []
     for name, wants in per_unit.items():
         src, replaces = KERNEL_META[name]
@@ -3168,7 +3783,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
                    "template": template["launches"].get(name, 0),
                    "instance_template": instance["launches"].get(name, 0),
                    "detection": detection["launches"].get(name, 0),
-                   "restoration": restoration["launches"].get(name, 0)}
+                   "restoration": restoration["launches"].get(name, 0),
+                   "classification": classification["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -3184,6 +3800,9 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
             rows_at = per_restoration(*rows_of).get(name)
             if rows_at:
                 entry.update(sums(pick(name, rows_at), key + "_"))
+        rows_at = per_classification.get(name)
+        if rows_at:
+            entry.update(sums(pick(name, rows_at), "classification_"))
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: no main path launched it")
         kernels.append(entry)
@@ -3195,9 +3814,11 @@ def main():
     instance_only = sys.argv[1:] == ["--instance-only"]
     detection_only = sys.argv[1:] == ["--detection-only"]
     restoration_only = sys.argv[1:] == ["--restoration-only"]
-    if sys.argv[1:] and not (conv3d_only or instance_only or detection_only or restoration_only):
+    classification_only = sys.argv[1:] == ["--classification-only"]
+    if sys.argv[1:] and not (conv3d_only or instance_only or detection_only or restoration_only
+                             or classification_only):
         sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only | --detection-only | "
-                 "--restoration-only]")
+                 "--restoration-only | --classification-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
     build_s, ptxas = phase_build()
@@ -3232,6 +3853,20 @@ def main():
             seconds=time.perf_counter() - t_start), indent=1))
         print(f"[done] phases 1, 2, 3 and 14 in {time.perf_counter() - t_start:.0f} s")
         return
+    if classification_only:
+        # phases 1-2, phase 3's classification and variant rows and phase 15
+        # alone: the quick check of classification; prints no result line
+        t0 = time.perf_counter()
+        rows = phase_kernels(smi, classification_only=True)
+        rows_s = time.perf_counter() - t0
+        cls = phase_classification(smi)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_classification.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, kernel_rows=rows, kernel_rows_seconds=rows_s,
+            classification=cls, seconds=time.perf_counter() - t0), indent=1))
+        print(f"[done] phases 1, 2, 3 (the classification and variant rows, {rows_s:.0f} s) "
+              f"and 15 in {time.perf_counter() - t_start:.0f} s")
+        return
     if conv3d_only:
         # phases 1-2 and the conv3d rows of phase 3 alone: the quick check of
         # a change to the conv kernels; prints no result line
@@ -3263,15 +3898,16 @@ def main():
     instance = timed("12 instance", phase_instance_template)
     det = timed("13 detection", phase_detection, smi)
     rest = timed("14 restoration", phase_restoration, smi)
+    cls = timed("15 classification", phase_classification, smi)
     print(f"[time] seconds by phase (build {build_s:.1f}): {phase_s}")
     kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, det,
-                        rest)
+                        rest, cls)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
         train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
         tta_vs_plain=tta, template=template, instance_template=instance, detection=det,
-        restoration=rest,
+        restoration=rest, classification=cls,
         whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, phase_seconds=phase_s, seconds=time.perf_counter() - t_start),
@@ -3288,10 +3924,12 @@ def main():
           "batch 2 and depth 40, the detection_* sums the same at the detection template's depth "
           "20, the denoising_*, sr_* and i2i_* sums of pool_max_folded, pool_max_folded_bwd, "
           "zd2s and zs2d over those templates' two of each and of zcat over their ten, at each "
-          "template's batch and patch; launches add "
+          "template's batch and patch; the classification_* sums over the classification "
+          "template's four conv3d forwards, two pools and pool backwards, six zcats and two "
+          "zcat_bwds at batch 8; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
-          "TTA passes, the template's, the instance template's, phase 13's and the restoration "
-          "templates' included)")
+          "TTA passes, the template's, the instance template's, phase 13's, the restoration "
+          "templates' and phase 15's included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

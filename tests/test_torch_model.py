@@ -1,6 +1,7 @@
 """The PyTorch port's U-Net family against the JAX package's Flax model.
 
-The same weights (seeded numpy values for every Flax leaf, so biases, norm
+All five variants (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
+``attention_unet``). The same weights (seeded numpy values for every Flax leaf, so biases, norm
 scales and BatchNorm statistics are all non-trivial) go through the Flax
 module and, carried over by ``load_flax_variables``, through the
 port's module; eval-mode float32 outputs must agree. The JAX side runs both
@@ -67,8 +68,16 @@ _OTHER_PATHS = dict(larger_io=True, isotropy=(False, True, True), upsample_layer
     ("unet", "gn", "0", {}),
     ("resunet", "bn", "0", _OTHER_PATHS),
     ("unet", "none", "0", _OTHER_PATHS),
+    # the variants: SqExBlock after every conv, the residual extra conv with
+    # one SqExBlock, AttentionGate on every skip (its 1-channel Norm too)
+    ("seunet", "bn", "1", {}),
+    ("resunet_se", "bn", "0", {}),
+    ("attention_unet", "bn", "0", {}),
+    ("attention_unet", "in", "1", {}),
+    ("resunet_se", "bn", "1", _OTHER_PATHS),
 ], ids=["resunet-bn-0", "resunet-bn-1", "unet-bn-0", "unet-bn-1", "resunet-in-1",
-        "unet-gn-0", "resunet-other", "unet-other"])
+        "unet-gn-0", "resunet-other", "unet-other", "seunet-bn-1", "resunet_se-bn-0",
+        "attention_unet-bn-0", "attention_unet-in-1", "resunet_se-other"])
 def test_unet_family_matches_flax(variant, norm, fold, extra, monkeypatch):
     monkeypatch.setenv("BIAPY_TPU_FOLD3D", fold)
     rng = np.random.default_rng(0)

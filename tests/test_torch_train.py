@@ -320,7 +320,11 @@ def _moved(before, after):
     ("unet", "none", False, False, {"OPTIMIZER": ["ADAMW"], "LR": [0.002]}),
     ("resunet", "bn", True, False, {"GRADIENT_CLIP_NORM": 0.5}),
     ("resunet", "bn", False, True, None),
-], ids=["resunet-sgd", "unet-adamw", "larger-io-clip", "resunet-mixed"])
+    ("seunet", "bn", False, False, None),
+    ("resunet_se", "bn", False, False, None),
+    ("attention_unet", "bn", False, False, None),
+], ids=["resunet-sgd", "unet-adamw", "larger-io-clip", "resunet-mixed", "seunet-sgd",
+        "resunet_se-sgd", "attention_unet-sgd"])
 def test_three_train_steps_match_jax(arch, norm, larger_io, mixed, train, tmp_path):
     """Loss of every step, weights and BatchNorm statistics after step 3.
     Float32: 1e-4 of each tensor's scale (about twenty float32 layers,
