@@ -18,9 +18,10 @@ output scaled), ``process_test_by_chunks`` (the by-chunks engine over
 Zarr/N5/HDF5 volumes, ``engine/chunked.py``) and ``test`` from disk or from
 an in-memory image. The restoration workflows' hooks (``y_upscaling``,
 ``gt_as_image``, ``prepare_targets_fn``, ``restoration_metric_calculation``)
-are the JAX package's. The profiler hook and the contrastive and
-multi-head training branches are not ported yet (ROADMAP queue 1) and raise
-``NotImplementedError``.
+are the JAX package's. LOG.PROFILE_STEPS traces training steps with
+``torch.profiler`` (``StepProfiler``); in 2D, TEST.FULL_IMG predicts each
+test image in one forward. The contrastive and multi-head training branches
+are not ported yet (ROADMAP queue 1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -93,6 +94,49 @@ def _not_ported(what: str, item: str) -> NotImplementedError:
     return NotImplementedError(f"{what} is not ported to biapy_tpu_torch yet (ROADMAP: {item})")
 
 
+class StepProfiler:
+    """LOG.PROFILE_STEPS: a ``torch.profiler`` trace of the training steps
+    3 to 2 + ``steps`` of the run (counted from 1, over epochs) written as
+    ``<name>_trace.json`` (Chrome trace format) under ``out_dir``, the JAX
+    package's xplane hook (``base_workflow.py:575-596``). ``before_step()``
+    runs before each step; ``stop()`` ends a trace the run outlived."""
+
+    def __init__(self, steps: int, out_dir: str, name: str, device: torch.device,
+                 verbose: bool = True):
+        self.steps, self.out_dir, self.name = int(steps), out_dir, name
+        self.device, self.verbose = device, verbose
+        self.seen = 0
+        self.done = self.steps <= 0
+        self.prof = None
+        self.path: Optional[str] = None
+
+    def before_step(self) -> None:
+        if self.done:
+            return
+        self.seen += 1
+        if self.seen == 3 and self.prof is None:
+            acts = [torch.profiler.ProfilerActivity.CPU]
+            if self.device.type == "cuda":
+                acts.append(torch.profiler.ProfilerActivity.CUDA)
+            self.prof = torch.profiler.profile(activities=acts)
+            self.prof.start()
+        elif self.prof is not None and self.seen >= 3 + self.steps:
+            self.stop()
+
+    def stop(self) -> None:
+        if self.prof is None:
+            return
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        self.prof.stop()
+        os.makedirs(self.out_dir, exist_ok=True)
+        self.path = os.path.join(self.out_dir, f"{self.name}_trace.json")
+        self.prof.export_chrome_trace(self.path)
+        self.prof, self.done = None, True
+        if self.verbose:
+            print(f"Profiler trace written to {self.path}")
+
+
 class Base_Workflow(metaclass=ABCMeta):
     """Shared train-state and inference machinery; subclasses define
     channels/activations, losses, metrics and post-processing hooks."""
@@ -144,6 +188,7 @@ class Base_Workflow(metaclass=ABCMeta):
         self._current_test_file: Optional[str] = None
         self.save_to_disk = True
         self.metrics_per_test_file: List[Dict[str, float]] = []
+        self.profiler: Optional[StepProfiler] = None
 
     # ---------------------------------------------------------------- hooks
     @abstractmethod
@@ -313,6 +358,8 @@ class Base_Workflow(metaclass=ABCMeta):
         opt = self.state.optimizer
         pending = None
         for batch in logger.log_every(self.train_loader, 10, header=f"Epoch: [{epoch}]"):
+            if self.profiler is not None:
+                self.profiler.before_step()
             self.state, mtr = train_step(self.state, self._to_device(batch), generator)
             # the rate this update used, captured before the next one changes it
             mtr["lr"] = opt.state["lr"].clone()
@@ -353,9 +400,6 @@ class Base_Workflow(metaclass=ABCMeta):
         """The epoch loop (reference: base_workflow.py:1007; the JAX package's
         base_workflow.py:451-717)."""
         cfg = self.cfg
-        if int(getattr(cfg.LOG, "PROFILE_STEPS", 0) or 0) > 0:
-            raise _not_ported("LOG.PROFILE_STEPS (the profiler hook)",
-                              "queue 1 item 7, the profiler hook")
         if self.verbose:
             print("###########################\n#  PREPARE TRAINING DATA  #\n"
                   "###########################")
@@ -377,6 +421,7 @@ class Base_Workflow(metaclass=ABCMeta):
         gen = torch.Generator(device=self.device).manual_seed(int(cfg.SYSTEM.SEED))
         best_val = float("inf")
         self.history: List[Dict[str, float]] = []
+        self.profiler = self.make_profiler()
 
         if self.verbose:
             print("#####################\n#  TRAIN THE MODEL  #\n#####################")
@@ -433,6 +478,7 @@ class Base_Workflow(metaclass=ABCMeta):
                 print(f"Epoch {epoch} done in {record['time']:.1f}s: "
                       + " ".join(f"{k}={v:.4f}" for k, v in record.items() if isinstance(v, float)))
         tb.close()
+        self.profiler.stop()
 
         # reload the best checkpoint for testing (reference: :1244)
         best_path = os.path.join(cfg.PATHS.CHECKPOINT,
@@ -442,6 +488,12 @@ class Base_Workflow(metaclass=ABCMeta):
             apply_checkpoint_params(self.model, ck["params"], ck.get("batch_stats"))
             if self.verbose:
                 print("Reloaded best checkpoint for testing")
+
+    def make_profiler(self) -> StepProfiler:
+        """The run's StepProfiler (inactive unless LOG.PROFILE_STEPS > 0)."""
+        return StepProfiler(int(getattr(self.cfg.LOG, "PROFILE_STEPS", 0) or 0),
+                            str(self.cfg.PATHS.PROFILER), self.job_identifier, self.device,
+                            self.verbose)
 
     def _ensure_model_for_test(self):
         """The model for inference: the trained one, or a new one with the
@@ -618,6 +670,8 @@ class Base_Workflow(metaclass=ABCMeta):
         # 1 byte/voxel); the host path normalises with the same stats
         stats = compute_norm_stats(img, self.test_norm_spec)
         up = self.y_upscaling
+        if cfg.TEST.FULL_IMG and not self.is_3d:
+            return self._process_full_image(img, gt, fname, sample, stats)
         merged = None
         if all(u == 1 for u in up):
             # one card: the JAX package's multi-chip z-slabbing does not apply;
@@ -648,6 +702,33 @@ class Base_Workflow(metaclass=ABCMeta):
             # raw (pre-post-processing) output next to the final artifacts
             # (reference: TEST.SAVE_MODEL_RAW_OUTPUT, base_workflow.py:2113)
             save_tif(merged[None], cfg.PATHS.RESULT_DIR.PER_IMAGE, [fname], verbose=False)
+        return {"pred": merged}
+
+    def _process_full_image(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str,
+                            sample, stats):
+        """TEST.FULL_IMG in 2D (the JAX package's ``base_workflow.py:1084-1104``):
+        the normalised image reflect-padded at its end to a multiple of 64
+        on each axis, one forward (``predict_patches``, with test-time
+        augmentation when it is on), the output cropped to the image's
+        extent (times the SR up-scaling), the ROI mask, the metrics and the
+        hooks; written under RESULT_DIR.FULL_IMAGE."""
+        cfg = self.cfg
+        img_n = normalize_image(img, dict(self.test_norm_spec, out_dtype="float32"),
+                                stats=stats)[0]
+        mult = 64
+        pads = [(0, (-img_n.shape[d]) % mult) for d in range(self.nd)] + [(0, 0)]
+        full = np.pad(img_n, pads, mode="reflect") if any(p[1] for p in pads) else img_n
+        pred = self.predict_patches(full[None])[0]
+        up = self.y_upscaling
+        pred = pred[tuple(slice(0, img.shape[d] * up[d]) for d in range(self.nd))]
+        merged = self.apply_roi_mask(pred, fname)
+        m = self.metric_calculation(merged, gt) if gt is not None else {}
+        if m:
+            self.metrics_per_test_file.append(m)
+        self.after_merge_patches(merged, sample, fname)
+        self._predictions.append({"role": "raw", "pred": merged, "file": fname, "metrics": m})
+        if self.save_to_disk:
+            save_tif(merged[None], cfg.PATHS.RESULT_DIR.FULL_IMAGE, [fname], verbose=False)
         return {"pred": merged}
 
     def test(self, image: Optional[np.ndarray] = None, gt: Optional[np.ndarray] = None):

@@ -8,8 +8,9 @@ loop (the best checkpoint only, on ``val_loss``; a JSON log; early
 stopping; ``val_stats``), and a test pass of one image per call with
 per-image normalisation, ``predictions.csv`` (``filename,class``), the
 accuracy and, in verbose mode, the confusion matrix. Test-time outputs are
-the softmax probabilities. The port runs 3D classifiers (``simple_cnn``,
-``vit``); 2D and the other classifiers raise naming the ROADMAP item.
+the softmax probabilities. The port runs the classifiers ``simple_cnn``
+and ``vit`` in 3D and 2D; the other classifiers raise naming the ROADMAP
+item.
 
 With DATA.VAL.CROSS_VAL the fold is the contiguous slice of the shuffled
 indices (``data_manipulation.py::split_train_val``), as in the JAX
@@ -106,8 +107,6 @@ class Classification_Workflow(Base_Workflow):
         arch = str(self.cfg.MODEL.ARCHITECTURE).lower()
         if arch not in ("simple_cnn", "vit"):
             raise _not_ported(f"the classifier '{arch}'", "queue 1 item 10, rest of the zoo")
-        if not self.is_3d:
-            raise _not_ported("2D classification", "queue 1 item 10.1, 2D")
         self.n_classes = max(int(self.cfg.DATA.N_CLASSES), 2)
         self.output_channels = [self.n_classes]
         # the JAX workflow keeps the head linear and takes the softmax in its
@@ -173,6 +172,7 @@ class Classification_Workflow(Base_Workflow):
         gen = torch.Generator(device=self.device).manual_seed(seed)
         best_val = float("inf")
         self.history: List[Dict[str, float]] = []
+        self.profiler = self.make_profiler()
         record: Dict[str, float] = {}
         for epoch in range(self.start_epoch, int(cfg.TRAIN.EPOCHS)):
             t0 = time.time()
@@ -196,6 +196,7 @@ class Classification_Workflow(Base_Workflow):
                                                     if isinstance(v, float)))
             if early is not None and early(record.get("val_loss", np.inf)):
                 break
+        self.profiler.stop()
         self.val_stats = {k: v for k, v in record.items() if isinstance(v, (int, float))}
 
     # -- test -----------------------------------------------------------------

@@ -1,12 +1,12 @@
 """Model factory.
 
 Counterpart of ``biapy_tpu/models/__init__.py::build_model`` for the U-Net
-family in 3D (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
+family in 3D and 2D (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
 ``attention_unet``), with the separated decoders of IMAGE_TO_IMAGE,
 INSTANCE_SEG and DETECTION and the super-resolution upsampling, and for the
-3D classifiers ``simple_cnn`` and ``vit``. Other architectures, and 2D
-models, are not ported yet and raise ``NotImplementedError`` naming the
-ROADMAP item.
+classifiers ``simple_cnn`` and ``vit`` in 3D and 2D. Other architectures
+are not ported yet and raise ``NotImplementedError`` naming the ROADMAP
+item.
 
 Returns ``(module, model_build_kwargs)`` like the JAX factory.
 """
@@ -60,9 +60,6 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
             "items 10-11, rest of the zoo / BMZ)")
     ndim = 3 if cfg.PROBLEM.NDIM == "3D" else 2
     if arch in CLASSIFIERS:
-        if ndim != 3:
-            raise NotImplementedError(f"'{arch}' in 2D is not ported yet (ROADMAP queue 1 "
-                                      "item 10.1, 2D)")
         if arch == "simple_cnn":
             from biapy_tpu_torch.models.simple_cnn import SimpleCNN
 

@@ -8,10 +8,11 @@ UpLayer, UpBlock, max_pool), with the options the five U-Net variants use
 selects: batch statistics and their running update in BatchNorm, and
 dropout. Every op is differentiable (the kernels through their
 ``torch.autograd.Function``s).
-Activations are contiguous channels-last ``(N, D, H, W, C)`` tensors and
-weights keep the Flax layouts (conv kernels ``k... + (Cin, Cout)``), so the
-z-folded ``(N*D, H, W, C)`` form the pool and zd2s kernels take is a free
-``view``.
+Activations are contiguous channels-last ``(N, D, H, W, C)`` tensors, or
+``(N, H, W, C)`` in 2D, and weights keep the Flax layouts (conv kernels
+``k... + (Cin, Cout)``), so the z-folded ``(N*D, H, W, C)`` form the pool
+and zd2s kernels take is a free ``view`` (in 2D the tensor itself, with
+unit depth).
 
 Children are named as Flax auto-names them (``Conv_0``, ``Norm_1``,
 ``ConvBlock_0``, ...; one counter per class, in creation order), and
@@ -119,7 +120,9 @@ class ConvTranspose(nn.Module):
     (z, y, x) tap of every voxel, the y/x depth-to-space is a reshape and
     permute, the tiled bias is added, and the z depth-to-space is the
     ``zd2s`` kernel on the folded rows. Stride == kernel is the only form
-    the U-Net family uses.
+    the U-Net family uses. A 2D scale ``(sy, sx)`` on ``(N, H, W, C)`` is
+    the same with one z phase, so no ``zd2s`` (the JAX package's 2D
+    matmul form, ``models/blocks.py:268-287``).
 
     ``lax.conv_transpose`` mirrors the kernel, so output phase (a, i, j)
     takes kernel tap (sz-1-a, sy-1-i, sx-1-j)."""
@@ -128,18 +131,21 @@ class ConvTranspose(nn.Module):
                  gen: Optional[torch.Generator] = None):
         super().__init__()
         self.ks = tuple(scale)
-        if len(self.ks) != 3:
-            raise NotImplementedError(f"ConvTranspose: the port takes 3D scales, got {self.ks}")
+        if len(self.ks) not in (2, 3):
+            raise ValueError(f"ConvTranspose: want a 2D or 3D scale, got {self.ks}")
         self.features = features
         self.kernel = nn.Parameter(xavier_uniform_(torch.empty(self.ks + (in_features, features)),
                                                    gen))
         self.bias = nn.Parameter(torch.zeros(features))
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        sz, sy, sx = self.ks
+        kernel = self.kernel
+        if len(self.ks) == 2:  # one z phase: (N, H, W, C) as (N, 1, H, W, C)
+            x, kernel = x[:, None], kernel[None]
+        sz, sy, sx = kernel.shape[:3]
         n, d, h, w, cin = x.shape
         co = self.features
-        kf = self.kernel.to(x.dtype).flip(0, 1, 2)
+        kf = kernel.to(x.dtype).flip(0, 1, 2)
         # columns ordered (i, j, a, co): after the y/x shuffle the channel
         # axis holds the z taps stacked, as zd2s takes them
         wmat = kf.permute(3, 1, 2, 0, 4).reshape(cin, sy * sx * sz * co)
@@ -149,6 +155,8 @@ class ConvTranspose(nn.Module):
         y = y.reshape(n * d, h * sy, w * sx, sz * co)
         if sz > 1:
             y = zd2s(y.contiguous(), sz)
+        if len(self.ks) == 2:
+            return y.reshape(n, h * sy, w * sx, co)
         return y.reshape(n, d * sz, h * sy, w * sx, co)
 
 
@@ -521,12 +529,22 @@ class UpBlock(FlaxNamed):
 
 
 def max_pool(x: torch.Tensor, window: Sequence[int]) -> torch.Tensor:
-    """Max pooling with stride == window on (N, D, H, W, C). A divisible
-    window runs the pool kernel on the folded (N*D, H, W, C) view; any
-    other shape floors like XLA's VALID ``reduce_window``."""
+    """Max pooling with stride == window on (N, D, H, W, C) or, in 2D, on
+    (N, H, W, C). A divisible window runs the pool kernel on the folded
+    (N*D, H, W, C) view (2D: the unit-depth view, window (1, wy, wx)); any
+    other shape floors like XLA's VALID ``reduce_window``: in 3D through
+    ``F.max_pool3d``, in 2D by cropping the rows and columns no window
+    covers, then the same kernel (whose backward gives every tied slot the
+    cotangent, where XLA's gives the first)."""
     w = tuple(int(v) for v in window)
+    if x.dim() == 4 and len(w) == 2:
+        h, wd = x.shape[1:3]
+        hh, ww = h - h % w[0], wd - wd % w[1]
+        if (hh, ww) != (h, wd):
+            x = x[:, :hh, :ww]
+        return pool_max_folded(x.contiguous(), (1,) + w)
     if x.dim() != 5 or len(w) != 3:
-        raise NotImplementedError("max_pool: the port takes 3D (N, D, H, W, C) volumes")
+        raise ValueError(f"max_pool: window {w} does not fit a tensor of shape {tuple(x.shape)}")
     n, d, h, wd, c = x.shape
     if d % w[0] == 0 and h % w[1] == 0 and wd % w[2] == 0:
         y = pool_max_folded(x.contiguous().view(n * d, h, wd, c), w)

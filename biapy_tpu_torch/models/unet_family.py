@@ -1,12 +1,14 @@
 """The U-Net family as one configurable module.
 
-Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` in 3D, for
-its five variants: ``unet``, ``resunet``, ``seunet`` (SqExBlock after every
+Counterpart of ``biapy_tpu/models/unet_family.py::UNetFamily`` in 3D and
+2D, for its five variants: ``unet``, ``resunet``, ``seunet`` (SqExBlock after every
 conv), ``resunet_se`` (residual blocks with an extra conv and one
 SqExBlock each) and ``attention_unet`` (AttentionGate on every skip).
 
-Contract (as the JAX module's): input channels-last ``(B, z, y, x, C)``,
-output the heads concatenated channel-wise; activations are applied by the
+Contract (as the JAX module's): input channels-last ``(B, z, y, x, C)``
+(2D: ``(B, y, x, C)``, pooled and up-sampled by ``(yx_down, yx_down)``;
+Z_DOWN and ISOTROPY do not apply), output the heads concatenated
+channel-wise; activations are applied by the
 engine, not here. Separated decoders (one per head, optionally with
 divided feature maps) and the super-resolution upsampling before the stem
 (``pre``) or after each decoder (``post``) are the JAX module's; class
@@ -43,7 +45,7 @@ def get_decoder_feature_maps(feature_maps, num_decoders: int, divide: bool) -> L
 
 
 class UNetFamily(FlaxNamed):
-    """3D U-Net family: optional SR upsampling (``pre``), optional
+    """U-Net family: optional SR upsampling (``pre``), optional
     LARGER_IO stem, ``len(feature_maps) - 1`` encoder levels with
     max-pooling, a bottleneck, the decoder (one per head with
     ``separated_decoders``), optional SR upsampling (``post``), one 1x1x1
@@ -62,8 +64,6 @@ class UNetFamily(FlaxNamed):
                  contrast: bool = False, conv_block_order: str = "conv_norm_act",
                  gen: Optional[torch.Generator] = None):
         super().__init__()
-        if ndim != 3:
-            raise NotImplementedError("the port runs 3D models only (ROADMAP queue 1 item 10)")
         if contrast:
             raise NotImplementedError("the contrastive head is not ported yet "
                                       "(ROADMAP queue 1 item 9, other workflows)")
@@ -76,7 +76,8 @@ class UNetFamily(FlaxNamed):
         se = variant in ("seunet", "resunet_se")
         extra_conv = variant == "resunet_se"
         drops = [0.0] * len(fm) if drop_values is None else [float(v) for v in drop_values]
-        self.windows = [(z_down[i], yx_down[i], yx_down[i]) for i in range(depth)]
+        self.windows = [(z_down[i], yx_down[i], yx_down[i]) if ndim == 3
+                        else (yx_down[i], yx_down[i]) for i in range(depth)]
         kw = dict(act=activation, norm=normalization, order=conv_block_order, ndim=ndim, gen=gen)
 
         def io_block(cin, feats):

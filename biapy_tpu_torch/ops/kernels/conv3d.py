@@ -50,16 +50,30 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """The 27-tap sum of shifted ``(..., Cin) @ (Cin, Cout)`` products in
     float32, cast to x's dtype at the end. Uses no cuDNN and no TF32
     (a float32 matmul runs in full float32 unless the caller changed
-    ``torch.backends.cuda.matmul.allow_tf32``)."""
+    ``torch.backends.cuda.matmul.allow_tf32``).
+
+    Outside autograd each tap's product lands in one of two buffers
+    allocated once and is added to the sum in place: the same products and
+    sums as the functional form, which a caller that differentiates the
+    plain version gets, without two new full-size tensors a tap, each of
+    which the CPU's allocator maps and faults in anew."""
     n, d, h, wd, _ = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     wf = w.float()
-    acc = None
-    for dz in range(3):
-        for dy in range(3):
-            for dx in range(3):
-                tap = xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :] @ wf[dz, dy, dx]
-                acc = tap if acc is None else acc + tap
+    taps = [(dz, dy, dx) for dz in range(3) for dy in range(3) for dx in range(3)]
+    if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
+        acc = None
+        for dz, dy, dx in taps:
+            tap = xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :] @ wf[dz, dy, dx]
+            acc = tap if acc is None else acc + tap
+        return acc.to(x.dtype)
+    acc = torch.empty((n, d, h, wd, w.shape[-1]), device=x.device)
+    tap = torch.empty_like(acc)
+    for i, (dz, dy, dx) in enumerate(taps):
+        torch.matmul(xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :], wf[dz, dy, dx],
+                     out=tap if i else acc)
+        if i:
+            acc += tap
     return acc.to(x.dtype)
 
 

@@ -152,20 +152,46 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     ``attention_unet``: bf16 training steps at its batch and patch and one
     ``predict``, launches against the model's count, no ``scalar`` route,
     card against CPU at a reduced patch;
-16. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+16. the 2D templates: (a)
+    ``templates/{semantic_segmentation,instance_segmentation,detection,denoising,image-to-image}/2d_*.yaml``
+    as they are but for their data (seeded uint8 2D TIFFs made on the card
+    under ``chiprun_out/chip_smoke_2d/``, deleted at the end: disks on a
+    jittered grid with their masks or labels, Gaussian blobs with CSV
+    points, smooth structures in noise and their inverted blur) and EPOCHS
+    2, then ``2d_super-resolution.yaml`` with ``unet`` (its comment's
+    alternative to rcan, ROADMAP item 10) and RANDOM_ROT off (ROADMAP
+    section 3) and ``2d_classification.yaml`` with ``simple_cnn`` (four
+    classes of 3-channel images in class folders, RESIZE to 224 x 224):
+    run_job seconds, the loop's patches/s and the device's idle share over
+    a profiled epoch, test Mpx/s, peak memory, the template's metric (IoU,
+    matching F1, P/R/F1, PSNR/SSIM, accuracy: a record), launches by kernel
+    and route against the counts read off the model (pool and pool
+    backward only: no conv3d, zcat, zd2s or zs2d, none on ``scalar``); each
+    best checkpoint card against CPU (float32 within 1e-4; bf16 under the
+    template's REDUCE_MEMORY by phase 12 b's rule; the classifier on its
+    logits) and one float32 training step card against CPU (phase 8's rule;
+    simple_cnn at ``CLS_STEP_TOLS``, phase 15's); (b) one ``predict`` with
+    TEST.FULL_IMG from the semantic template's best checkpoint, card against
+    CPU; (c) ``vit`` in 2D at the config's defaults: one float32 forward
+    card against CPU and one bf16 step;
+17. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 Phase 3 also holds the classification template's kernel shapes (its four
 3x3x3 convs and their input gradients, its two 5x5x5 convs' zcats at kz 5
 and zcat_bwds, its weight-gradient zcats and its two pools, forward and
-backward, at batch 8; bf16 and float32) and the U-Net variants' conv3d
-(bf16) and zcat shapes that no other row covers.
+backward, at batch 8; bf16 and float32), the U-Net variants' conv3d
+(bf16) and zcat shapes that no other row covers, and the 2D templates'
+pools and pool backwards at each template's batch and patch (``(batch, y,
+x, C)`` with window 1 x 2 x 2, bit-checked, F.max_pool2d as the library
+call).
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
 result line; ``--instance-only`` runs phases 1, 2 and 12 alone,
 ``--detection-only`` phases 1, 2 and 13, ``--restoration-only`` phases
-1, 2, 3 and 14, and ``--classification-only`` phases 1, 2, phase 3's
-classification and variant rows and 15; none prints a result line.
+1, 2, 3 and 14, ``--classification-only`` phases 1, 2, phase 3's
+classification and variant rows and 15, and ``--2d-only`` phases 1, 2,
+phase 3's 2D rows and 16; none prints a result line.
 
 Details too long for the console go to ``chiprun_out/chip_smoke.json``.
 """
@@ -264,6 +290,24 @@ def _cls_rows(b=CLS_BATCH):
     zcat5 = [(rows(lv, c)[0], 5, rows(lv, c)[1]) for lv, c in CLS_CAT2D]
     zcat3 = [(rows(lv, cin)[0], 3, rows(lv, cin)[1]) for lv, cin, _ in CLS_CONVS]
     return convs, dx, pools, zcat5, zcat3
+
+
+# the 2D templates' pools (window 2 x 2 on (batch, y, x, C): the pool kernel
+# on the unit-depth view, window 1 x 2 x 2) at each template's batch and
+# patch: unet 16-256 at 8 x 256^2 (semantic), resunet / unet 16-128 at 6 x
+# 256^2 (instance, detection), unet 16/32/64 at 16 x 64^2 (denoising), unet
+# 16-128 at 8 x 256^2 (image-to-image) and simple_cnn's two at 32 x 224^2
+# (classification); the super-resolution run's unet [16] pools nothing
+def _twod_pools(b, s, chans):
+    return [((b, s >> i, s >> i, c), (1, 2, 2)) for i, c in enumerate(chans)]
+
+
+TWOD_POOLS = {"semantic": _twod_pools(8, 256, (16, 32, 64, 128)),
+              "instance": _twod_pools(6, 256, (16, 32, 64)),
+              "detection": _twod_pools(6, 256, (16, 32, 64)),
+              "denoising": _twod_pools(16, 64, (16, 32)),
+              "image_to_image": _twod_pools(8, 256, (16, 32, 64)),
+              "classification": _twod_pools(32, 224, (32, 64))}
 
 
 # the U-Net variants on the semantic template (28/36/48/64, Z_DOWN 1, batch 2,
@@ -593,10 +637,11 @@ def conv_rows(out, rand, g, dev, classification_only=False):
                              f"TFLOP/s: best {best}")
 
 
-def phase_kernels(card, conv3d_only=False, classification_only=False):
+def phase_kernels(card, conv3d_only=False, classification_only=False, twod_only=False):
     """Each kernel against its plain version at the main paths' shapes;
     ``classification_only``: the classification template's and the U-Net
-    variants' rows alone."""
+    variants' rows alone; ``twod_only``: the 2D templates' pool and pool
+    backward rows alone."""
     import torch
     import torch.nn.functional as F
 
@@ -612,7 +657,8 @@ def phase_kernels(card, conv3d_only=False, classification_only=False):
     def rand(shape, dt):
         return torch.randn(shape, generator=g).to(dev, dt)
 
-    conv_rows(out, rand, g, dev, classification_only)
+    if not twod_only:
+        conv_rows(out, rand, g, dev, classification_only)
     if out.failures:
         raise AssertionError(f"{len(out.failures)} conv3d checks failed: {out.failures}")
     if conv3d_only:
@@ -626,38 +672,61 @@ def phase_kernels(card, conv3d_only=False, classification_only=False):
     # the classification template's two pools; the U-Net variants run the
     # semantic template's three (TEMPLATE_POOLS)
     _, _, cls_pools, cls_zcat5, cls_zcat3 = _cls_rows()
-    pools = ([] if classification_only else
+    # the 2D templates' pools: (batch, y, x, C) with window 1 x 2 x 2, held
+    # against F.max_pool2d as the library call
+    twod = list(dict.fromkeys(row for rows_at in TWOD_POOLS.values() for row in rows_at))
+    pools = ([] if classification_only or twod_only else
              MAIN_POOLS + [((6, 10, 14, 5), (3, 2, 1)), ((6, 10, 12, 28), (3, 2, 2))]
              + TEMPLATE_POOLS + DETECTION_POOLS
-             + [row for pools_at, _, _ in RESTORATION_ROWS.values() for row in pools_at]) + cls_pools
+             + [row for pools_at, _, _ in RESTORATION_ROWS.values() for row in pools_at])
+    pools += ([] if twod_only else cls_pools) + ([] if classification_only else twod)
     for dt in (torch.bfloat16, torch.float32):
         item = torch.empty((), dtype=dt).element_size()
         for shape, win in pools:
+            flat = (shape, win) in twod
             x = rand(shape, dt)
-            if shape[0] == 6:
+            if shape[0] == 6 and not flat:
                 # few distinct values: tied windows, a NaN and a -0 among them
                 x = (x * 2).round() / 2
                 x.view(-1)[7] = float("nan")
                 x.view(-1)[11] = -0.0
             y = pool_max_folded_plain(x, win)
-            x5 = x.view(1, *shape).permute(0, 4, 1, 2, 3)
+            if flat:  # NCHW views in channels-last strides
+                xl, lwin = x.permute(0, 3, 1, 2), win[1:]
+                pool_lib, lib_name = F.max_pool2d, "F.max_pool2d"
+                bwd_lib, bwd_name = torch.ops.aten.max_pool2d_with_indices_backward, \
+                    "max_pool2d backward"
+            else:
+                xl, lwin = x.view(1, *shape).permute(0, 4, 1, 2, 3), win
+                pool_lib, lib_name = F.max_pool3d, "F.max_pool3d"
+                bwd_lib, bwd_name = torch.ops.aten.max_pool3d_with_indices_backward, \
+                    "max_pool3d backward"
+            tag = dict(win=win, ndim=2) if flat else dict(win=win)
             out.add("pool_max_folded", dt, shape, pool_max_folded_fwd(x, win), y, 0.0,
                     lambda: pool_max_folded_fwd(x, win), lambda: pool_max_folded_plain(x, win),
-                    lambda: F.max_pool3d(x5, win, stride=win), "F.max_pool3d",
-                    nbytes=(x.numel() + y.numel()) * item, win=win)
+                    lambda: pool_lib(xl, lwin, stride=lwin), lib_name,
+                    nbytes=(x.numel() + y.numel()) * item, **tag)
             gy = rand(y.shape, dt)
-            g5 = gy.view(1, *gy.shape).permute(0, 4, 1, 2, 3)
-            _, idx = F.max_pool3d(x5, win, stride=win, return_indices=True)
+            gl = (gy.permute(0, 3, 1, 2) if flat
+                  else gy.view(1, *gy.shape).permute(0, 4, 1, 2, 3))
+            _, idx = pool_lib(xl, lwin, stride=lwin, return_indices=True)
+            zeros, ones = (0,) * len(lwin), (1,) * len(lwin)
             out.add("pool_max_folded_bwd", dt, shape, pool_max_folded_bwd(x, y, gy, win),
                     pool_max_folded_bwd_plain(x, y, gy, win), 0.0,
                     lambda: pool_max_folded_bwd(x, y, gy, win),
                     lambda: pool_max_folded_bwd_plain(x, y, gy, win),
                     # one argmax per window instead of every tied slot: the same
                     # function only where no window ties
-                    lambda: torch.ops.aten.max_pool3d_with_indices_backward(
-                        g5, x5, win, win, (0, 0, 0), (1, 1, 1), False, idx),
-                    "max_pool3d backward", nbytes=2 * (x.numel() + y.numel()) * item, win=win)
-            del x, y, gy, x5, g5, idx
+                    lambda: bwd_lib(gl, xl, lwin, lwin, zeros, ones, False, idx),
+                    bwd_name, nbytes=2 * (x.numel() + y.numel()) * item, **tag)
+            del x, y, gy, xl, gl, idx
+    if twod_only:
+        torch.cuda.empty_cache()
+        if out.failures:
+            raise AssertionError(f"{len(out.failures)} kernel checks failed: {out.failures}")
+        return out.rows
+    for dt in (torch.bfloat16, torch.float32):
+        item = torch.empty((), dtype=dt).element_size()
 
         # the bench's, the restoration templates' and an odd one (ragged, c =
         # 3, sz = 3)
@@ -2808,14 +2877,16 @@ RESTORATION_STEP_YX = 64
 
 
 def _smooth_volume(g, shape, noise):
-    """A uint8 volume of smooth seeded structures (a random field on a coarse
-    grid, trilinearly upsampled) plus Gaussian noise, made on the card."""
+    """A uint8 volume (or 2D image) of smooth seeded structures (a random
+    field on a coarse grid, linearly upsampled) plus Gaussian noise, made on
+    the card."""
     import torch
     import torch.nn.functional as F
 
     coarse = [max(2, n // 16) for n in shape]
     field = F.interpolate(torch.randn([1, 1] + coarse, generator=g, device=DEVICE), size=shape,
-                          mode="trilinear", align_corners=False)[0, 0]
+                          mode="trilinear" if len(shape) == 3 else "bilinear",
+                          align_corners=False)[0, 0]
     field = (field - field.min()) / (field.max() - field.min())
     img = 40 + 170 * field + noise * torch.randn(shape, generator=g, device=DEVICE)
     return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
@@ -3022,7 +3093,10 @@ def _card_vs_cpu(name, cfg, ckpt, inputs, root, classifier=False):
                 job._build_workflow()
                 _count_forwards(job.workflow, logits)
             t0 = time.perf_counter()
-            preds = np.stack([np.asarray(job.predict(v)[0]["pred"], np.float32) for v in inputs])
+            # the first prediction with a "pred" (the instance workflow's
+            # instances come before its raw channels)
+            preds = np.stack([np.asarray(next(p["pred"] for p in job.predict(v) if "pred" in p),
+                                         np.float32) for v in inputs])
             secs = time.perf_counter() - t0
             if classifier:
                 probs[dt, side] = preds
@@ -3515,9 +3589,9 @@ def _classification_job(name, cfg, root, smi, firsts, total):
     return r
 
 
-def _print_vs_plain(name, vs):
+def _print_vs_plain(name, vs, tag="classification"):
     for dt, v in vs.items():
-        print(f"[classification-vs-plain] {name} {dt}: max |card - CPU| = "
+        print(f"[{tag}-vs-plain] {name} {dt}: max |card - CPU| = "
               f"{v['max_abs']:.3g}, mean {v['mean_abs']:.3g}"
               + (f" (scale {v['scale']:.3g}; probabilities {v['prob_max_abs']:.3g})"
                  if "scale" in v else "")
@@ -3530,8 +3604,8 @@ def _print_vs_plain(name, vs):
               + f"; card {v['card_s']:.2f} s, CPU {v['cpu_s']:.2f} s")
 
 
-def _print_step_vs_plain(name, step_worst, step_shape):
-    print(f"[classification-vs-plain] {name}: one float32 training step on {tuple(step_shape)}: "
+def _print_step_vs_plain(name, step_worst, step_shape, tag="classification"):
+    print(f"[{tag}-vs-plain] {name}: one float32 training step on {tuple(step_shape)}: "
           f"max scaled differences {step_worst}")
 
 
@@ -3687,8 +3761,471 @@ def phase_classification(smi):
         shutil.rmtree(root0, ignore_errors=True)
 
 
+# phase 16: the repository's 2D templates on seeded 2D TIFFs, each through
+# run_job, then its best checkpoint card vs CPU; one predict with
+# TEST.FULL_IMG; the ViT in 2D
+TWOD_TEMPLATES = {
+    "semantic": "templates/semantic_segmentation/2d_semantic_segmentation.yaml",
+    "instance": "templates/instance_segmentation/2d_instance_segmentation.yaml",
+    "detection": "templates/detection/2d_detection.yaml",
+    "denoising": "templates/denoising/2d_denoising.yaml",
+    "image_to_image": "templates/image-to-image/2d_image-to-image.yaml",
+    "super_resolution": "templates/super-resolution/2d_super-resolution.yaml",
+    "classification": "templates/classification/2d_classification.yaml",
+}
+# the training images (count, (y, x)) and the test image's (y, x); for
+# super-resolution the LR sizes (the HR twice them)
+TWOD_DATA = {"semantic": (3, (768, 768), (512, 512)), "instance": (3, (768, 768), (512, 512)),
+             "detection": (3, (768, 768), (512, 512)), "denoising": (2, (512, 512), (512, 512)),
+             "image_to_image": (3, (768, 768), (512, 512)),
+             "super_resolution": (3, (384, 384), (256, 256))}
+# classification: four classes (the template's N_CLASSES) of 3-channel
+# images that RESIZE takes to the 224 x 224 patch
+TWOD_CLS_SHAPE, TWOD_CLS_PER_CLASS = (256, 256), {"train": 20, "test": 2}
+# card vs CPU: a crop of the test image (SR: of the LR one) and the y-x size
+# of the one-sample float32 training step (SR: LR)
+TWOD_CROP, TWOD_STEP_YX = (256, 256), 128
+# the whole-image forward: padded to 640 x 576 by reflection
+TWOD_FULL_IMG = (600, 520)
+# the disks' and blobs' grid spacing: one object per cell, never touching
+TWOD_CELL = 32
+
+
+def _twod_objects(g, shape, kind):
+    """A uint8 image of objects on a jittered grid (one per TWOD_CELL cell,
+    made on the card) and its target: for ``instance`` uint16 labels of
+    disks (radius 6-11), for ``detection`` the blob centres as an (n, 2)
+    array (Gaussian blobs, sigma 2-3), else a 0/255 mask of the disks."""
+    import torch
+
+    cy, cx = shape[0] // TWOD_CELL, shape[1] // TWOD_CELL
+    n = cy * cx
+    r = 6 + 5 * torch.rand(n, generator=g, device=DEVICE)
+    off = r[:, None] + (TWOD_CELL - 2 * r[:, None]) * torch.rand((n, 2), generator=g,
+                                                                  device=DEVICE)
+    cell = torch.stack(torch.meshgrid(torch.arange(cy, device=DEVICE),
+                                      torch.arange(cx, device=DEVICE), indexing="ij"),
+                       -1).reshape(n, 2)
+    centres = cell * TWOD_CELL + off
+    yy, xx = torch.meshgrid(torch.arange(shape[0], device=DEVICE, dtype=torch.float32),
+                            torch.arange(shape[1], device=DEVICE, dtype=torch.float32),
+                            indexing="ij")
+    ci = ((yy // TWOD_CELL).clamp(max=cy - 1) * cx + (xx // TWOD_CELL).clamp(max=cx - 1)).long()
+    d2 = (yy - centres[ci, 0]) ** 2 + (xx - centres[ci, 1]) ** 2
+    noise = torch.randn(shape, generator=g, device=DEVICE)
+    if kind == "detection":
+        sig = 2 + torch.rand(n, generator=g, device=DEVICE)
+        img = 30 + 180 * torch.exp(-0.5 * d2 / sig[ci] ** 2) + 12 * noise
+        target = centres.round().long().cpu().numpy()
+    else:
+        inside = d2 < r[ci] ** 2
+        img = 60 + 110 * inside + 18 * noise
+        target = (((ci + 1) * inside).to(torch.int32).cpu().numpy().astype("uint16")
+                  if kind == "instance" else (inside.to(torch.uint8) * 255).cpu().numpy())
+    return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy(), target
+
+
+def _twod_class_image(g, ci, shape):
+    """A 3-channel uint8 image of class ``ci`` (four that differ in colour
+    and texture), made on the card."""
+    import math
+
+    import torch
+
+    noise = torch.randn(shape + (3,), generator=g, device=DEVICE)
+    x = torch.arange(shape[1], device=DEVICE, dtype=torch.float32)
+    base = torch.tensor([[60, 60, 60], [200, 90, 60], [60, 200, 90], [90, 60, 200]][ci],
+                        device=DEVICE, dtype=torch.float32)
+    stripes = 30 * torch.sin(2 * math.pi * x / (4 + 4 * ci))[None, :, None]
+    img = base + stripes + 15 * noise
+    return img.clamp(0, 255).round().to(torch.uint8).cpu().numpy()
+
+
+def _write_2d_data(kind, root):
+    """Training images under train/, one test image under test/ (inputs in
+    x/, targets in y/: masks, labels, CSV points, HR images or
+    image-to-image targets); classification: class folders. Returns the
+    test image and its target (classification: one test image per
+    class)."""
+    import csv
+
+    import numpy as np
+    import torch
+    from scipy import ndimage
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    g = torch.Generator(device=DEVICE).manual_seed(16)
+    if kind == "classification":
+        firsts = []
+        for split, n in TWOD_CLS_PER_CLASS.items():
+            for ci in range(4):
+                d = root / split / f"class{ci}"
+                d.mkdir(parents=True, exist_ok=True)
+                for i in range(n):
+                    img = _twod_class_image(g, ci, TWOD_CLS_SHAPE)
+                    write_tiff(str(d / f"c{ci}_{i:03d}.tif"), img)
+                    if split == "test" and i == 0:
+                        firsts.append(img)
+        return firsts
+    n, shape, test_shape = TWOD_DATA[kind]
+    test = None
+    for split, count, shp in (("train", n, shape), ("test", 1, test_shape)):
+        (root / split / "x").mkdir(parents=True, exist_ok=True)
+        (root / split / "y").mkdir(parents=True, exist_ok=True)
+        for i in range(count):
+            name = f"{split}_{i:03d}.tif"
+            if kind in ("semantic", "instance", "detection"):
+                img, tgt = _twod_objects(g, shp, kind)
+            elif kind == "super_resolution":
+                hr = _smooth_volume(g, (2 * shp[0], 2 * shp[1]), 6)
+                img = np.round(hr.reshape(shp[0], 2, shp[1], 2).mean(axis=(1, 3))).astype(
+                    np.uint8)
+                tgt = hr
+            else:
+                img = _smooth_volume(g, shp, 12)
+                tgt = None
+                if kind == "image_to_image":
+                    blur = ndimage.gaussian_filter(img.astype(np.float32), 1.5)
+                    tgt = (255 - blur).round().clip(0, 255).astype(np.uint8)
+            write_tiff(str(root / split / "x" / name), img)
+            if kind == "detection":
+                with open(root / split / "y" / name.replace(".tif", ".csv"), "w",
+                          newline="") as f:
+                    w = csv.writer(f)
+                    w.writerow(["axis-0", "axis-1"])
+                    w.writerows(tgt.tolist())
+            elif tgt is not None:
+                write_tiff(str(root / split / "y" / name), tgt)
+            if split == "test":
+                test = (img, tgt)
+    return test
+
+
+def _launches_2d(model, dtype, training):
+    """Kernel launches of one forward (``training``: one training step) of a
+    2D model, read off it: a pool per encoder level of a U-Net (two in
+    simple_cnn) and in training its backward; no conv3d, zcat, zd2s or
+    zs2d (2D convs are PyTorch's, the transposed conv has no z phase), no
+    conv3d route. The ViT launches no kernel of the port."""
+    from biapy_tpu_torch.models.simple_cnn import SimpleCNN
+    from biapy_tpu_torch.models.unet_family import UNetFamily
+
+    out = dict.fromkeys(KERNEL_META, 0)
+    pools = (len(model.windows) if isinstance(model, UNetFamily)
+             else 2 if isinstance(model, SimpleCNN) else 0)
+    out["pool_max_folded"] = pools
+    if training:
+        out["pool_max_folded_bwd"] = pools
+    return out, {"wgmma": 0, "fma": 0}
+
+
+def _twod_metric(kind, wf):
+    """The template's metric, as a record (two epochs)."""
+    if kind == "instance":
+        m = {s["thresh"]: s for s in wf.matching_stats}
+        return {"matching_f1@0.5": m[0.5]["f1"]} if 0.5 in m else {}
+    stats = getattr(wf, "stats", None) or {}
+    keys = {"semantic": ("iou",), "detection": ("det_precision", "det_recall", "det_f1"),
+            "image_to_image": ("psnr", "ssim"), "super_resolution": ("psnr", "ssim"),
+            "classification": ("accuracy",), "denoising": ()}[kind]
+    return {k: stats[k] for k in keys if k in stats}
+
+
+def _twod_job(kind, cfg, test, root, smi, total):
+    """One 2D template through run_job on the card with its measurements,
+    its launches held to the model's count and added to ``total``; then its
+    best checkpoint card against CPU and one float32 training step card
+    against CPU."""
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.pre_processing import preprocess_image
+    from biapy_tpu_torch.engine import classification as cls_engine
+    from biapy_tpu_torch.engine.train_engine import make_train_step, resolve_mixed_precision
+    from biapy_tpu_torch.ops.kernels import build
+
+    tpl = TWOD_TEMPLATES[kind]
+    job = BiaPy(cfg, result_dir=str(root / "results"), name=kind, silent=True, device=DEVICE)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    loop_s, train_s, test_s = [], [], []
+    one_epoch = wf.train_one_epoch
+    wf.train_one_epoch = _timed(one_epoch, loop_s)
+    wf.train, wf.test = _timed(wf.train, train_s), _timed(wf.test, test_s)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    job.run_job()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
+    shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+    _launch_totals(total)
+    want, want_routes = _expected_launches(wf.model, calls, _launches_2d)
+    hist = wf.history
+    if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist)
+            or launches != want or routes != want_routes
+            or any(v["scalar"] for v in shuffle_routes.values())):
+        raise AssertionError(f"{kind}: epochs {hist}, launches {launches} (want {want}), "
+                             f"conv3d routes {routes}, shuffle routes {shuffle_routes}, "
+                             f"{len(calls)} forwards")
+    metric = _twod_metric(kind, wf)
+    if kind == "classification":
+        n_px = len(wf._predictions) * int(np.prod(TWOD_CLS_SHAPE))
+        pred_ok = (len(wf._predictions) == 4 * TWOD_CLS_PER_CLASS["test"]
+                   and all(np.all(np.isfinite(p["pred"])) and p["pred"].shape == (4,)
+                           for p in wf._predictions))
+    else:
+        up = wf.y_upscaling
+        n_px = int(np.prod(test[0].shape))
+        pred = [p["pred"] for p in wf._predictions if p.get("role") == "raw"]
+        out_shape = tuple(s * u for s, u in zip(test[0].shape, up))
+        pred_ok = len(pred) == 1 and pred[0].shape[:2] == out_shape and np.all(
+            np.isfinite(pred[0]))
+    if not pred_ok or (kind != "denoising" and not metric):
+        raise AssertionError(f"{kind}: test predictions {len(wf._predictions)}, metric {metric}")
+    # the loop alone: one more epoch profiled; 2D launches no conv3d, so the
+    # idle share is over the whole epoch's device events
+    mixed = resolve_mixed_precision(wf.cfg.TRAIN.MIXED_PRECISION, wf.device)
+    step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=mixed)
+    gen = torch.Generator(device=wf.device).manual_seed(1)
+    steps = len(wf.train_loader)
+    wall, _, _, events = _profile_device(lambda: one_epoch(step, 3, gen))
+    idle, window_ms = _window_idle_share(events)
+    build.reset_launches()
+    bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+    r = dict(template=tpl, arch=str(wf.cfg.MODEL.ARCHITECTURE), patch=list(wf.cfg.DATA.PATCH_SIZE),
+             batch=bs, seconds=secs, train_seconds=train_s[0], test_seconds=test_s[0],
+             epoch_seconds=[h["time"] for h in hist], loss=[h["loss"] for h in hist],
+             loop_seconds=loop_s, loop_patches_per_s=[steps * bs / t for t in loop_s],
+             idle_share=idle, idle_window_ms=window_ms, profiled_epoch_s=wall,
+             test_mpx_per_s=n_px / test_s[0] / 1e6, metric=metric, peak_bytes=peak,
+             launches=launches, conv3d_routes=routes, shuffle_routes=shuffle_routes,
+             forwards=len(calls), steps=steps, train_patches=len(wf.train_data),
+             val_patches=len(wf.val_data),
+             change=("MODEL.ARCHITECTURE unet, AUGMENTOR.RANDOM_ROT False"
+                     if kind == "super_resolution" else
+                     "MODEL.ARCHITECTURE simple_cnn" if kind == "classification" else None))
+    fm = "" if kind == "classification" else f" {list(wf.cfg.MODEL.FEATURE_MAPS)}"
+    print(f"[2d] {smi}: {tpl}: {r['arch']}{fm}, patch {r['patch']}, "
+          f"batch {bs}, {len(wf.train_data)} train / {len(wf.val_data)} val patches, 2 epochs"
+          + (f", changed: {r['change']}" if r["change"] else "")
+          + (" (ROADMAP section 3: the reference's affine_2d crops the SR target to the "
+             "input's size)" if kind == "super_resolution" else "")
+          + f": run_job {secs:.2f} s (train {train_s[0]:.2f}, test {test_s[0]:.2f}); loop s per "
+          f"epoch {[round(t, 3) for t in loop_s]} "
+          f"({[round(v, 1) for v in r['loop_patches_per_s']]} patches/s), device idle "
+          f"{100 * idle:.1f}% of a profiled epoch; test {r['test_mpx_per_s']:.3f} Mpx/s; "
+          f"{ {k: round(float(v), 4) for k, v in metric.items()} } (a record: 2 epochs); "
+          f"peak memory {peak / 2**30:.2f} GiB; launches "
+          f"{ {k: v for k, v in launches.items() if v} } over {len(calls)} forwards = the "
+          f"model's count, no conv3d route, pool routes "
+          f"{ {k: v for k, v in shuffle_routes.items() if sum(v.values())} }")
+
+    # card against CPU: the best checkpoint on a crop of the test image (for
+    # classification one resized test image per class), one training step
+    best = r["best"] = str(Path(wf.cfg.PATHS.CHECKPOINT) / f"{kind}-checkpoint-best.ckpt")
+    if kind == "classification":
+        patch = tuple(wf.cfg.DATA.PATCH_SIZE)[:2]
+        inputs = [cls_engine._fit_to_patch(preprocess_image(wf.cfg.DATA.PREPROCESS, v,
+                                                            is_2d=True), patch) for v in test]
+        vcfg = dict(cfg, TEST=dict(cfg["TEST"], REDUCE_MEMORY=True))
+        vs = _card_vs_cpu(kind, vcfg, best, inputs, root, classifier=True)
+    else:
+        ch = TWOD_CROP if kind != "super_resolution" else tuple(c // 2 for c in TWOD_CROP)
+        vs = _card_vs_cpu(kind, cfg, best, [test[0][:ch[0], :ch[1]]], root)
+    _print_vs_plain(kind, vs, "2d")
+    if kind == "classification":
+        samples = [wf.val_data.get(i % len(wf.val_data), np.random.default_rng(0))
+                   for i in range(4)]
+        batch = {k: np.stack([smp[k] for smp in samples]) for k in ("x", "y")}
+        step_worst = _restoration_step_vs_plain(cfg, None, batch, root, kind,
+                                                CLS_STEP_TOLS["simple_cnn"],
+                                                float(wf.cfg.TRAIN.LR[0]))
+    else:
+        up = wf.y_upscaling
+        yx = TWOD_STEP_YX if kind != "super_resolution" else TWOD_STEP_YX // 2
+        sample = wf.val_data.get(0, np.random.default_rng(0))
+        batch = {"x": sample["x"][None, :yx, :yx],
+                 "y": sample["y"][None, :yx * up[0], :yx * up[1]]}
+        step_worst = _restoration_step_vs_plain(cfg, best, batch, root, kind)
+    build.reset_launches()
+    _print_step_vs_plain(kind, step_worst, batch["x"].shape, "2d")
+    r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
+    return r
+
+
+def _twod_vit(cfg, root, smi):
+    """The 2D classification template with ``vit`` at the config's ViT
+    defaults (224 x 224 x 3: 196 tokens of 16^2): one float32 forward card
+    against CPU (logits within 1e-4 of their scale) and one bf16 training
+    step on the card (a finite loss, no kernel of the port launched)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.engine.train_engine import make_train_step
+    from biapy_tpu_torch.ops.kernels import build
+
+    c = copy.deepcopy(cfg)
+    c["MODEL"]["ARCHITECTURE"] = "vit"
+    job = BiaPy(c, result_dir=str(root / "vit"), name="vit2d", silent=True,
+                check_data_paths=False, device=DEVICE)
+    job._build_workflow()
+    wf = job.workflow
+    wf.prepare_model()
+    model = wf.model
+    cpu = copy.deepcopy(model).to("cpu").eval()
+    model.eval()
+    rng = np.random.default_rng(16)
+    x = rng.standard_normal((2,) + tuple(wf.cfg.DATA.PATCH_SIZE)).astype(np.float32)
+    with torch.no_grad():
+        got = model(torch.from_numpy(x).to(DEVICE)).cpu()
+        ref = cpu(torch.from_numpy(x))
+    scale = max(1.0, float(ref.abs().max()))
+    err = float((got - ref).abs().max())
+    build.reset_launches()
+    model.train()
+    step = make_train_step(wf.loss, wf.train_metrics, mixed_precision=True)
+    batch = {"x": torch.from_numpy(x).to(DEVICE),
+             "y": torch.tensor([[1.0], [3.0]], device=DEVICE)}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wf.state, m = step(wf.state, batch, torch.Generator(device=DEVICE).manual_seed(1))
+    loss = float(m["loss"])
+    step_s = time.perf_counter() - t0
+    launched = sum(build.LAUNCHES.values())
+    n_par = sum(p.numel() for p in model.parameters())
+    print(f"[2d] {smi}: vit in 2D ({n_par:,} parameters, patch {list(wf.cfg.DATA.PATCH_SIZE)}): "
+          f"float32 logits card vs CPU max {err:.3g} (scale {scale:.3g}); one bf16 step "
+          f"{step_s:.3f} s (the first), loss {loss:.5f}, {launched} launches of the port's "
+          "kernels")
+    if not (err <= 1e-4 * scale and np.isfinite(loss) and launched == 0):
+        raise AssertionError(f"vit 2D: logits {err} (scale {scale}), loss {loss}, "
+                             f"{launched} launches")
+    return dict(params=n_par, logits_max_abs=err, scale=scale, bf16_step_loss=loss,
+                bf16_step_seconds=step_s, launches=launched)
+
+
+def _twod_full_img(cfg, ckpt, root, smi, total):
+    """``predict`` with TEST.FULL_IMG (the image reflect-padded to a multiple
+    of 64, one forward, cropped back) from the semantic template's best
+    checkpoint on a seeded TWOD_FULL_IMG image: Mpx/s and the launches of
+    one forward on the card, card against CPU (``_card_vs_cpu``'s rule)."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.ops.kernels import build
+
+    c = copy.deepcopy(cfg)
+    c["TEST"]["FULL_IMG"] = True
+    c["TRAIN"]["ENABLE"] = False
+    c["MODEL"]["LOAD_CHECKPOINT"] = True
+    c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+    img = _twod_objects(torch.Generator(device=DEVICE).manual_seed(17), TWOD_FULL_IMG,
+                        "semantic")[0]
+    job = BiaPy(c, result_dir=str(root / "full_img"), name="full_img", silent=True,
+                check_data_paths=False, device=DEVICE)
+    job._build_workflow()
+    calls = _count_forwards(job.workflow)
+    job.predict(img)  # warm-up: builds the model and the bf16 copy
+    build.reset_launches()
+    calls.clear()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    pred = job.predict(img)[0]["pred"]
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches = dict(build.LAUNCHES)
+    _launch_totals(total)
+    want, _ = _expected_launches(job.workflow.model, calls, _launches_2d)
+    if pred.shape != TWOD_FULL_IMG + (1,) or not np.all(np.isfinite(pred)) or launches != want \
+            or len(calls) != 1:
+        raise AssertionError(f"FULL_IMG: prediction {pred.shape}, launches {launches} (want "
+                             f"{want}), {len(calls)} forwards")
+    vs = _card_vs_cpu("full_img", c, ckpt, [img], root)
+    _print_vs_plain("full_img", vs, "2d")
+    mpx = float(np.prod(TWOD_FULL_IMG)) / secs / 1e6
+    print(f"[2d] {smi}: TEST.FULL_IMG predict {TWOD_FULL_IMG} (one forward at "
+          f"{tuple(-(-n // 64) * 64 for n in TWOD_FULL_IMG)}): {secs:.3f} s, {mpx:.3f} Mpx/s; "
+          f"launches { {k: v for k, v in launches.items() if v} } = one forward's")
+    return dict(seconds=secs, mpx_per_s=mpx, launches=launches, card_vs_cpu=vs)
+
+
+def phase_2d(smi):
+    """(a) The 2D templates (semantic, instance, detection, denoising,
+    image-to-image, super-resolution with ``unet`` and RANDOM_ROT off, and
+    classification with ``simple_cnn``) loaded as they are, with only their
+    data paths (seeded uint8 TIFFs), EPOCHS 2 and those two changes, through
+    ``run_job``: seconds, the loop's patches/s and the device's idle share
+    over a profiled epoch, test Mpx/s, peak memory, the template's metric
+    (a record), launches by kernel and route against the counts read off
+    the model (pool and pool backward only, none on ``scalar``); each best
+    checkpoint card against CPU and one float32 training step card against
+    CPU. (b) One ``predict`` with TEST.FULL_IMG. (c) ``vit`` in 2D: one
+    float32 forward card against CPU and one bf16 step."""
+    import shutil
+
+    import yaml  # the templates are YAML; PyYAML is optional for the port itself
+
+    root0 = OUT_DIR / "chip_smoke_2d"
+    shutil.rmtree(root0, ignore_errors=True)
+    total = {"launches": {}, "conv3d_routes": {}, "shuffle_routes": {}}
+    res = {}
+    try:
+        for kind, tpl in TWOD_TEMPLATES.items():
+            root = root0 / kind
+            t0 = time.perf_counter()
+            test = _write_2d_data(kind, root)
+            data_s = time.perf_counter() - t0
+            with open(REPO / tpl) as f:
+                cfg = yaml.safe_load(f)
+            if kind == "classification":
+                cfg["DATA"]["TRAIN"]["PATH"] = str(root / "train")
+                cfg["DATA"]["TEST"]["PATH"] = str(root / "test")
+                cfg["MODEL"]["ARCHITECTURE"] = "simple_cnn"
+            else:
+                cfg["DATA"]["TRAIN"]["PATH"] = str(root / "train/x")
+                cfg["DATA"]["TEST"]["PATH"] = str(root / "test/x")
+                if "GT_PATH" in cfg["DATA"]["TRAIN"]:
+                    cfg["DATA"]["TRAIN"]["GT_PATH"] = str(root / "train/y")
+                    cfg["DATA"]["TEST"]["GT_PATH"] = str(root / "test/y")
+            cfg["TRAIN"]["EPOCHS"] = 2
+            if kind == "super_resolution":
+                # the template's rcan is ROADMAP item 10; its comment names unet
+                # among the alternatives. RANDOM_ROT: ROADMAP section 3
+                cfg["MODEL"]["ARCHITECTURE"] = "unet"
+                cfg["AUGMENTOR"]["RANDOM_ROT"] = False
+            res[kind] = _twod_job(kind, cfg, test, root, smi, total)
+            res[kind].update(data_seconds=data_s, wall_seconds=time.perf_counter() - t0)
+            t0 = time.perf_counter()
+            if kind == "semantic":
+                res["full_img"] = _twod_full_img(cfg, res[kind]["best"], root, smi, total)
+                res["full_img"]["wall_seconds"] = time.perf_counter() - t0
+            if kind == "classification":
+                res["vit"] = _twod_vit(cfg, root, smi)
+                res["vit"]["wall_seconds"] = time.perf_counter() - t0
+        print("[2d] wall seconds (data, run_job, checks): "
+              + ", ".join(f"{k} {v['wall_seconds']:.1f}" for k, v in res.items()))
+        res.update(total)
+        return res
+    finally:
+        shutil.rmtree(root0, ignore_errors=True)
+
+
 def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, detection,
-              restoration, classification):
+              restoration, classification, twod):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -3714,7 +4251,11 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     forward batch), its two pools and pool backwards, its six zcats of a
     training step (two at kz 5, four at kz 3) and its two zcat_bwds.
     ``launches`` also counts phase 15's runs (the classification template
-    with simple_cnn and vit, and the U-Net variants)."""
+    with simple_cnn and vit, and the U-Net variants) and phase 16's (the 2D
+    templates and the TEST.FULL_IMG predict: pool and pool backward only),
+    and the pool and pool backward entries carry ``2d_<template>_*`` sums:
+    the 2D templates' pools (one forward or backward at the template's
+    batch and patch)."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -3784,7 +4325,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
                    "instance_template": instance["launches"].get(name, 0),
                    "detection": detection["launches"].get(name, 0),
                    "restoration": restoration["launches"].get(name, 0),
-                   "classification": classification["launches"].get(name, 0)}
+                   "classification": classification["launches"].get(name, 0),
+                   "2d": twod["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -3803,6 +4345,10 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
         rows_at = per_classification.get(name)
         if rows_at:
             entry.update(sums(pick(name, rows_at), "classification_"))
+        if name in ("pool_max_folded", "pool_max_folded_bwd"):
+            for tpl, pools in TWOD_POOLS.items():
+                entry.update(sums(pick(name, [dict(shape=list(s), ndim=2) for s, _ in pools]),
+                                  f"2d_{tpl}_"))
         if entry["launches"] == 0:
             raise AssertionError(f"{name}: no main path launched it")
         kernels.append(entry)
@@ -3815,10 +4361,11 @@ def main():
     detection_only = sys.argv[1:] == ["--detection-only"]
     restoration_only = sys.argv[1:] == ["--restoration-only"]
     classification_only = sys.argv[1:] == ["--classification-only"]
+    twod_only = sys.argv[1:] == ["--2d-only"]
     if sys.argv[1:] and not (conv3d_only or instance_only or detection_only or restoration_only
-                             or classification_only):
+                             or classification_only or twod_only):
         sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only | --detection-only | "
-                 "--restoration-only | --classification-only]")
+                 "--restoration-only | --classification-only | --2d-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
     build_s, ptxas = phase_build()
@@ -3867,6 +4414,20 @@ def main():
         print(f"[done] phases 1, 2, 3 (the classification and variant rows, {rows_s:.0f} s) "
               f"and 15 in {time.perf_counter() - t_start:.0f} s")
         return
+    if twod_only:
+        # phases 1-2, phase 3's 2D rows and phase 16 alone: the quick check of
+        # the 2D templates; prints no result line
+        t0 = time.perf_counter()
+        rows = phase_kernels(smi, twod_only=True)
+        rows_s = time.perf_counter() - t0
+        twod = phase_2d(smi)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_2d.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, kernel_rows=rows, kernel_rows_seconds=rows_s,
+            twod=twod, seconds=time.perf_counter() - t0), indent=1))
+        print(f"[done] phases 1, 2, 3 (the 2D rows, {rows_s:.0f} s) and 16 in "
+              f"{time.perf_counter() - t_start:.0f} s")
+        return
     if conv3d_only:
         # phases 1-2 and the conv3d rows of phase 3 alone: the quick check of
         # a change to the conv kernels; prints no result line
@@ -3899,15 +4460,16 @@ def main():
     det = timed("13 detection", phase_detection, smi)
     rest = timed("14 restoration", phase_restoration, smi)
     cls = timed("15 classification", phase_classification, smi)
+    twod = timed("16 2D", phase_2d, smi)
     print(f"[time] seconds by phase (build {build_s:.1f}): {phase_s}")
     kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, det,
-                        rest, cls)
+                        rest, cls, twod)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
         train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
         tta_vs_plain=tta, template=template, instance_template=instance, detection=det,
-        restoration=rest, classification=cls,
+        restoration=rest, classification=cls, twod=twod,
         whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, phase_seconds=phase_s, seconds=time.perf_counter() - t_start),
@@ -3926,10 +4488,11 @@ def main():
           "zd2s and zs2d over those templates' two of each and of zcat over their ten, at each "
           "template's batch and patch; the classification_* sums over the classification "
           "template's four conv3d forwards, two pools and pool backwards, six zcats and two "
-          "zcat_bwds at batch 8; launches add "
+          "zcat_bwds at batch 8; the 2d_<template>_* sums of pool_max_folded and "
+          "pool_max_folded_bwd over each 2D template's pools at its batch and patch; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
           "TTA passes, the template's, the instance template's, phase 13's, the restoration "
-          "templates' and phase 15's included)")
+          "templates', phase 15's and the 2D templates' included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

@@ -169,6 +169,20 @@ def test_shuffle_route_rule(case):
         assert pool_route(shape, itemsize, win, *ptrs) == want
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv3d_plain_buffered_form_equals_the_functional_form(dtype):
+    """Outside autograd the plain conv writes each tap's product into
+    buffers allocated once; the functional form, which autograd takes, must
+    give the same bits."""
+    g = torch.Generator().manual_seed(7)
+    x = torch.randn((2, 5, 9, 7, 28), generator=g).to(dtype)
+    w = (torch.randn((3, 3, 3, 28, 36), generator=g) / 16).to(dtype)
+    buffered = conv3d_plain(x, w)
+    functional = conv3d_plain(x.clone().requires_grad_(True), w).detach()
+    assert buffered.dtype == functional.dtype == dtype
+    assert torch.equal(buffered, functional)
+
+
 def test_cpu_tensors_take_plain_path_and_count_no_launch():
     build.reset_launches()
     x = torch.randn(2, 4, 4, 4, 3)

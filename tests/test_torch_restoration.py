@@ -361,7 +361,7 @@ def test_chip_smoke_restoration_rows_are_the_templates_shapes(tmp_path, monkeypa
 # --------------------------------------------------------------------------
 @pytest.mark.parametrize("over,item", [
     # nafnet and the perceptual metrics are 2D-only in the configuration
-    # check: the workflow refuses them before the (3D-only) model is built
+    # check: the workflow refuses them before the model is built
     ({"PROBLEM": {"TYPE": "DENOISING", "NDIM": "2D", "DENOISING": {"LOAD_GT_DATA": True}},
       "DATA": {"PATCH_SIZE": [64, 64, 1], "TRAIN": {"GT_PATH": "gt"}},
       "MODEL": {"ARCHITECTURE": "nafnet"}}, "9.8, the GAN slice"),
@@ -371,18 +371,20 @@ def test_chip_smoke_restoration_rows_are_the_templates_shapes(tmp_path, monkeypa
     ({"PROBLEM": {"TYPE": "IMAGE_TO_IMAGE", "NDIM": "2D"}, "DATA": {"PATCH_SIZE": [64, 64, 1]},
       "TEST": {"METRICS": ["psnr", "lpips"], "METRIC_WEIGHTS": {"LPIPS": __file__}}},
      "9.8, the GAN slice"),
-    # the classification slice ported 3D simple_cnn and vit: 2D and the
-    # torchvision classifiers still raise, and so does a stratified k-fold
-    # asked of the data layer directly (the workflow splits its own data,
-    # unstratified, as the JAX workflow does)
-    ({"PROBLEM": {"TYPE": "CLASSIFICATION", "NDIM": "2D"}, "DATA": {"PATCH_SIZE": [64, 64, 1]},
-      "MODEL": {"ARCHITECTURE": "simple_cnn"}}, "item 10.1, 2D"),
+    # 2D runs the U-Net family, simple_cnn and vit: the 2D super-resolution
+    # template's own rcan still raises, as do the torchvision classifiers
+    # and a stratified k-fold asked of the data layer directly (the workflow
+    # splits its own data, unstratified, as the JAX workflow does)
+    ({"PROBLEM": {"TYPE": "SUPER_RESOLUTION", "NDIM": "2D",
+                  "SUPER_RESOLUTION": {"UPSCALING": [2, 2]}},
+      "DATA": {"PATCH_SIZE": [64, 64, 1], "NORMALIZATION": {"TYPE": "div"}},
+      "MODEL": {"ARCHITECTURE": "rcan"}}, "item 10, rest of the zoo"),
     ({"PROBLEM": {"TYPE": "CLASSIFICATION", "NDIM": "2D"}, "DATA": {"PATCH_SIZE": [64, 64, 3]},
       "MODEL": {"ARCHITECTURE": "efficientnet_b0"}}, "item 10, rest of the zoo"),
     ({"PROBLEM": {"TYPE": "CLASSIFICATION", "NDIM": "3D"},
       "DATA": {"VAL": {"FROM_TRAIN": True, "CROSS_VAL": True}},
       "MODEL": {"ARCHITECTURE": "simple_cnn"}}, "classification k-fold is never stratified"),
-], ids=["n2v-gan", "ssl-masking", "perceptual-metrics", "classification-2d",
+], ids=["n2v-gan", "ssl-masking", "perceptual-metrics", "sr-rcan-2d",
         "classification-efficientnet", "classification-stratified-kfold"])
 def test_unported_restoration_parts_name_the_roadmap(tmp_path, over, item):
     cfg = {"DATA": {"PATCH_SIZE": [8, 16, 16, 1]}, "TRAIN": {"ENABLE": True}}
@@ -398,5 +400,10 @@ def test_unported_restoration_parts_name_the_roadmap(tmp_path, over, item):
     with pytest.raises(NotImplementedError, match=f"ROADMAP.*{item}"):
         if kfold:
             tdm.load_and_prepare_train_data(job.cfg)
+        elif cfg["PROBLEM"]["TYPE"] == "SUPER_RESOLUTION":
+            # super-resolution reads its data before it builds the model:
+            # the model alone
+            job._build_workflow()
+            job.workflow.prepare_model()
         else:
             job.train()

@@ -420,16 +420,34 @@ def test_eval_step_and_mixed_precision_setting(tmp_path):
 
 
 def test_epoch_loop_names_the_roadmap(tmp_path):
-    """The epoch loop runs (tests/test_torch_job.py); what it does not port
-    (the profiler hook) raises before any data is read, naming the roadmap.
-    Augmentation, which raised here until ROADMAP queue 1 item 5 landed,
-    runs (tests/test_torch_augment.py)."""
-    for what, match in (({"LOG": {"PROFILE_STEPS": 3}}, "profiler"),):
-        cfg = _cfg()
-        cfg.update(what)
-        job = biapy_tpu_torch.BiaPy(cfg, result_dir=str(tmp_path), name="t", silent=True,
-                                    check_data_paths=False, device="cpu")
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-            job.train()
-        with pytest.raises(NotImplementedError, match=f"ROADMAP.*{match}"):
-            job.run_job()
+    """The epoch loop runs (tests/test_torch_job.py), and so does what it
+    once refused naming the roadmap: LOG.PROFILE_STEPS (ROADMAP item 7,
+    the profiler hook). A CPU run with PROFILE_STEPS 2 writes a
+    ``torch.profiler`` trace of steps 3 and 4 (counted over the run, here
+    across the epoch boundary) into PATHS.PROFILER and trains the same
+    steps as a run without it."""
+    import json
+
+    from test_torch_job import _cfg as job_cfg
+    from test_torch_job import _make_volumes
+
+    root = str(tmp_path)
+    _make_volumes(root, "train", 2, (16, 32, 32), 0)
+    runs = {}
+    for steps in (0, 2):
+        cfg = job_cfg(root)
+        cfg["TEST"]["ENABLE"] = False
+        cfg["LOG"]["PROFILE_STEPS"] = steps
+        job = biapy_tpu_torch.BiaPy(cfg, result_dir=f"{root}/p{steps}", name="t", silent=True,
+                                    device="cpu")
+        job.train()
+        runs[steps] = job.workflow
+    prof = runs[2].profiler
+    assert runs[0].profiler.path is None and prof.done and prof.seen == 5
+    assert len(runs[2].train_loader) < 5  # the trace ran on into the second epoch
+    assert prof.path == f"{runs[2].cfg.PATHS.PROFILER}/t_trace.json"
+    with open(prof.path) as f:
+        events = json.load(f)["traceEvents"]
+    assert any("conv" in str(e.get("name", "")) for e in events)
+    assert [(h["loss"], h["val_loss"]) for h in runs[2].history] == \
+        [(h["loss"], h["val_loss"]) for h in runs[0].history]
