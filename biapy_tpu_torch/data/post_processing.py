@@ -310,14 +310,18 @@ def _greedy_suppress(scaled: np.ndarray, radius: float,
 
 
 def remove_close_points(points: np.ndarray, radius: float,
-                        resolution: Sequence[float] = (1, 1, 1)) -> np.ndarray:
+                        resolution: Sequence[float] = (1, 1, 1),
+                        return_keep: bool = False):
     """Greedy removal of points closer than ``radius`` (reference:
-    post_processing.py:1994)."""
+    post_processing.py:1994). ``return_keep`` also returns the kept
+    indices, so that per-point side arrays (classes, scores) stay in step."""
     if len(points) == 0:
-        return points
+        return (points, []) if return_keep else points
     res = np.asarray(resolution[: points.shape[1]], np.float32)
     pts = np.asarray(points, np.float32) * res
-    return np.asarray(points)[_greedy_suppress(pts, radius)]
+    kept = _greedy_suppress(pts, radius)
+    out = np.asarray(points)[kept]
+    return (out, kept) if return_keep else out
 
 
 def remove_close_points_by_mask(points: np.ndarray, radius: float,
@@ -590,6 +594,8 @@ def _donut_line_ushape(line: np.ndarray, smooth_ticks: int):
 
 def detection_watershed(points: np.ndarray, img: np.ndarray,
                         first_dilation: Sequence[int] = (2, 2),
+                        growth_mask: Optional[np.ndarray] = None,
+                        classes: Optional[np.ndarray] = None,
                         donuts_classes: Sequence[int] = (-1,),
                         donuts_patch: Sequence[int] = (13, 120, 120),
                         donuts_nucleus_diameter: int = 30) -> np.ndarray:
@@ -597,11 +603,13 @@ def detection_watershed(points: np.ndarray, img: np.ndarray,
     intensity (reference: detection_watershed, post_processing.py:2100).
 
     Ring-shaped ('donuts') cells confuse a point-seeded watershed: the seed
-    sits in the dark lumen. Unless ``donuts_classes`` is ``[-1]``, the center
-    intensity lines of every point are profiled (points carry no class until
-    the detection class head, ROADMAP item 9.5); a U-shape on both axes with
-    healthy outer gradients triggers an extra per-seed dilation sized to the ring span so
-    the seed reaches the bright membrane (reference :2178-2360)."""
+    sits in the dark lumen. For points of ``donuts_classes`` (every point
+    when ``classes`` is None; none when it is ``[-1]``), the center
+    intensity lines are profiled; a U-shape on both axes with healthy outer
+    gradients triggers an extra per-seed dilation sized to the ring span so
+    the seed reaches the bright membrane (reference :2178-2360). The
+    instances grow within ``growth_mask`` (default: the image above its Otsu
+    threshold) and the seeds."""
     nd = img.ndim
     points = np.asarray(points, int)
     seeds = np.zeros(img.shape, np.int32)
@@ -616,6 +624,8 @@ def detection_watershed(points: np.ndarray, img: np.ndarray,
         half = [p // 2 for p in list(donuts_patch)[-nd:]]
         ticks = [max(5, (p // 8) | 1) for p in list(donuts_patch)[-nd:]]
         for i, p in enumerate(points):
+            if classes is not None and int(classes[i]) not in [int(c) for c in donuts_classes]:
+                continue
             c = [int(np.clip(p[d], 0, img.shape[d] - 1)) for d in range(nd)]
             sl = tuple(slice(max(c[d] - half[d], 0), min(c[d] + half[d], img.shape[d]))
                        for d in range(nd))
@@ -650,7 +660,8 @@ def detection_watershed(points: np.ndarray, img: np.ndarray,
                 own, structure=np.ones(tuple(2 * e + 1 for e in extra), bool))
             seeds[grown & (seeds == 0)] = i + 1
 
-    # seeds always belong to an instance
-    growth_mask = (img > _otsu(img.astype(np.float32))) | (seeds > 0)
+    if growth_mask is None:
+        growth_mask = img > _otsu(img.astype(np.float32))
+    growth_mask = growth_mask | (seeds > 0)  # seeds always belong to an instance
     topo = -img.astype(np.float32)
     return watershed(topo, seeds, growth_mask)

@@ -5,7 +5,7 @@ DATA.PREPROCESS pipeline, copied from the JAX package's
 ``hover_channels``, ``cellpose_flows``, ``radial_distances``,
 ``affinities``), ``affinity_offsets`` and ``channels_per_code`` (which the
 TTA spec reads), ``create_detection_masks`` (CSV points to the dilated
-point mask of the detection workflow), and ``resize_image``, ``apply_gaussian_blur``,
+point mask of the detection workflow, with its class channel), and ``resize_image``, ``apply_gaussian_blur``,
 ``apply_median_blur``, ``match_histogram``, ``apply_clahe``,
 ``detect_edges`` and ``preprocess_image``. The Omnipose and EmbedSeg
 channels raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
@@ -372,24 +372,37 @@ def labels_into_channels(
 
 
 def create_detection_masks(points: np.ndarray, shape: Sequence[int],
-                           dilation: Sequence[int] = (2, 2)) -> np.ndarray:
+                           dilation: Sequence[int] = (2, 2),
+                           classes: Optional[np.ndarray] = None,
+                           n_classes: int = 2) -> np.ndarray:
     """Point coordinates -> dilated point heatmap mask (reference:
-    create_detection_masks, pre_processing.py; detection workflow GT). The
-    class channel of ``DATA.N_CLASSES > 2`` comes with the detection class
-    head (ROADMAP item 9.5)."""
+    create_detection_masks, pre_processing.py; detection workflow GT). With
+    ``n_classes`` > 2 a second channel carries each point's class
+    (``classes``, 1 where absent) over its dilated blob."""
     nd = len(shape)
-    out = np.zeros(tuple(shape) + (1,), np.float32)
+    multiclass = n_classes > 2
+    out = np.zeros(tuple(shape) + (2 if multiclass else 1,), np.float32)
     pts = np.zeros(tuple(shape), bool)
-    for p in np.asarray(points, dtype=int):
+    cls_map = np.zeros(tuple(shape), np.float32) if multiclass else None
+    cls = (np.asarray(classes).reshape(-1) if classes is not None
+           else np.ones(len(points)))
+    for i, p in enumerate(np.asarray(points, dtype=int)):
         # points outside the image are skipped, not clipped (reference
         # pre_processing.py create_detection_masks: "Skip if center point is
         # outside array boundaries")
         if any(p[d] < 0 or p[d] >= shape[d] for d in range(nd)):
             continue
-        pts[tuple(int(p[d]) for d in range(nd))] = True
+        idx = tuple(int(p[d]) for d in range(nd))
+        pts[idx] = True
+        if cls_map is not None:
+            cls_map[idx] = float(cls[i]) if i < len(cls) else 1.0
     struct = np.ones(tuple(2 * int(d) + 1 for d in (dilation if len(dilation) == nd else [dilation[0]] * nd)), bool)
     pts = ndimage.binary_dilation(pts, structure=struct)
     out[..., 0] = pts.astype(np.float32)
+    if cls_map is not None:
+        # dilate class ids onto each point's blob (nearest seed wins ties)
+        _, idxs = ndimage.distance_transform_edt(cls_map == 0, return_indices=True)
+        out[..., 1] = np.where(pts, cls_map[tuple(idxs)], 0.0)
     return out
 
 

@@ -20,8 +20,11 @@ an in-memory image. The restoration workflows' hooks (``y_upscaling``,
 ``gt_as_image``, ``prepare_targets_fn``, ``restoration_metric_calculation``)
 are the JAX package's. LOG.PROFILE_STEPS traces training steps with
 ``torch.profiler`` (``StepProfiler``); in 2D, TEST.FULL_IMG predicts each
-test image in one forward. The contrastive and multi-head training branches
-are not ported yet (ROADMAP queue 1) and raise ``NotImplementedError``.
+test image in one forward. A model with a class head returns a dict
+(``{"pred", "class"}``): the losses take it whole, and inference flattens
+it, the class channels after the others (``flat_outputs``). The contrastive
+training branch and per-head optimizers are not ported yet (ROADMAP queue
+1) and raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -88,6 +91,16 @@ def apply_activations(pred: torch.Tensor, acts: List[str], channels: List[int],
         outs.append(seg)
         off += ch
     return torch.cat(outs, dim=-1)
+
+
+def flat_outputs(out) -> torch.Tensor:
+    """A model's outputs as one channels-last tensor: a class head's
+    channels (``{"pred": ..., "class": ...}``) travel after the others, so
+    that the stitch, test-time augmentation and the by-chunks store see one
+    array (the JAX package's ``_predict_fn``)."""
+    if isinstance(out, dict):
+        return torch.cat([out["pred"], out["class"]], dim=-1) if "class" in out else out["pred"]
+    return out
 
 
 def _not_ported(what: str, item: str) -> NotImplementedError:
@@ -565,7 +578,8 @@ class Base_Workflow(metaclass=ABCMeta):
         def apply_fn(x):
             if reduce_mem:
                 x = x.to(torch.bfloat16)
-            return apply_activations(model(x).float(), acts, chans, training=False)
+            return apply_activations(flat_outputs(model(x)).float(), acts, chans,
+                                     training=False)
 
         bs = max(int(cfg.TRAIN.BATCH_SIZE), 1)
         patch = tuple(cfg.DATA.PATCH_SIZE)[: self.nd]
@@ -621,8 +635,8 @@ class Base_Workflow(metaclass=ABCMeta):
                     if pin:
                         x = x.pin_memory()
                     x = x.to(self.device, non_blocking=True).to(dt)
-                    y = apply_activations(model(x).float(), self.activations, chans,
-                                          training=False)
+                    y = apply_activations(flat_outputs(model(x)).float(), self.activations,
+                                          chans, training=False)
                     outs.append(y.cpu().numpy())
             return np.concatenate(outs, axis=0)
 

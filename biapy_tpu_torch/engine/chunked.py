@@ -34,9 +34,15 @@ prediction: ``owned_tiles`` gives each process its share of the tile grid
 ``core_keep_mask`` keeps the points of a tile's core, so the per-tile point
 sets are disjoint.
 
-Not ported yet, raising ``NotImplementedError`` that names the roadmap: the
-cross-tile instance merge (``create_and_merge_instances``, ROADMAP queue 1
-item 9).
+The instance workflow merges its instances across the tiles on the host
+(``create_and_merge_instances``, the reference's five passes): A, each
+owned tile's instances with the halo's context, its core written to an
+int32 Zarr; B, every tile's maximum id gathered, prefix offsets in sorted
+tile order, each core relabelled disjointly; C, an edge between two ids of
+adjacent cores whose IoU over the touching faces reaches the threshold;
+D, union-find over the gathered edges (``native.union_find_merge``) and
+the ids compacted; E, every owned core rewritten with its canonical ids,
+then the size filter over the merged instances.
 """
 
 from __future__ import annotations
@@ -49,7 +55,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -59,7 +65,7 @@ from biapy_tpu_torch.data.norm import compute_norm_stats, normalize_image
 from biapy_tpu_torch.data.patching import (crop_data_with_overlap, merge_data_with_overlap,
                                            pad_to_min_shape)
 from biapy_tpu_torch.data.zarr_store import ZarrArray
-from biapy_tpu_torch.parallel import barrier, is_main_process
+from biapy_tpu_torch.parallel import all_gather_objects, barrier, is_main_process
 
 
 def dequant_pred(a) -> np.ndarray:
@@ -120,10 +126,6 @@ def core_keep_mask(coords: np.ndarray, tile: Tile, nd: int) -> np.ndarray:
         g = coords[:, d] + tile.halo_start[d]
         keep &= (g >= tile.core_start[d]) & (g < tile.core_end[d])
     return keep
-
-
-def _not_ported(what: str, item: str) -> NotImplementedError:
-    return NotImplementedError(f"{what} is not ported to biapy_tpu_torch yet (ROADMAP: {item})")
 
 
 class ChunkedInference:
@@ -383,11 +385,150 @@ class ChunkedInference:
         return merged[unpad]
 
     # -- phase 2+3: per-tile instances + cross-tile merge ----------------------
-    def create_and_merge_instances(self, raw_pred_path: str, instance_fn, merge_iou_th: float = 0.3,
-                                   out_name: str = "instances.zarr", min_instance_size: int = 0,
-                                   verbose: bool = True) -> str:
-        """Pass A-E of the distributed instance merge (reference:
-        instance_seg.py:1915-2290)."""
-        raise _not_ported("the by-chunks instance merge (create_and_merge_instances)",
-                          "queue 1 item 9, other workflows: the instance workflow and "
-                          "native.union_find_merge")
+    def create_and_merge_instances(self, raw_pred_path: str,
+                                   instance_fn: Callable[[np.ndarray], np.ndarray],
+                                   merge_iou_th: float = 0.3, out_name: str = "instances.zarr",
+                                   min_instance_size: int = 0, verbose: bool = True) -> str:
+        """Passes A-E of the distributed instance merge (reference:
+        instance_seg.py:1915-2290): ``instance_fn`` maps a tile's raw
+        prediction (core and halo, dequantised) to its labels; the merged,
+        compact ids go to ``out_name`` beside the raw prediction, an int32
+        Zarr chunked by tile. Ids follow the tiles' sorted order and, within
+        a tile, ``instance_fn``'s; a merged instance takes the place of its
+        smallest id. ``min_instance_size`` > 0 then drops the merged
+        instances below that many voxels and compacts again."""
+        pred = ZarrArray(raw_pred_path)
+        spatial = tuple(pred.shape[: self.nd])
+        tiles = tile_grid(spatial, self.tile_size, self.halo)
+        mine = self.my_tiles(tiles)
+        out_path = os.path.join(self.out_dir, out_name)
+        out = ZarrArray.create(out_path, shape=spatial, chunks=self.tile_size,
+                               dtype="i4", compressor={"id": "zlib", "level": 1})
+        stats = {"pass_seconds": {}}
+        t_pass = time.perf_counter()
+
+        def lap(name):
+            nonlocal t_pass
+            now = time.perf_counter()
+            stats["pass_seconds"][name] = now - t_pass
+            t_pass = now
+
+        def core_of(t: Tile):
+            return tuple(slice(t.core_start[d], t.core_end[d]) for d in range(self.nd))
+
+        # Pass A: each owned tile's instances with the halo's context, its
+        # core written out
+        local_max: Dict[Tuple[int, ...], int] = {}
+        for t in mine:
+            region = tuple(slice(t.halo_start[d], t.halo_end[d]) for d in range(self.nd))
+            labels = instance_fn(dequant_pred(pred[region + (slice(None),)]))
+            core = labels[tuple(slice(t.core_start[d] - t.halo_start[d],
+                                      t.core_end[d] - t.halo_start[d]) for d in range(self.nd))]
+            local_max[t.index] = int(core.max())
+            out[core_of(t)] = core
+        barrier("chunked_pass_a")
+        lap("a")
+
+        # Pass B: every tile's maximum id -> prefix offsets in sorted tile
+        # order -> a disjoint relabel
+        tile_max: Dict[Tuple[int, ...], int] = {}
+        for g in all_gather_objects(local_max):
+            tile_max.update(g)
+        offsets: Dict[Tuple[int, ...], int] = {}
+        total_ids = 0
+        for k in sorted(tile_max):
+            offsets[k] = total_ids
+            total_ids += tile_max[k]
+        for t in mine:
+            if tile_max.get(t.index, 0) == 0:
+                continue
+            lab = out[core_of(t)]
+            lab[lab > 0] += offsets[t.index]
+            out[core_of(t)] = lab
+        barrier("chunked_pass_b")
+        lap("b")
+
+        # Pass C: an edge between two ids of adjacent cores whose IoU over
+        # the touching faces reaches the threshold
+        edges: List[Tuple[int, int]] = []
+        index_map = {t.index: t for t in tiles}
+        for t in mine:
+            for d in range(self.nd):
+                nb = index_map.get(tuple(v + (dd == d) for dd, v in enumerate(t.index)))
+                if nb is None:
+                    continue
+                face_a, face_b = [], []
+                for dd in range(self.nd):
+                    if dd == d:
+                        face_a.append(slice(t.core_end[d] - 1, t.core_end[d]))
+                        face_b.append(slice(nb.core_start[d], nb.core_start[d] + 1))
+                    else:
+                        lo = max(t.core_start[dd], nb.core_start[dd])
+                        hi = min(t.core_end[dd], nb.core_end[dd])
+                        face_a.append(slice(lo, hi))
+                        face_b.append(slice(lo, hi))
+                a = out[tuple(face_a)].reshape(-1)
+                b = out[tuple(face_b)].reshape(-1)
+                both = (a > 0) & (b > 0)
+                if not both.any():
+                    continue
+                pairs, counts = np.unique(np.stack([a[both], b[both]]), axis=1,
+                                          return_counts=True)
+                # each label's face area in one counting pass
+                ua, ca = np.unique(a[a > 0], return_counts=True)
+                ub, cb = np.unique(b[b > 0], return_counts=True)
+                area_a = dict(zip(ua.tolist(), ca.tolist()))
+                area_b = dict(zip(ub.tolist(), cb.tolist()))
+                for (ia, ib), c in zip(pairs.T, counts):
+                    iou = c / max(area_a[int(ia)] + area_b[int(ib)] - c, 1)
+                    if iou >= merge_iou_th:
+                        edges.append((int(ia), int(ib)))
+        barrier("chunked_pass_c")
+        lap("c")
+
+        # Pass D: the gathered edges through union-find (each id to its
+        # component's smallest), then the ids compacted
+        all_edges: List[Tuple[int, int]] = []
+        for g in all_gather_objects(edges):
+            all_edges.extend(g)
+        from biapy_tpu_torch.native import union_find_merge
+
+        if all_edges and total_ids > 0:
+            remap = union_find_merge(np.asarray(all_edges, np.int32), total_ids)
+        else:
+            remap = np.arange(total_ids + 1, dtype=np.int32)
+        used = np.unique(remap)
+        used = used[used > 0]
+        compact = np.zeros(total_ids + 1, np.int32)
+        compact[used] = np.arange(1, len(used) + 1, dtype=np.int32)
+        remap = compact[remap]
+        lap("d")
+
+        # Pass E: every owned core rewritten with its canonical ids, counting
+        # each id's voxels for the size filter, which applies after the
+        # merge: a fragment split across tiles is not dropped for its
+        # per-tile size
+        n_final = len(used)
+        local_sizes = np.zeros(n_final + 1, np.int64)
+        for t in mine:
+            lab = remap[out[core_of(t)]]
+            out[core_of(t)] = lab
+            local_sizes += np.bincount(lab.reshape(-1), minlength=n_final + 1)
+        barrier("chunked_pass_e")
+        if min_instance_size > 0:
+            sizes = np.sum(all_gather_objects(local_sizes), axis=0)
+            keep = sizes >= min_instance_size
+            keep[0] = False
+            final_map = np.zeros(n_final + 1, np.int32)
+            final_map[keep] = np.arange(1, int(keep.sum()) + 1, dtype=np.int32)
+            for t in mine:
+                out[core_of(t)] = final_map[out[core_of(t)]]
+            n_final = int(keep.sum())
+            barrier("chunked_size_filter")
+        lap("e")
+        stats.update(tiles=len(mine), edges=len(all_edges), ids_before=total_ids,
+                     ids_after=n_final)
+        self.last_merge_stats = stats
+        if verbose and is_main_process():
+            print(f"[by-chunks] merged instances: {total_ids} tile-local ids -> {n_final} final")
+        return out_path

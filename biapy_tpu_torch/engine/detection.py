@@ -12,8 +12,11 @@ CSV, optionally grown into instances (DET_WATERSHED), and scored against
 the GT points within TEST.DET_TOLERANCE. By chunks, points are extracted
 tile by tile with core ownership and merged once over the volume.
 
-The separated class head (DATA.N_CLASSES > 2) is not ported (ROADMAP queue
-1 item 9) and raises ``NotImplementedError``.
+With DATA.N_CLASSES > 2 the model grows a separated class head: the GT
+masks carry each point's class (the CSVs' ``class`` column) over its blob,
+the loss adds the class cross-entropy on the blobs, each point takes the
+majority class of the head's argmax around it, and the CSVs and the
+metrics carry the classes.
 """
 
 from __future__ import annotations
@@ -29,23 +32,27 @@ from biapy_tpu_torch.data.io import list_image_files, read_img_as_ndarray, save_
 from biapy_tpu_torch.data.post_processing import peak_local_max, remove_close_points
 from biapy_tpu_torch.data.pre_processing import create_detection_masks
 from biapy_tpu_torch.engine import metrics as M
-from biapy_tpu_torch.engine.base_workflow import Base_Workflow, _not_ported
+from biapy_tpu_torch.engine.base_workflow import Base_Workflow
 from biapy_tpu_torch.utils.matching import detection_metrics
 
-ITEM = "queue 1 item 9, other workflows"
+
+def _bbox_keep(points: np.ndarray, box, shape, nd: int) -> np.ndarray:
+    """Mask of the points outside the DET_IGNORE_POINTS_OUTSIDE_BOX border
+    margin."""
+    box = list(box or [])
+    keep = np.ones(len(points), bool)
+    for d in range(min(nd, len(box))):
+        m = int(box[d])
+        if m > 0 and len(points):
+            keep &= (points[:, d] >= m) & (points[:, d] <= max(shape[d] - m, 0))
+    return keep
 
 
 def _filter_bbox(points: np.ndarray, box, shape, nd: int) -> np.ndarray:
     """Drop points within the DET_IGNORE_POINTS_OUTSIDE_BOX border margin."""
-    box = list(box or [])
-    if not box or not len(points):
+    if not list(box or []) or not len(points):
         return points
-    keep = np.ones(len(points), bool)
-    for d in range(min(nd, len(box))):
-        m = int(box[d])
-        if m > 0:
-            keep &= (points[:, d] >= m) & (points[:, d] <= max(shape[d] - m, 0))
-    return points[keep]
+    return points[_bbox_keep(points, box, shape, nd)]
 
 
 def _test_resolution(cfg, nd: int):
@@ -57,17 +64,19 @@ def _test_resolution(cfg, nd: int):
     return tuple(res[:nd])
 
 
-def read_points_csv(path: str, ndim: int) -> np.ndarray:
+def read_points_csv(path: str, ndim: int, with_classes: bool = False):
     """Read point coordinates from a CSV. A header with 'axis-0'/'axis-1'/
-    'axis-2' columns selects by NAME — pandas-style exports carry a leading
-    unnamed index column that positional parsing would misread as the first
-    coordinate (the reference reads df['axis-0'] by name, detection.py:660).
-    Headerless files fall back to positional (z,)y,x. A 'class' column waits
-    for the detection class head (ROADMAP item 9.5)."""
+    'axis-2' (and 'class') columns selects by NAME — pandas-style exports
+    carry a leading unnamed index column that positional parsing would
+    misread as the first coordinate (the reference reads df['axis-0'] by
+    name, detection.py:660). Headerless files fall back to positional
+    (z,)y,x [,class]. With ``with_classes`` also returns the per-point class
+    column (1 where absent)."""
     with open(path) as f:
         rows = [r for r in csv.reader(f) if r]
     if not rows:
-        return np.zeros((0, ndim), np.float32)
+        coords = np.zeros((0, ndim), np.float32)
+        return (coords, np.zeros(0, np.int32)) if with_classes else coords
 
     axis_names = [f"axis-{d}" for d in range(ndim)]
     header = rows[0]
@@ -78,11 +87,13 @@ def read_points_csv(path: str, ndim: int) -> np.ndarray:
         if len(col_idx) != ndim:
             raise ValueError(f"CSV {path} names only {len(col_idx)} of the "
                              f"{ndim} coordinate columns {axis_names}")
+        cls_idx = names.index("class") if "class" in names else None
         body = rows[1:]
     else:
         body = rows
+        cls_idx = ndim
 
-    pts = []
+    pts, cls = [], []
     for row in body:
         try:
             if col_idx is not None:
@@ -92,7 +103,15 @@ def read_points_csv(path: str, ndim: int) -> np.ndarray:
         except ValueError:
             continue  # headerless-mode header line
         pts.append(vals)
-    return np.asarray(pts, dtype=np.float32).reshape(-1, ndim)
+        try:
+            cls.append(float(row[cls_idx]) if cls_idx is not None
+                       and cls_idx < len(row) else 1.0)
+        except (ValueError, TypeError):
+            cls.append(1.0)
+    coords = np.asarray(pts, dtype=np.float32).reshape(-1, ndim)
+    if with_classes:
+        return coords, np.asarray(cls, np.int32).reshape(-1)
+    return coords
 
 
 def points_from_mask(mask: np.ndarray) -> np.ndarray:
@@ -108,24 +127,35 @@ def points_from_mask(mask: np.ndarray) -> np.ndarray:
     return np.asarray(coms, dtype=np.float32)
 
 
-def write_points_csv(path: str, coords: np.ndarray, nd: int, cast=int) -> None:
-    """Points as a CSV with the 'axis-0'.. header ``read_points_csv`` reads."""
+def write_points_csv(path: str, coords: np.ndarray, nd: int, cast=int,
+                     classes: Optional[np.ndarray] = None) -> None:
+    """Points as a CSV with the 'axis-0'.. header ``read_points_csv`` reads,
+    and a 'class' column when ``classes`` is given."""
     with open(path, "w", newline="") as f:
         w = csv.writer(f)
-        w.writerow(["axis-0", "axis-1", "axis-2"][:nd])
-        for c in coords:
-            w.writerow([cast(v) for v in c])
+        w.writerow(["axis-0", "axis-1", "axis-2"][:nd] + (["class"] if classes is not None
+                                                          else []))
+        for i, c in enumerate(coords):
+            w.writerow([cast(v) for v in c] + ([int(classes[i])] if classes is not None
+                                               else []))
 
 
 class Detection_Workflow(Base_Workflow):
     def define_activations_and_channels(self):
-        if int(self.cfg.DATA.N_CLASSES) > 2:
-            raise _not_ported("the detection class head (DATA.N_CLASSES > 2)", ITEM)
-        self.n_classes = 2
+        self.n_classes = max(int(self.cfg.DATA.N_CLASSES), 2)
         self.output_channels = [1]
         self.activations = ["ce_sigmoid"]
         self._act_channels = [1]
         self.output_channel_info = ["points"]
+        self.separated_class_channel = self.n_classes > 2
+        if self.separated_class_channel:
+            # the points heatmap and an N_CLASSES softmax class head
+            # (reference: detection.py:143-148); the class probabilities
+            # travel flat after the heatmap at inference
+            self.output_channels = [1, self.n_classes]
+            self.activations = ["ce_sigmoid", "ce_softmax"]
+            self._act_channels = [1, self.n_classes]
+            self.output_channel_info = ["points", "class"]
 
     def define_metrics(self):
         det = self.cfg.PROBLEM.DETECTION
@@ -158,11 +188,12 @@ class Detection_Workflow(Base_Workflow):
             check_points = bool(self.cfg.PROBLEM.DETECTION.CHECK_POINTS_CREATED)
             for xp, cp in zip(xs, csvs):
                 img = read_img_as_ndarray(xp, is_3d=self.is_3d)
-                pts = read_points_csv(cp, self.nd)
+                pts, pt_cls = read_points_csv(cp, self.nd, with_classes=True)
                 if check_points:
                     self._check_created_points(pts, img.shape[: self.nd], dil,
                                                os.path.basename(cp), mask_dir)
-                mask = create_detection_masks(pts, img.shape[: self.nd], dilation=dil)
+                mask = create_detection_masks(pts, img.shape[: self.nd], dilation=dil,
+                                              classes=pt_cls, n_classes=self.n_classes)
                 save_tif(mask[None].astype(np.uint8), mask_dir, [os.path.basename(xp)],
                          verbose=False)
         frozen = self.cfg.is_frozen()
@@ -261,6 +292,23 @@ class Detection_Workflow(Base_Workflow):
                                          resolution=_test_resolution(cfg, self.nd))
         return coords
 
+    def _point_classes(self, pred: np.ndarray, coords: np.ndarray) -> np.ndarray:
+        """The majority class of the class head's argmax over the nonzero
+        classes in a box of radius 3 around each point, 1 where the box has
+        none (reference: detection.py:400-426 votes over the dilated point
+        area); zeros without a class head."""
+        if not self.separated_class_channel or not len(coords):
+            return np.zeros(len(coords), np.int32)
+        cls_map = np.argmax(pred[..., 1:1 + self.n_classes], axis=-1)
+        r = 3
+        out = []
+        for c in coords:
+            sl = tuple(slice(max(0, int(c[d]) - r), int(c[d]) + r + 1) for d in range(self.nd))
+            region = cls_map[sl].ravel()
+            region = region[region > 0]
+            out.append(int(np.bincount(region).argmax()) if len(region) else 1)
+        return np.asarray(out, np.int32)
+
     def metric_calculation(self, pred: np.ndarray, gt: Optional[np.ndarray]) -> Dict[str, float]:
         m: Dict[str, float] = {}
         if gt is not None:
@@ -268,14 +316,23 @@ class Detection_Workflow(Base_Workflow):
             m["iou"] = float(M.jaccard_index_numpy(gtb, pred[..., :1]))
         coords = self._extract_points(pred)
         self._last_points = coords
+        self._last_classes = self._point_classes(pred, coords)
         if gt is not None:
             # the border box applies to both sets, or every border GT point
             # would count as a miss (reference: detection.py:698-752)
             true_pts = _filter_bbox(points_from_mask(gt[..., 0]),
                                     self.cfg.TEST.DET_IGNORE_POINTS_OUTSIDE_BOX,
                                     gt.shape, self.nd)
+            tc = pc = None
+            if self.separated_class_channel and gt.shape[-1] >= 2:
+                # each GT point's class: the mask's class channel at it
+                lim = np.asarray(gt.shape[: self.nd]) - 1
+                tc = np.asarray([int(gt[tuple(np.clip(np.round(p).astype(int), 0, lim))][1])
+                                 for p in true_pts], np.int32)
+                pc = self._last_classes
             dm = detection_metrics(true_pts, coords, float(self.cfg.TEST.DET_TOLERANCE),
-                                   resolution=_test_resolution(self.cfg, self.nd))
+                                   resolution=_test_resolution(self.cfg, self.nd),
+                                   true_classes=tc, pred_classes=pc)
             m.update({f"det_{k}": float(v) for k, v in dm.items()})
         return m
 
@@ -283,11 +340,15 @@ class Detection_Workflow(Base_Workflow):
         coords = getattr(self, "_last_points", None)
         if coords is None:
             coords = self._extract_points(pred)
+        classes = getattr(self, "_last_classes", None)
+        if classes is None or len(classes) != len(coords):
+            classes = self._point_classes(pred, coords)
+        multiclass = self.separated_class_channel
         if self.save_to_disk:
             out_dir = self.cfg.PATHS.RESULT_DIR.DET_LOCAL_MAX_COORDS_CHECK
             os.makedirs(out_dir, exist_ok=True)
             write_points_csv(os.path.join(out_dir, os.path.splitext(fname)[0] + "_points.csv"),
-                          coords, self.nd)
+                             coords, self.nd, classes=classes if multiclass else None)
         pp = self.cfg.TEST.POST_PROCESSING
         if pp.DET_WATERSHED and len(coords):
             # instances grown around the points over the raw image intensity
@@ -309,8 +370,12 @@ class Detection_Workflow(Base_Workflow):
                         np.uint16 if inst.max() < 2**16 else np.uint32),
                         self.cfg.PATHS.WATERSHED_DIR, [fname], verbose=False)
                 self._predictions.append({"role": "post", "pred": inst, "file": fname})
-        self._predictions.append({"role": "points", "points": coords, "file": fname})
+        entry = {"role": "points", "points": coords, "file": fname}
+        if multiclass:
+            entry["classes"] = classes
+        self._predictions.append(entry)
         self._last_points = None
+        self._last_classes = None
 
     def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
         """Per-tile peak extraction and one merge over the volume (reference:
@@ -333,34 +398,45 @@ class Detection_Workflow(Base_Workflow):
         if self.save_to_disk:
             os.makedirs(check_dir, exist_ok=True)
         zfill = len(str(len(tiles)))
+        multiclass = self.separated_class_channel
         local_pts: List[np.ndarray] = []
+        local_cls: List[np.ndarray] = []
         for ti, t in mine:
             region = tuple(slice(t.halo_start[d], t.halo_end[d]) for d in range(self.nd))
             hm = dequant_pred(pred[region + (slice(None),)])
             coords = self._extract_points(hm, global_post=False)
             if len(coords):
                 coords = coords[core_keep_mask(coords, t, self.nd)]
+            classes = self._point_classes(hm, coords)  # local coordinates, the tile's map
             coords = np.asarray(coords, np.int64).reshape(-1, self.nd) \
                 + np.asarray(t.halo_start, np.int64)
             if self.save_to_disk:
                 write_points_csv(os.path.join(
                     check_dir, f"{base}_patch{str(ti).zfill(zfill)}_points.csv"),
-                    coords, self.nd)
+                    coords, self.nd, classes=classes if multiclass else None)
             local_pts.append(coords)
-        gathered = all_gather_objects(local_pts)
+            local_cls.append(np.asarray(classes, np.int32).reshape(-1))
+        gathered = all_gather_objects((local_pts, local_cls))
         if not is_main_process():
             return
-        flat = [p for g in gathered for p in g if len(p)]
+        flat = [p for g, _ in gathered for p in g if len(p)]
+        flat_cls = [c for _, gc in gathered for c in gc if len(c)]
         coords = np.concatenate(flat, axis=0) if flat else np.zeros((0, self.nd), np.int64)
+        classes = np.concatenate(flat_cls) if flat_cls else np.zeros(0, np.int32)
         # the whole-volume post steps, once over the merged set
-        coords = _filter_bbox(coords, cfg.TEST.DET_IGNORE_POINTS_OUTSIDE_BOX, spatial,
-                              self.nd)
+        keep = _bbox_keep(coords, cfg.TEST.DET_IGNORE_POINTS_OUTSIDE_BOX, spatial, self.nd)
+        coords = coords[keep]
+        if len(classes) == len(keep):
+            classes = classes[keep]
         pp = cfg.TEST.POST_PROCESSING
         out_dir = check_dir
         if pp.REMOVE_CLOSE_POINTS and len(coords):
             out_dir = cfg.PATHS.RESULT_DIR.DET_LOCAL_MAX_COORDS_CHECK_POST_PROCESSING
-            coords = remove_close_points(coords, float(pp.REMOVE_CLOSE_POINTS_RADIUS),
-                                         resolution=_test_resolution(cfg, self.nd))
+            coords, kept = remove_close_points(coords, float(pp.REMOVE_CLOSE_POINTS_RADIUS),
+                                               resolution=_test_resolution(cfg, self.nd),
+                                               return_keep=True)
+            if len(classes):
+                classes = classes[kept]
         coords = coords.astype(np.float64)
         zoom = cfg.DATA.PREPROCESS.ZOOM
         if zoom.ENABLE:
@@ -374,8 +450,11 @@ class Detection_Workflow(Base_Workflow):
         if self.save_to_disk:
             os.makedirs(out_dir, exist_ok=True)
             write_points_csv(os.path.join(out_dir, base + "_all_points.csv"), coords, self.nd,
-                          cast=float)
-        self._predictions.append({"role": "points", "points": coords, "file": base})
+                             cast=float, classes=classes if multiclass else None)
+        entry = {"role": "points", "points": coords, "file": base}
+        if multiclass:
+            entry["classes"] = classes
+        self._predictions.append(entry)
         # the metrics straight from the GT CSV (no point mask)
         gt_dir = getattr(self, "_original_test_gt_path", "")
         if not (cfg.DATA.TEST.LOAD_GT and gt_dir and os.path.isdir(gt_dir)):
@@ -391,9 +470,13 @@ class Detection_Workflow(Base_Workflow):
             print(f"WARNING: no GT CSV named {base}.csv among {len(csvs)} "
                   "candidates — skipping metrics for this volume")
         if gt_csv:
-            true_pts = _filter_bbox(read_points_csv(gt_csv, self.nd),
-                                    cfg.TEST.DET_IGNORE_POINTS_OUTSIDE_BOX, spatial, self.nd)
+            true_pts, true_cls = read_points_csv(gt_csv, self.nd, with_classes=True)
+            keep = _bbox_keep(true_pts, cfg.TEST.DET_IGNORE_POINTS_OUTSIDE_BOX, spatial,
+                              self.nd)
+            true_pts, true_cls = true_pts[keep], true_cls[keep]
             dm = detection_metrics(true_pts, coords.astype(np.float32),
                                    float(cfg.TEST.DET_TOLERANCE),
-                                   resolution=_test_resolution(cfg, self.nd))
+                                   resolution=_test_resolution(cfg, self.nd),
+                                   true_classes=true_cls if multiclass else None,
+                                   pred_classes=classes if multiclass else None)
             self.metrics_per_test_file.append({f"det_{k}": float(v) for k, v in dm.items()})

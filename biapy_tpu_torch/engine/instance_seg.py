@@ -17,9 +17,15 @@ CREMI point annotations painted into channel Zarrs by
 ``data/synapses.py::synapse_channel_creation``, byte-identical to the JAX
 package's; pre/post/cleft points extracted from the predicted channels,
 paired, and scored against the annotations; by chunks, tile by tile with
-core ownership and one merge over the volume). EmbedSeg, Cellpose flows and
-Omnipose, StarDist rays, the class head (DATA.N_CLASSES > 2), the
-contrastive head and TEST.BY_CHUNKS with instances raise
+core ownership and one merge over the volume). With DATA.N_CLASSES > 2 the
+model grows a class head: the GT carries a class map beside the labels,
+the loss adds its cross-entropy on the instances, and each instance takes
+the majority class of the head's argmax. By chunks (TEST.BY_CHUNKS with
+WORKFLOW_PROCESS), the instances are made tile by tile and merged across
+the tiles (``engine/chunked.py::ChunkedInference.create_and_merge_instances``)
+into ``instances.zarr``, or, with WORKFLOW_PROCESS.TYPE ``entire_pred``,
+made once over the whole raw prediction. EmbedSeg, Cellpose flows and
+Omnipose, StarDist rays and the contrastive head raise
 ``NotImplementedError`` (ROADMAP queue 1 item 9).
 """
 
@@ -62,14 +68,8 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             raise _not_ported("the Omnipose distance field (Db val_type 'omnipose')", ITEM)
         if "R" in codes or process in ("stardist", "nms"):
             raise _not_ported("StarDist rays (R)", ITEM)
-        if int(cfg.DATA.N_CLASSES) > 2:
-            raise _not_ported("the instance class head (DATA.N_CLASSES > 2)", ITEM)
         if cfg.LOSS.CONTRAST.ENABLE:
             raise _not_ported("LOSS.CONTRAST (the contrastive head)", ITEM)
-        if (cfg.TEST.BY_CHUNKS.ENABLE and cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE
-                and str(inst.TYPE) != "synapses"):
-            raise _not_ported("TEST.BY_CHUNKS with instances (the cross-tile instance merge)",
-                              ITEM)
 
     def define_activations_and_channels(self):
         self._check_ported()
@@ -123,13 +123,32 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         # activations apply channel by channel at inference; the loss sees
         # the raw outputs (the D channel is trained on its logits)
         self._act_channels = [1] * total
+        info = "+".join(c for c in self.channel_codes if c != "We")
         self.output_channels = [total]
-        self.output_channel_info = ["+".join(c for c in self.channel_codes if c != "We")]
+        self.output_channel_info = [info]
+        # the class head (DATA.N_CLASSES > 2; reference: instance_seg.py:
+        # 459-465, 955-995): the GT carries a class map beside the labels,
+        # the model a second, N_CLASSES softmax head whose probabilities
+        # travel flat after the instance channels at inference and whose
+        # argmax is voted per instance at test time
+        self.n_class_channels = 0
+        if int(self.cfg.DATA.N_CLASSES) > 2 and not self.synapse_mode:
+            self.n_class_channels = int(self.cfg.DATA.N_CLASSES)
+            acts.append("ce_softmax")
+            self._act_channels.append(self.n_class_channels)
+            self.output_channels = [total, self.n_class_channels]
+            self.output_channel_info = [info, "class"]
         self.activations = acts
 
     def define_metrics(self):
         inst = self.cfg.PROBLEM.INSTANCE_SEG
         weights = list(inst.DATA_CHANNEL_WEIGHTS)
+        # with a class head, DATA_CHANNEL_WEIGHTS may carry one more entry,
+        # the class head's (reference: check_configuration.py:122 counts the
+        # class channel into channels_provided)
+        class_w = 1.0
+        if self.n_class_channels and len(weights) > len(self.channel_codes):
+            class_w = float(weights[len(self.channel_codes)])
         if len(weights) < len(self.channel_codes):
             weights = weights + [1.0] * (len(self.channel_codes) - len(weights))
         mask_distances = {}
@@ -144,6 +163,8 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             channels_per_output=self.channels_per_output,
             mask_distances=mask_distances,
             class_rebalance_within_channels=bool(inst.CLASS_REBALANCE_WITHIN_CHANNELS),
+            n_classes=self.n_class_channels,
+            class_channel_weight=class_w,
         )
         # IoU of the first binary channel during training
         first_bin = 0
@@ -163,9 +184,13 @@ class Instance_Segmentation_Workflow(Base_Workflow):
     def tta_spec(self):
         from biapy_tpu_torch.data.tta import build_tta_spec
 
-        # predictions do not carry the GT-only 'We' channel
+        # predictions carry neither the GT-only 'We' channel nor (as codes)
+        # the class head; the class probabilities are per-voxel scalars
         codes = [c for c in self.channel_codes if c != "We"]
         cpo = [n for c, n in zip(self.channel_codes, self.channels_per_output) if c != "We"]
+        if self.n_class_channels:
+            codes.append("class")
+            cpo.append(self.n_class_channels)
         return build_tta_spec(codes, cpo, self.nd, self.channel_extra_opts)
 
     # -- data: GT labels -> channel masks --------------------------------------
@@ -173,8 +198,10 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         """Compile and cache the channel masks (reference:
         prepare_instance_data, instance_seg.py:2864) in
         DATA.<split>.INSTANCE_CHANNELS_MASK_DIR, in the JAX package's format:
-        one float32 ``.npy`` per GT image with the raw label column appended,
-        and ``_channels_meta.json``; then point DATA.<split>.GT_PATH at it."""
+        one float32 ``.npy`` per GT image with the raw label column appended
+        (with a class head, the GT's class map, its second channel, between
+        the two), and ``_channels_meta.json``; then point
+        DATA.<split>.GT_PATH at it."""
         node = self.cfg.DATA[split]
         gt_dir = str(node.GT_PATH)
         out_dir = str(node.INSTANCE_CHANNELS_MASK_DIR)
@@ -185,7 +212,7 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         # the cache predates the appended label column (meta absent)
         meta_path = os.path.join(out_dir, "_channels_meta.json")
         meta_want = {"codes": list(self.channel_codes), "label_col_appended": True,
-                     "n_class_channels": 0}
+                     "n_class_channels": self.n_class_channels}
         meta_ok = False
         if os.path.exists(meta_path):
             try:
@@ -203,7 +230,20 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                 print(f"Creating {self.channel_codes} channel masks for {split} in {out_dir}")
             for p in gts:
                 lab = read_img_as_ndarray(p, is_3d=self.is_3d)
+                class_map = None
+                if self.n_class_channels:
+                    # channel 0 the instance labels, channel 1 the class map
+                    # (reference: pre_processing.py:527-549)
+                    if lab.shape[-1] != 2:
+                        raise ValueError(
+                            "With DATA.N_CLASSES > 2, instance GT images need two "
+                            "channels (instance labels + class map), got shape "
+                            f"{lab.shape} for {p}")
+                    class_map = lab[..., 1:2].astype(np.float32)
+                    lab = lab[..., :1]
                 chans = labels_into_channels(lab, self.channel_codes, self.channel_extra_opts)
+                if class_map is not None:
+                    chans = np.concatenate([chans, class_map], axis=-1)
                 # the raw instance-label column rides along so train-time
                 # geometric augmentation can regenerate geometry-derived
                 # channels from the warped labels; PairDataset.get drops it
@@ -233,8 +273,11 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             return
         from biapy_tpu_torch.data.tta import build_train_channel_handler
 
+        # the compile cache holds the class map as ONE channel of class ids,
+        # so the label column sits one past it
         self.aug_channel_handler = build_train_channel_handler(
-            self.channel_codes, self.nd, self.channel_extra_opts)
+            self.channel_codes, self.nd, self.channel_extra_opts,
+            n_class_channels=1 if self.n_class_channels else 0)
 
     def _prepare_synapse_data(self, split: str):
         """Compile and cache the synapse channel Zarrs from the CREMI point
@@ -284,6 +327,7 @@ class Instance_Segmentation_Workflow(Base_Workflow):
 
     def test(self, image=None, gt=None):
         self.all_matching_stats: List[List[Dict]] = []
+        self._class_ious: List[float] = []
         if image is None and self.cfg.DATA.TEST.LOAD_GT:
             # raw instance GT for matching; the channels are not needed
             self._instance_gt_dirs = getattr(self, "_instance_gt_dirs", {})
@@ -485,15 +529,79 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         self.metrics_per_test_file.append(m)
         return result
 
+    def _instance_fn_no_size_filter(self, pred: np.ndarray) -> np.ndarray:
+        """A tile's instances without the size filter, which applies over
+        the whole volume after the merge instead."""
+        mp = self.cfg.TEST.POST_PROCESSING.MEASURE_PROPERTIES
+        was = mp.ENABLE
+        frozen = self.cfg.is_frozen()
+        if frozen:
+            self.cfg.defrost()
+        mp.ENABLE = False
+        try:
+            return self.instance_seg_process(pred)
+        finally:
+            mp.ENABLE = was
+            if frozen:
+                self.cfg.freeze()
+
     def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
-        """Synapse mode by chunks: per-tile point extraction with core
-        ownership, then one pass of close-point removal, pre/post pairing
-        and metrics over the merged set (reference: instance_seg.py:1874-1913
-        per chunk, :2395-2440 the merge); the synful method too, which the
-        reference leaves out by chunks. The other modes' cross-tile merge is
-        refused by ``_check_ported``."""
-        if self.synapse_mode and self.cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.ENABLE:
+        """By chunks with WORKFLOW_PROCESS (reference:
+        after_all_chunk_prediction_workflow_process, instance_seg.py:1915):
+        the instances tile by tile and their merge across the tiles into
+        ``instances.zarr`` beside the raw prediction (``chunk_by_chunk``,
+        ``ChunkedInference.create_and_merge_instances``), or the per-image
+        post-processing once over the whole raw prediction
+        (``entire_pred``, for volumes that fit the host's memory). In
+        synapse mode, per-tile point extraction with core ownership, then
+        one pass of close-point removal, pre/post pairing and metrics over
+        the merged set (reference: instance_seg.py:1874-1913 per chunk,
+        :2395-2440 the merge); the synful method too, which the reference
+        leaves out by chunks."""
+        bc = self.cfg.TEST.BY_CHUNKS
+        if not bc.WORKFLOW_PROCESS.ENABLE:
+            return
+        if self.synapse_mode:
             self._synapse_by_chunks(ci, raw_path, base)
+            return
+        if str(bc.WORKFLOW_PROCESS.TYPE) == "entire_pred":
+            if is_main_process():
+                from biapy_tpu_torch.data.zarr_store import ZarrArray
+                from biapy_tpu_torch.engine.chunked import dequant_pred
+
+                self.after_merge_patches(dequant_pred(ZarrArray(raw_path)), None,
+                                         base + ".tif")
+            return
+        # the size filter applies after the merge: the minimum of the
+        # REMOVE_BY_PROPERTIES 'size lt/le' rules
+        min_size = 0
+        mp = self.cfg.TEST.POST_PROCESSING.MEASURE_PROPERTIES
+        if mp.ENABLE and mp.REMOVE_BY_PROPERTIES.ENABLE:
+            dropped = []
+            for props, values, signs in zip(mp.REMOVE_BY_PROPERTIES.PROPS,
+                                            mp.REMOVE_BY_PROPERTIES.VALUES,
+                                            mp.REMOVE_BY_PROPERTIES.SIGNS):
+                for p, v, sign in zip(props, values, signs):
+                    if str(p) in ("size", "area", "npixels", "volume") and sign in ("lt", "le",
+                                                                                    "lte"):
+                        min_size = max(min_size, int(v))
+                    else:
+                        dropped.append((str(p), str(sign), v))
+            if dropped and self.verbose:
+                # other property rules would need a second measurement pass
+                # over the whole volume: never drop them silently
+                print("WARNING: by-chunks instance filtering only applies "
+                      "'size lt/le' rules after the merge; these "
+                      f"REMOVE_BY_PROPERTIES conditions are NOT applied: {dropped}. "
+                      "Run the per-image path (TEST.BY_CHUNKS.ENABLE=False) or "
+                      "post-process the instances Zarr to filter on them.")
+        phases = [str(p) for p in bc.PHASES]
+        if "instance_creation" in phases or "instance_merging" in phases:
+            inst_path = ci.create_and_merge_instances(
+                raw_path, self._instance_fn_no_size_filter,
+                merge_iou_th=float(bc.WORKFLOW_PROCESS.INSTANCE_SEG_MERGE_IOU_TH),
+                min_instance_size=min_size, verbose=self.verbose)
+            self._predictions.append({"role": "instances_zarr", "path": inst_path, "file": base})
 
     def _synapse_by_chunks(self, ci, raw_path: str, base: str) -> None:
         from biapy_tpu_torch.data.post_processing import remove_close_points
@@ -566,11 +674,23 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             self._predictions.append({"role": "synapse_points", **res})
             return
         instances = self.instance_seg_process(pred)
+        class_map = None
+        if self.n_class_channels:
+            # the voxels' class argmax voted per instance (reference:
+            # instance_seg.py:970-995, 'Adapting class channel')
+            pix_cls = np.argmax(pred[..., -self.n_class_channels:], axis=-1).astype(np.int32)
+            class_map = self._majority_vote_classes(instances, pix_cls)
+            self._predictions.append({"role": "class_map", "classes": class_map, "file": fname})
         self._predictions.append({"role": "instances", "instances": instances, "file": fname})
         if self.save_to_disk:
             dt = np.uint16 if instances.max() < 2**16 else np.uint32
-            save_tif(instances[None][..., None].astype(dt),
-                     cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES, [fname], verbose=False)
+            out_img = instances[None][..., None].astype(dt)
+            if class_map is not None:
+                # the instances and their voted classes side by side
+                # (reference: instance_seg.py:995-1005)
+                out_img = np.concatenate([out_img, class_map[None][..., None].astype(dt)],
+                                         axis=-1)
+            save_tif(out_img, cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES, [fname], verbose=False)
             mp = cfg.TEST.POST_PROCESSING.MEASURE_PROPERTIES
             if mp.ENABLE:
                 # per-instance property CSV (+ MEASURE_PROPERTIES.EXTRA_PROPS
@@ -598,7 +718,22 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                 gt_path = cands[0]
         if not os.path.exists(gt_path):
             return
-        gt_lab = read_img_as_ndarray(gt_path, is_3d=self.is_3d)[..., 0].astype(np.int32)
+        gt_img = read_img_as_ndarray(gt_path, is_3d=self.is_3d)
+        gt_lab = gt_img[..., 0].astype(np.int32)
+        if class_map is not None and gt_img.shape[-1] >= 2:
+            # the voted class map's IoU against the GT class map, the mean
+            # over the foreground classes present (reference:
+            # jaccard_index_matching, instance_seg.py:1088)
+            gt_cls = gt_img[..., 1].astype(np.int32)
+            ious = []
+            for k in range(1, self.n_class_channels):
+                union = np.count_nonzero((class_map == k) | (gt_cls == k))
+                if union:
+                    ious.append(np.count_nonzero((class_map == k) & (gt_cls == k)) / union)
+            if ious:
+                self._class_ious.append(float(np.mean(ious)))
+                if self.verbose:
+                    print(f"  {fname} class IoU: {self._class_ious[-1]:.4f}")
         stats = matching(gt_lab, instances, thresh=list(cfg.TEST.MATCHING_STATS_THS))
         self.all_matching_stats.append(stats)
         if self.verbose:
@@ -626,7 +761,27 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                 save_tif(colored[None], cfg.PATHS.RESULT_DIR.INST_ASSOC_POINTS,
                          [f"{stem}_th_{s['thresh']}.tif"], verbose=False)
 
+    def _majority_vote_classes(self, instances: np.ndarray,
+                               pix_cls: np.ndarray) -> np.ndarray:
+        """Each instance's majority class over the voxels' argmax, the
+        background never winning; an instance with no class evidence takes
+        class 1 (reference: instance_seg.py:975-988)."""
+        n = int(instances.max())
+        if n == 0:
+            return np.zeros_like(instances, dtype=np.int32)
+        k = self.n_class_channels
+        lab = instances.ravel().astype(np.int64)
+        cls = pix_cls.ravel().astype(np.int64)
+        counts = np.bincount(lab * k + cls, minlength=(n + 1) * k).reshape(n + 1, k)
+        counts[:, 0] = 0  # background never wins the vote
+        winner = np.argmax(counts, axis=1).astype(np.int32)
+        winner[counts.sum(axis=1) == 0] = 1
+        winner[0] = 0
+        return winner[instances]
+
     def after_all_images(self):
+        if getattr(self, "_class_ious", None) and self.verbose:
+            print(f"Test class IoU (per image): {float(np.mean(self._class_ious)):.6f}")
         if getattr(self, "all_matching_stats", None):
             agg = aggregate_matching(self.all_matching_stats,
                                      by_image=bool(self.cfg.TEST.MATCHING_STATS_BY_IMAGE))

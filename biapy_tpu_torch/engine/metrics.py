@@ -181,6 +181,8 @@ def instance_segmentation_loss(
     channels_per_output: Sequence[int],
     mask_distances: Optional[Dict[str, bool]] = None,
     class_rebalance_within_channels: bool = False,
+    n_classes: int = 0,
+    class_channel_weight: float = 1.0,
 ):
     """Build the multi-channel instance-seg loss
     (reference: instance_segmentation_loss, metrics.py:1400).
@@ -190,8 +192,13 @@ def instance_segmentation_loss(
     take one per offset). The ground truth is laid out with the same
     channel structure. Regression channels (distances) can be masked to the
     foreground (``mask_distances``), and binary channels can be rebalanced.
-    The class head (``DATA.N_CLASSES`` > 2) is not ported (ROADMAP queue 1
-    item 9).
+
+    ``n_classes`` > 0 adds the class head's term (DATA.N_CLASSES > 2): its
+    ``n_classes`` softmax logits (the model's ``"class"`` output, or the
+    last ``n_classes`` channels of a flat prediction) scored by
+    cross-entropy against the class-index map carried as the LAST
+    ground-truth channel, only where an instance exists, times
+    ``class_channel_weight``.
     """
     mask_distances = mask_distances or {}
 
@@ -205,8 +212,23 @@ def instance_segmentation_loss(
               if ch != "We"]
 
     def loss_fn(y_pred, y_true):
+        cls_pred = None
         if isinstance(y_pred, dict):
+            cls_pred = y_pred.get("class")
             y_pred = y_pred["pred"]
+        class_term = 0.0
+        if n_classes > 0:
+            if cls_pred is None:  # flat layout (stitched/TTA-merged arrays)
+                cls_pred = y_pred[..., -n_classes:]
+                y_pred = y_pred[..., :-n_classes]
+            # the class map is the very last GT channel (appended after the
+            # compiled channels, reference pre_processing.py:549)
+            cls_true = y_true[..., -1:]
+            y_true = y_true[..., :-1]
+            # scored only where an instance exists: the background would
+            # otherwise drown the term (reference: metrics.py:1783-1787)
+            class_term = class_channel_weight * softmax_ce_with_logits(
+                cls_pred, cls_true, mask=(cls_true > 0))
         w_borders = None
         if border_weight:
             w_borders = y_true[..., -1:]
@@ -244,7 +266,7 @@ def instance_segmentation_loss(
                     weight = wb if weight is None else weight * wb
             total = total + w * _channel_loss(lname, pred_c, true_c, weight)
             off += n
-        return total
+        return total + class_term
 
     return loss_fn
 
@@ -253,23 +275,33 @@ def detection_loss(
     channel_weights=(1.0,),
     class_rebalance_within_channels: bool = True,
     num_classes: int = 2,
+    class_rebalance: str = "none",
+    class_weights=None,
 ):
-    """Point-heatmap detection loss: rebalanced BCE on the point channel
-    (reference: detection_loss, metrics.py:571). The CE term of the
-    separated class head (``num_classes`` > 2) is not ported (ROADMAP
-    queue 1 item 9) and raises."""
-    if num_classes > 2:
-        raise NotImplementedError(
-            "the detection class head's CE term (DATA.N_CLASSES > 2) is not ported to "
-            "biapy_tpu_torch yet (ROADMAP: queue 1 item 9, other workflows)")
+    """Point-heatmap detection loss: rebalanced BCE on the point channel and,
+    with a separated class head (``num_classes`` > 2, the model's
+    ``"class"`` output), softmax cross-entropy against the GT's class
+    channel, only where a point blob exists, weighted by the last
+    ``channel_weights`` entry and, with ``class_rebalance`` 'manual', per
+    class by ``class_weights`` (reference: detection_loss, metrics.py:571)."""
     w0 = float(channel_weights[0])
+    w_cls = float(channel_weights[-1]) if len(channel_weights) > 1 else 1.0
+    cw = class_weights if (class_rebalance == "manual" and class_weights) else None
 
     def loss_fn(y_pred, y_true):
+        cls_pred = None
         if isinstance(y_pred, dict):
+            cls_pred = y_pred.get("class")
             y_pred = y_pred["pred"]
         t = y_true[..., :1].to(y_pred.dtype)
         weight = weight_binary_ratio(t) if class_rebalance_within_channels else None
-        return w0 * torch.mean(bce_with_logits(y_pred[..., :1], t, weight))
+        loss = w0 * torch.mean(bce_with_logits(y_pred[..., :1], t, weight))
+        if cls_pred is not None and num_classes > 2:
+            # class CE only where a point blob exists (reference masks the
+            # class term to the foreground, metrics.py:693-697)
+            loss = loss + w_cls * softmax_ce_with_logits(
+                cls_pred, y_true[..., 1:2], cw, mask=(y_true[..., :1] > 0))
+        return loss
 
     return loss_fn
 

@@ -50,6 +50,14 @@ def resolve_mixed_precision(setting, device) -> bool:
     return bool(setting)
 
 
+def map_outputs(fn: Callable, outputs):
+    """``fn`` over a model's outputs: a tensor, or the dict of a model with a
+    class head (``{"pred": ..., "class": ...}``)."""
+    if isinstance(outputs, dict):
+        return {k: fn(v) for k, v in outputs.items()}
+    return fn(outputs)
+
+
 def _to_device(batch: Dict, model: torch.nn.Module) -> Tuple[torch.Tensor, torch.Tensor]:
     dev = next(model.parameters()).device
     return tuple(torch.as_tensor(batch[k]).to(dev) for k in ("x", "y"))
@@ -60,7 +68,8 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: Callable, x: torch.Tensor, y
                    generator: Optional[torch.Generator] = None):
     """Forward in training mode (BatchNorm statistics advance), loss, and
     the float32 gradients of the trainable parameters by name. Returns
-    ``(loss, outputs, grads)``; outputs are float32 and detached."""
+    ``(loss, outputs, grads)``; outputs (a tensor, or a dict of them) are
+    float32 and detached."""
     model.train()
     named = [(n, p) for n, p in model.named_parameters() if p.requires_grad]
     # no TF32 in the library convolutions, forward or backward: float32
@@ -68,10 +77,12 @@ def loss_and_grads(model: torch.nn.Module, loss_fn: Callable, x: torch.Tensor, y
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
         with dropout_generator(generator):
             outputs = model(x.to(torch.bfloat16) if mixed_precision else x)
-        outputs = outputs.float()  # losses and metrics accumulate in f32
+        # losses and metrics accumulate in f32
+        outputs = map_outputs(lambda o: o.float(), outputs)
         loss = loss_fn(outputs, y)
         grads = torch.autograd.grad(loss, [p for _, p in named])
-    return loss.detach(), outputs.detach(), {n: g for (n, _), g in zip(named, grads)}
+    return (loss.detach(), map_outputs(lambda o: o.detach(), outputs),
+            {n: g for (n, _), g in zip(named, grads)})
 
 
 def make_train_step(loss_fn: Callable, metric_fns: Optional[Dict[str, Callable]] = None,

@@ -105,6 +105,7 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         yx_down=tuple(cfg.MODEL.YX_DOWN),
         z_down=tuple(cfg.MODEL.Z_DOWN),
         output_channels=tuple(output_channels),
+        output_channel_info=tuple(output_channel_info),
         separated_decoders=separated_decoders,
         divide_decoder_feature_maps=divide,
         upsampling_factor=upsampling_factor,

@@ -8,14 +8,16 @@ SqExBlock each) and ``attention_unet`` (AttentionGate on every skip).
 Contract (as the JAX module's): input channels-last ``(B, z, y, x, C)``
 (2D: ``(B, y, x, C)``, pooled and up-sampled by ``(yx_down, yx_down)``;
 Z_DOWN and ISOTROPY do not apply), output the heads concatenated
-channel-wise; activations are applied by the
-engine, not here. Separated decoders (one per head, optionally with
-divided feature maps) and the super-resolution upsampling before the stem
-(``pre``) or after each decoder (``post``) are the JAX module's; class
-heads come with the workflows that have them (ROADMAP queue 1 item 9.5).
-Children carry Flax's auto-names (see blocks.py): a ``pre`` / ``post``
-upsampling is a top-level ``ConvTranspose_<j>``, and the ``UpBlock_<i>``
-numbering runs on across separated decoders. ``train()`` / ``eval()``
+channel-wise, or, where ``output_channel_info`` names a ``"class"`` head
+(the instance and detection class heads, DATA.N_CLASSES > 2), a dict
+``{"pred": the other heads, "class": the class heads}``; activations are
+applied by the engine, not here. Separated decoders (one per head,
+optionally with divided feature maps) and the super-resolution upsampling
+before the stem (``pre``) or after each decoder (``post``) are the JAX
+module's. Children carry Flax's auto-names (see blocks.py): a ``pre`` /
+``post`` upsampling is a top-level ``ConvTranspose_<j>``, the
+``UpBlock_<i>`` numbering runs on across separated decoders, and the 1x1
+heads are the top-level ``Conv_<j>``, in head order. ``train()`` / ``eval()``
 select the mode of BatchNorm and of the per-level dropout (``drop_values``).
 """
 
@@ -56,7 +58,9 @@ class UNetFamily(FlaxNamed):
                  drop_values: Optional[Sequence[float]] = None, normalization: str = "none", k_size: int = 3,
                  upsample_layer: str = "convtranspose",
                  yx_down: Sequence[int] = (2, 2, 2, 2), z_down: Sequence[int] = (2, 2, 2, 2),
-                 output_channels: Sequence[int] = (1,), separated_decoders: bool = False,
+                 output_channels: Sequence[int] = (1,),
+                 output_channel_info: Optional[Sequence[str]] = None,
+                 separated_decoders: bool = False,
                  divide_decoder_feature_maps: bool = False,
                  upsampling_factor: Sequence[int] = (), upsampling_position: str = "pre",
                  isotropy: Sequence[bool] = (True,),
@@ -126,8 +130,10 @@ class UNetFamily(FlaxNamed):
             if up and upsampling_position == "post" else []
         self.heads = [self.child("Conv", Conv(dec_fm[0], oc, (1,) * ndim, gen=gen))
                       for oc in output_channels]
+        info = list(output_channel_info or [""] * len(output_channels))
+        self.class_head = ["class" in str(i) for i in info]
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor):
         if self.parts["up_pre"] is not None:
             x = self.parts["up_pre"](x)
         if self.parts["stem"] is not None:
@@ -148,5 +154,10 @@ class UNetFamily(FlaxNamed):
             if self.up_post:
                 h = self.up_post[j](h)
             feats.append(h)
-        return torch.cat([head(feats[i] if len(feats) > 1 else feats[0])
-                          for i, head in enumerate(self.heads)], dim=-1)
+        outs = [head(feats[i] if len(feats) > 1 else feats[0])
+                for i, head in enumerate(self.heads)]
+        pred = torch.cat([o for o, c in zip(outs, self.class_head) if not c], dim=-1)
+        if not any(self.class_head):
+            return pred
+        return {"pred": pred,
+                "class": torch.cat([o for o, c in zip(outs, self.class_head) if c], dim=-1)}

@@ -52,11 +52,14 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     (a float32 matmul runs in full float32 unless the caller changed
     ``torch.backends.cuda.matmul.allow_tf32``).
 
-    Outside autograd each tap's product lands in one of two buffers
-    allocated once and is added to the sum in place: the same products and
-    sums as the functional form, which a caller that differentiates the
-    plain version gets, without two new full-size tensors a tap, each of
-    which the CPU's allocator maps and faults in anew."""
+    Each tap's window of x is made contiguous before its product, so that
+    the product is one ``(voxels, Cin) @ (Cin, Cout)`` matmul in either
+    form. Outside autograd the window is copied into one buffer and the
+    product lands in one of two more, all allocated once, and is added to
+    the sum in place: the same products and sums as the functional form,
+    which a caller that differentiates the plain version gets, without three
+    new full-size tensors a tap, each of which the CPU's allocator maps and
+    faults in anew."""
     n, d, h, wd, _ = x.shape
     xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     wf = w.float()
@@ -64,14 +67,15 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     if torch.is_grad_enabled() and (x.requires_grad or w.requires_grad):
         acc = None
         for dz, dy, dx in taps:
-            tap = xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :] @ wf[dz, dy, dx]
+            tap = xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :].contiguous() @ wf[dz, dy, dx]
             acc = tap if acc is None else acc + tap
         return acc.to(x.dtype)
     acc = torch.empty((n, d, h, wd, w.shape[-1]), device=x.device)
     tap = torch.empty_like(acc)
+    win = torch.empty((n, d, h, wd, x.shape[-1]), device=x.device)
     for i, (dz, dy, dx) in enumerate(taps):
-        torch.matmul(xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :], wf[dz, dy, dx],
-                     out=tap if i else acc)
+        win.copy_(xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :])
+        torch.matmul(win, wf[dz, dy, dx], out=tap if i else acc)
         if i:
             acc += tap
     return acc.to(x.dtype)

@@ -91,7 +91,15 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     and route (every pool, pool backward and zcat on a 16-byte route); (b)
     the best checkpoint's test pass on a 40 x 256 x 256 crop on the card and
     on the CPU, float32 and bf16, held to phase 5's tolerances, the
-    instances at matching F1 >= 0.99 (IoU 0.5);
+    instances at matching F1 >= 0.99 (IoU 0.5); (c) the best checkpoint by
+    chunks with the template's commented BY_CHUNKS block uncommented
+    (PATCHES_PER_TILE 1 x 1 x 1, IoU 0.3, bf16) on the test volume's first
+    72 x 192 x 192 voxels as a uint8 Zarr (3 x 2 x 2 tiles): the raw
+    prediction within 1 uint8 LSB of ``predict`` in memory, the merged
+    ``instances.zarr`` id for id a plain merge written here (per-tile
+    labels from the same raw prediction, face IoU edges, scipy's connected
+    components), launches against the model's count; the seconds of each
+    merge pass, Mvox/s and the ids before and after the merge;
 13. point detection: (a) ``templates/detection/3d_detection.yaml`` as it is
     but for its data (seeded TIFFs of Gaussian blobs, sigma 2-3 voxels, in
     noise, with CSV points, under ``chiprun_out/chip_smoke_detection/``,
@@ -174,7 +182,22 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     TEST.FULL_IMG from the semantic template's best checkpoint, card against
     CPU; (c) ``vit`` in 2D at the config's defaults: one float32 forward
     card against CPU and one bf16 step;
-17. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
+17. the class heads (DATA.N_CLASSES 3) at the templates' widths, on
+    ellipsoids made as phase 12 makes them (a seeded class for each; the GT
+    their labels beside the class map) and blobs made as phase 13 makes
+    them (a seeded ``class`` column in the CSVs), one training volume each,
+    from seeded initial weights, through ``run_job`` for two epochs: (a) the
+    instance template, (b) the detection template in memory and by chunks
+    (72 x 192 x 192, 6 x 2 x 2 tiles, held against ``predict`` as phase 13 b
+    does, the same classes at the same points); for each, launches against
+    the model's count (``run_job``, by chunks and in memory), the best
+    checkpoint's float32 forward on one patch of the template's size card
+    against CPU within 1e-4 of scale for both heads, bf16 by phase 12 b's
+    rule, the same voted classes (point classes) wherever the instances
+    (points) are the same, and one float32 training step card against CPU
+    on an 8 x 64 x 64 patch at the template's rate (loss 1e-6, gradients
+    1e-5, weights 1e-6: phase 15's rule);
+18. a ``{"kernels": [...]}`` line; the last line is ``{"ok": true, ...}``.
 
 Phase 3 also holds the classification template's kernel shapes (its four
 3x3x3 convs and their input gradients, its two 5x5x5 convs' zcats at kz 5
@@ -187,7 +210,8 @@ call).
 
 ``python3 chip_smoke.py --conv3d-only`` stops after the conv3d rows of
 phase 3 (the quick check of a change to the conv kernels) and prints no
-result line; ``--instance-only`` runs phases 1, 2 and 12 alone,
+result line; ``--instance-only`` runs phases 1, 2 and 12 (with 12 c) alone,
+``--class-heads-only`` phases 1, 2 and 17,
 ``--detection-only`` phases 1, 2 and 13, ``--restoration-only`` phases
 1, 2, 3 and 14, ``--classification-only`` phases 1, 2, phase 3's
 classification and variant rows and 15, and ``--2d-only`` phases 1, 2,
@@ -2041,7 +2065,8 @@ def phase_instance_template():
     F1, peak memory and launches by kernel and route. (b) The best
     checkpoint's test pass on a 40 x 256 x 256 crop on the card and on the
     CPU, float32 and bf16: channel maps within the serving tolerances, the
-    instances compared by matching."""
+    instances compared by matching. (c) The best checkpoint by chunks with the
+    template's BY_CHUNKS block (``_instance_by_chunks``)."""
     import shutil
 
     import numpy as np
@@ -2181,6 +2206,9 @@ def phase_instance_template():
         best = str(Path(wf.cfg.PATHS.CHECKPOINT) / "instance-checkpoint-best.ckpt")
         crop = vols[("test", 0)][0][: INSTANCE_CROP[0]]
         res["vs_plain"] = _instance_card_vs_cpu(cfg, best, crop, root)
+        instance_seg.labels_into_channels = plain_compile
+        pre_processing.labels_into_channels = plain_regen
+        res["by_chunks"] = _instance_by_chunks(cfg, best, vols[("test", 0)][0], root)
         return res
     finally:
         instance_seg.labels_into_channels = plain_compile
@@ -2263,6 +2291,188 @@ def _instance_card_vs_cpu(cfg, ckpt, crop, root):
             and card["mean_abs"] <= 1.2 * cpu["mean_abs"]):
         raise AssertionError(f"instance test pass: card and CPU differ: {out}")
     return out
+
+
+# phase 12 c: the template's BY_CHUNKS block on the test volume's first 72 x
+# 192 x 192 voxels, a whole number of the 24 x 96 x 96 cores (patch 40 x 128 x
+# 128 less twice the padding 8 x 16 x 16; PATCHES_PER_TILE 1 x 1 x 1): 3 x 2 x 2
+# tiles, cut in z, y and x. The in-memory stitch spreads its patches to end
+# at the volume's edge and tiles step by the core, so the two grids coincide
+# only on whole cores (phase 13's DET_CHUNK_SHAPE)
+INSTANCE_CHUNK_SHAPE = (72, 192, 192)
+
+
+def _plain_instance_merge(raw_path, instance_fn, tile, halo, iou_th, min_size):
+    """The by-chunks instance merge written plainly: each tile's labels from
+    ``instance_fn`` over its core and halo of the raw prediction, offset by
+    the tile maxima before it in tile order; an edge between two ids of
+    adjacent cores whose IoU over the touching faces reaches ``iou_th``;
+    scipy's connected components over ids 0..n (numbered in the order of
+    each component's smallest id, the order the merge's compaction keeps);
+    then, with ``min_size``, the merged instances below it dropped and the
+    ids compacted again."""
+    from itertools import product
+
+    import numpy as np
+    from scipy.sparse import coo_matrix
+    from scipy.sparse.csgraph import connected_components
+
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+    from biapy_tpu_torch.engine.chunked import dequant_pred
+
+    raw = ZarrArray(str(raw_path))
+    shape = tuple(raw.shape[:3])
+    counts = [-(-n // t) for n, t in zip(shape, tile)]
+    out = np.zeros(shape, np.int64)
+    total = 0
+    cores = {}
+    for idx in product(*(range(c) for c in counts)):  # C order: sorted tile order
+        cs = [i * t for i, t in zip(idx, tile)]
+        ce = [min(n, c + t) for n, c, t in zip(shape, cs, tile)]
+        hs = [max(0, c - h) for c, h in zip(cs, halo)]
+        he = [min(n, c + h) for n, c, h in zip(shape, ce, halo)]
+        lab = np.asarray(instance_fn(dequant_pred(raw[tuple(slice(a, b) for a, b in
+                                                               zip(hs, he)) + (slice(None),)])))
+        core = lab[tuple(slice(c - h, e - h) for c, e, h in zip(cs, ce, hs))].astype(np.int64)
+        sl = tuple(slice(c, e) for c, e in zip(cs, ce))
+        out[sl] = np.where(core > 0, core + total, 0)
+        total += int(core.max())
+        cores[idx] = sl
+    pairs = []
+    for idx, sl in cores.items():
+        for d in range(3):
+            nb = tuple(v + (k == d) for k, v in enumerate(idx))
+            if nb not in cores:
+                continue
+            face_a = tuple(slice(s.stop - 1, s.stop) if k == d else s for k, s in enumerate(sl))
+            face_b = tuple(slice(cores[nb][d].start, cores[nb][d].start + 1) if k == d else s
+                           for k, s in enumerate(sl))
+            a, b = out[face_a].ravel(), out[face_b].ravel()
+            area_a = np.bincount(a, minlength=total + 1)
+            area_b = np.bincount(b, minlength=total + 1)
+            both = (a > 0) & (b > 0)
+            codes, inter = np.unique(a[both] * (total + 1) + b[both], return_counts=True)
+            ia, ib = codes // (total + 1), codes % (total + 1)
+            iou = inter / np.maximum(area_a[ia] + area_b[ib] - inter, 1)
+            pairs += [(int(x), int(y)) for x, y in zip(ia[iou >= iou_th], ib[iou >= iou_th])]
+    e = np.asarray(pairs, np.int64).reshape(-1, 2)
+    graph = coo_matrix((np.ones(len(e)), (e[:, 0], e[:, 1])), shape=(total + 1, total + 1))
+    _, comp = connected_components(graph, directed=False)
+    merged = comp[out]
+    if min_size > 0:
+        sizes = np.bincount(merged.ravel())
+        keep = sizes >= min_size
+        keep[0] = False
+        ids = np.zeros(len(sizes), np.int64)
+        ids[keep] = np.arange(1, int(keep.sum()) + 1)
+        merged = ids[merged]
+    return merged.astype(np.int32), total, len(pairs)
+
+
+def _instance_by_chunks(cfg, ckpt, vol, root):
+    """(c) ``TEST.BY_CHUNKS`` as the template's commented block has it
+    (ENABLE: True, the defaults: PATCHES_PER_TILE 1 x 1 x 1, IoU 0.3; bf16
+    under the template's REDUCE_MEMORY), from ``ckpt`` on ``vol``'s first
+    INSTANCE_CHUNK_SHAPE voxels written as a uint8 Zarr, through
+    ``BiaPy(cfg).test()``; the normalisation statistics the volume's own,
+    fixed (a tile is otherwise normalised by its own). The raw prediction
+    within 1 uint8 LSB of ``predict`` on the volume in memory (phase 10's
+    rule); the merged ``instances.zarr`` equal, id for id, to
+    ``_plain_instance_merge`` over the same raw prediction; launches equal to
+    the model's count for the forwards it ran. The seconds of each merge
+    pass, Mvox/s and the ids before and after the merge printed."""
+    import copy
+
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+    from biapy_tpu_torch.engine.chunked import tile_grid
+    from biapy_tpu_torch.ops.kernels import build
+
+    t_phase = time.perf_counter()
+    crop = np.ascontiguousarray(vol[tuple(slice(0, n) for n in INSTANCE_CHUNK_SHAPE)])
+    test_dir = root / "chunks" / "test"
+    test_dir.mkdir(parents=True)
+    z = ZarrArray.create(str(test_dir / "vol.zarr"), shape=crop.shape + (1,),
+                         chunks=(24, 96, 96, 1), dtype="u1", compressor={"id": "zlib", "level": 1})
+    z[:, :, :, :] = crop[..., None]
+    c = copy.deepcopy(cfg)
+    c["TRAIN"]["ENABLE"] = False
+    c["MODEL"]["LOAD_CHECKPOINT"] = True
+    c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+    c["DATA"]["TEST"].update(PATH=str(test_dir), LOAD_GT=False, IN_MEMORY=False)
+    c["DATA"]["NORMALIZATION"] = _fixed_stats(crop)
+    c["TEST"]["BY_CHUNKS"] = {"ENABLE": True}
+    job = BiaPy(c, result_dir=str(root / "chunks_results"), name="instance_chunks", silent=True)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    job.test()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, routes = dict(build.LAUNCHES), dict(build.CONV3D_ROUTES)
+    want, want_routes = _expected_launches(wf.model, calls)
+    ci = wf.last_chunked
+    merge = ci.last_merge_stats
+    (inst,) = [p for p in wf._predictions if p["role"] == "instances_zarr"]
+    raw_path = Path(inst["path"]).parent / "raw_pred.zarr"
+    got = np.asarray(ZarrArray(inst["path"])[:])
+    t0 = time.perf_counter()
+    plain, plain_ids, plain_edges = _plain_instance_merge(
+        raw_path, wf._instance_fn_no_size_filter, ci.tile_size, ci.halo,
+        float(wf.cfg.TEST.BY_CHUNKS.WORKFLOW_PROCESS.INSTANCE_SEG_MERGE_IOU_TH), 0)
+    plain_s = time.perf_counter() - t0
+    # the same volume in memory
+    m = copy.deepcopy(c)
+    m["TEST"].pop("BY_CHUNKS")
+    jm = BiaPy(m, result_dir=str(root / "chunks_results"), name="instance_memory", silent=True)
+    jm._build_workflow()
+    calls_m = _count_forwards(jm.workflow)
+    build.reset_launches()
+    t0 = time.perf_counter()
+    mem = {p["role"]: p for p in jm.predict(crop)}
+    torch.cuda.synchronize()
+    mem_s = time.perf_counter() - t0
+    launches_m, routes_m = dict(build.LAUNCHES), dict(build.CONV3D_ROUTES)
+    want_m, want_routes_m = _expected_launches(jm.workflow.model, calls_m)
+    raw = np.asarray(ZarrArray(str(raw_path))[:], np.float32)
+    diff = np.abs(raw - np.asarray(mem["raw"]["pred"], np.float32).reshape(raw.shape))
+    n_tiles = len(tile_grid(crop.shape, ci.tile_size, ci.halo))
+    vox = float(np.prod(crop.shape))
+    res = dict(shape=list(crop.shape), tile=list(ci.tile_size), n_tiles=n_tiles, seconds=secs,
+               mvox_s=vox / secs / 1e6, merge_pass_seconds=merge["pass_seconds"],
+               ids_before=merge["ids_before"], ids_after=merge["ids_after"],
+               n_instances=int(len(np.unique(got)) - 1), edges=merge["edges"],
+               plain_ids=plain_ids, plain_edges=plain_edges, plain_seconds=plain_s,
+               same_as_plain=bool(np.array_equal(got, plain)),
+               raw_max_abs=float(diff.max()), raw_voxels_differ=int(np.count_nonzero(diff)),
+               memory_seconds=mem_s, launches=launches, conv3d_routes=routes,
+               memory_launches=launches_m,
+               drain=wf.last_chunked.last_drain_stats)
+    print(f"[instance-chunks] {tuple(crop.shape)} uint8 Zarr, {n_tiles} tiles of "
+          f"{tuple(ci.tile_size)} (halo {tuple(ci.halo)}), bf16: test() {secs:.2f} s, "
+          f"{res['mvox_s']:.3f} Mvox/s; merge passes s "
+          f"{ {k: round(v, 3) for k, v in merge['pass_seconds'].items()} }, ids "
+          f"{merge['ids_before']} tile-local -> {merge['ids_after']} merged "
+          f"({res['n_instances']} instances, {merge['edges']} edges); the plain merge "
+          f"(connected components) {plain_s:.2f} s, the same ids: {res['same_as_plain']}; raw "
+          f"prediction against predict() in memory ({mem_s:.2f} s): max "
+          f"{res['raw_max_abs']:.3g} ({res['raw_voxels_differ']} voxels differ); launches "
+          f"{launches}")
+    cut = all(n > t for n, t in zip(crop.shape, ci.tile_size))  # tiles cut z, y and x
+    if not (cut and res["same_as_plain"] and plain_ids == merge["ids_before"]
+            and diff.max() <= 1 / 255 + 1e-6 and merge["ids_before"] > merge["ids_after"] > 0
+            and launches == want and routes == want_routes and launches_m == want_m
+            and routes_m == want_routes_m):
+        raise AssertionError(f"instance by chunks: {res}; launches want {want} {want_routes}, "
+                             f"in memory {launches_m} {routes_m} want {want_m} {want_routes_m}")
+    res["phase_seconds"] = time.perf_counter() - t_phase
+    return res
 
 
 # phase 13: point detection -- the repository's 3D detection template on
@@ -2969,7 +3179,8 @@ def _count_forwards(wf, outputs=None):
     def hook(m, args, out):
         calls.append((m.training, args[0].dtype))
         if outputs is not None:
-            outputs.append(out.detach().float().cpu().numpy())
+            outputs.append({k: v.detach().float().cpu().numpy() for k, v in out.items()}
+                           if isinstance(out, dict) else out.detach().float().cpu().numpy())
 
     def prepare_model():
         prepare()
@@ -4224,8 +4435,450 @@ def phase_2d(smi):
         shutil.rmtree(root0, ignore_errors=True)
 
 
+# phase 17: the class heads (DATA.N_CLASSES 3) of the 3D instance and
+# detection templates, on ellipsoids made as phase 12's (a seeded class for
+# each) and blobs made as phase 13's (a seeded class for each point), one
+# training volume each
+CLASS_N = 3
+# the card-vs-CPU training step: one patch of 8 x 64 x 64 at the template's
+# widths. On the instance template's 40 x 128 x 128 patch the float32
+# gradients of card and CPU part by 6.5e-5 of scale (the forwards there agree
+# to 1e-6 of scale, the updated weights to 1.5e-7): wider than the step's
+# 1e-5 (the cause, likely float32 sums over 20 times the voxels in another
+# order, is not measured)
+CLASS_STEP_PATCH = (8, 64, 64)
+# phase 15's limits (vit, unet) at phase 15's rate, the template's (TRAIN.LR)
+CLASS_STEP_TOLS = {"loss": 1e-6, "grad": 1e-5, "weight": 1e-6}
+# by chunks: the test volume's first 72 x 192 x 192 voxels, whole 12 x 96 x 96
+# cores of the detection template (patch 20 x 128 x 128, padding 4 x 16 x 16):
+# 6 x 2 x 2 tiles (phase 12 c's reasoning)
+CLASS_DET_CHUNK_SHAPE = (72, 192, 192)
+
+
+def _class_head_sources(root):
+    """Phase 12's first training and test volumes of ellipsoids (labels as GT)
+    and phase 13's of blobs (CSV points), made with the same generators and
+    seeds, under ``root``."""
+    import yaml
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    out = {}
+    for kind, tpl in (("instance", INSTANCE_TEMPLATE), ("detection", DETECTION_TEMPLATE)):
+        src = root / f"src_{kind}"
+        with open(tpl) as f:
+            cfg = yaml.safe_load(f)
+        for split, seed in (("train", 0), ("test", 2)):
+            for d in ("x", "y" if kind == "instance" else "csv"):
+                (src / split / d).mkdir(parents=True)
+            if kind == "instance":
+                img, lab = _ellipsoids(INSTANCE_SHAPE, INSTANCE_COUNT, seed=seed)
+                write_tiff(str(src / split / "y" / f"{split}_000.tif"), lab)
+            else:
+                img, pts = _blob_volume(DET_SHAPE, DET_BLOBS, seed=100 + seed)
+                _points_csv(src / split / "csv" / f"{split}_000.csv", pts)
+            write_tiff(str(src / split / "x" / f"{split}_000.tif"), img)
+        out[kind] = dict(root=str(src), cfg=cfg)
+    return out
+
+
+def _class_head_cfg(src, kind, root):
+    """The template of ``src`` with DATA.N_CLASSES 3, EPOCHS 2, its first
+    training volume and its test volume (links under ``root``) and the GT
+    with classes written by the caller under ``root``."""
+    import copy
+    import os
+    import shutil
+
+    cfg = copy.deepcopy(src["cfg"])
+    gt = "y" if kind == "instance" else "csv"
+    for split in ("train", "test"):
+        (root / split / "x").mkdir(parents=True)
+        (root / split / gt).mkdir(parents=True)
+        f = sorted((Path(src["root"]) / split / "x").iterdir())[0]
+        try:
+            os.link(f, root / split / "x" / f.name)
+        except OSError:
+            shutil.copy(f, root / split / "x" / f.name)
+        cfg["DATA"][split.upper()].update(PATH=str(root / split / "x"),
+                                          GT_PATH=str(root / split / gt))
+    cfg["DATA"]["N_CLASSES"] = CLASS_N
+    cfg["TRAIN"]["EPOCHS"] = 2
+    cfg["TRAIN"]["LR_SCHEDULER"]["WARMUP_COSINE_DECAY_EPOCHS"] = 1
+    return cfg
+
+
+def _class_head_job(kind, cfg, root, smi, total):
+    """``run_job`` of a class-head config: launches against the model's count
+    for every forward it ran (none on ``scalar``), two finite epochs and the
+    best checkpoint; its seconds, loss, test metrics (a record: two epochs)."""
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.ops.kernels import build
+
+    job = BiaPy(cfg, result_dir=str(root / "results"), name=f"{kind}_cls", silent=True)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    train_s, test_s = [], []
+    wf.train, wf.test = _timed(wf.train, train_s), _timed(wf.test, test_s)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    job.run_job()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    launches, routes = dict(build.LAUNCHES), dict(build.CONV3D_ROUTES)
+    shuffle_routes = {k: dict(v) for k, v in build.SHUFFLE_ROUTES.items()}
+    _launch_totals(total)
+    want, want_routes = _expected_launches(wf.model, calls)
+    hist = wf.history
+    best = Path(wf.cfg.PATHS.CHECKPOINT) / f"{kind}_cls-checkpoint-best.ckpt"
+    if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist) or not best.exists()
+            or launches != want or routes != want_routes
+            or any(v["scalar"] for v in shuffle_routes.values())
+            or wf.output_channels[-1] != CLASS_N or wf.output_channel_info[-1] != "class"):
+        raise AssertionError(f"{kind} class head: epochs {hist}, {best.name} "
+                             f"{best.exists()}, launches {launches} (want {want}), routes "
+                             f"{routes} (want {want_routes}), shuffle routes {shuffle_routes}, "
+                             f"heads {wf.output_channels} {wf.output_channel_info}")
+    out = dict(seconds=secs, train_seconds=train_s[0], test_seconds=test_s[0],
+               loss=[h["loss"] for h in hist], train_patches=len(wf.train_data),
+               launches=launches, conv3d_routes=routes, forwards=len(calls), best=str(best))
+    print(f"[class-heads] {smi}: {kind} template, N_CLASSES {CLASS_N}, heads "
+          f"{wf.output_channels} {wf.output_channel_info}, {len(wf.train_data)} train patches, 2 "
+          f"epochs: run_job {secs:.2f} s (train {train_s[0]:.2f}, test {test_s[0]:.2f}), loss "
+          f"{[round(h['loss'], 5) for h in hist]}; launches {launches} over {len(calls)} "
+          f"forwards, conv3d routes {routes}")
+    return wf, out
+
+
+def _class_head_card_vs_cpu(kind, cfg, ckpt, crop, root):
+    """``predict`` of ``ckpt`` on ``crop`` (one patch of the template's size:
+    TEST.PADDING 0) on the card and on the CPU (plain versions), float32 and
+    bf16 (REDUCE_MEMORY): the model's two heads (read by a hook: ``pred`` and
+    ``class`` logits) within 1e-4 of their scale in float32, and in bf16 no
+    farther from the card's float32 ones than the CPU's bf16 (phase 12 b's
+    rule: 1.5x at the worst voxel, 1.2x on the mean); where the float32
+    instances (or points) are the same on both sides, the same voted classes
+    (point classes). The launches of the card's side are set back to 0."""
+    import copy
+
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.ops.kernels import build
+
+    runs = {}
+    for dt, reduce_mem in (("float32", False), ("bfloat16", True)):
+        c = copy.deepcopy(cfg)
+        c["TRAIN"]["ENABLE"] = False
+        c["MODEL"].update(LOAD_CHECKPOINT=True, SKIP_UNMATCHED_LAYERS=False)
+        c["PATHS"] = {"CHECKPOINT_FILE": ckpt}
+        c["DATA"]["TEST"]["PADDING"] = [0, 0, 0]
+        c["TEST"]["REDUCE_MEMORY"] = reduce_mem
+        for side, dev in (("card", DEVICE), ("cpu", "cpu")):
+            job = BiaPy(c, result_dir=str(root / "vs_plain"), name=f"{kind}_{dt}_{side}",
+                        silent=True, check_data_paths=False, device=dev)
+            job._build_workflow()
+            outs = []
+            _count_forwards(job.workflow, outs)
+            t0 = time.perf_counter()
+            preds = {p["role"]: p for p in job.predict(crop)}
+            secs = time.perf_counter() - t0
+            if len(outs) != 1 or sorted(outs[0]) != ["class", "pred"]:
+                raise AssertionError(f"{kind} class head: {len(outs)} forwards of one patch, "
+                                     f"outputs {[sorted(o) for o in outs]}")
+            if kind == "instance":
+                found = (preds["instances"]["instances"].astype(np.int64),
+                         preds["class_map"]["classes"].astype(np.int64))
+            else:
+                found = (np.asarray(preds["points"]["points"], np.int64),
+                         np.asarray(preds["points"]["classes"], np.int64))
+            runs[dt, side] = (outs[0], found, secs)
+    build.reset_launches()
+    out = {}
+    ok = True
+    for dt in ("float32", "bfloat16"):
+        heads, (f_card, f_cpu) = {}, (runs[dt, "card"][1], runs[dt, "cpu"][1])
+        for h in ("pred", "class"):
+            card, cpu = runs[dt, "card"][0][h], runs[dt, "cpu"][0][h]
+            ref = runs["float32", "card"][0][h]
+            scale = max(1.0, float(np.abs(runs["float32", "cpu"][0][h]).max()))
+            heads[h] = dict(max_abs=float(np.abs(card - cpu).max()), scale=scale,
+                            to_f32={side: dict(max_abs=float(np.abs(v - ref).max()),
+                                               mean_abs=float(np.abs(v - ref).mean()))
+                                    for side, v in (("card", card), ("cpu", cpu))})
+            if dt == "float32":
+                ok = ok and heads[h]["max_abs"] <= 1e-4 * scale
+            else:
+                tc, tp = heads[h]["to_f32"]["card"], heads[h]["to_f32"]["cpu"]
+                ok = ok and (tc["max_abs"] <= 1.5 * tp["max_abs"]
+                             and tc["mean_abs"] <= 1.2 * tp["mean_abs"])
+        if kind == "instance":
+            (i_card, c_card), (i_cpu, c_cpu) = f_card, f_cpu
+            same = (i_card == i_cpu) & (i_card > 0)
+            n_same, n_cls_diff = int(same.sum()), int(np.count_nonzero(c_card[same] != c_cpu[same]))
+            found = dict(instances=[int(i_card.max()), int(i_cpu.max())],
+                         voxels_differ=int(np.count_nonzero(i_card != i_cpu)))
+        else:
+            (p_card, c_card), (p_cpu, c_cpu) = f_card, f_cpu
+            cls_cpu = {tuple(p): k for p, k in zip(p_cpu.tolist(), c_cpu.tolist())}
+            common = [(tuple(p), k) for p, k in zip(p_card.tolist(), c_card.tolist())
+                      if tuple(p) in cls_cpu]
+            n_same = len(common)
+            n_cls_diff = sum(1 for p, k in common if cls_cpu[p] != k)
+            found = dict(points=[len(p_card), len(p_cpu)])
+        out[dt] = dict(heads=heads, same=n_same, classes_differ_where_same=n_cls_diff,
+                       card_s=runs[dt, "card"][2], cpu_s=runs[dt, "cpu"][2], **found)
+        if dt == "float32":
+            ok = ok and n_cls_diff == 0
+        print(f"[class-heads-vs-plain] {kind}, best checkpoint on one {crop.shape} patch, "
+              f"{dt}: " + "; ".join(
+                  f"{h} max |card - CPU| {v['max_abs']:.3g} (scale {v['scale']:.3g}), to the "
+                  f"card's float32 card {v['to_f32']['card']['max_abs']:.3g} / CPU "
+                  f"{v['to_f32']['cpu']['max_abs']:.3g}" for h, v in heads.items())
+              + f"; {found}, {n_same} the same on both sides ({'voxels' if kind == 'instance' else 'points'}), "
+              f"{n_cls_diff} of them with other classes; card {out[dt]['card_s']:.2f} s, CPU "
+              f"{out[dt]['cpu_s']:.2f} s")
+    if not ok:
+        raise AssertionError(f"{kind} class head: card and CPU differ: {out}")
+    return out
+
+
+def _class_window(centre, patch, shape):
+    """The ``patch`` window of a volume of ``shape`` centred on ``centre`` as
+    far as the volume allows."""
+    start = [min(max(int(c) - n // 2, 0), s - n) for c, n, s in zip(centre, patch, shape)]
+    return tuple(slice(a, a + n) for a, n in zip(start, patch))
+
+
+def _class_step_batch(kind, wf, img, gt, win):
+    """One float32 training sample, the window ``win`` of ``img``: the input
+    normalised by its own statistics and the GT as the workflow's loss reads
+    it (instance: the compiled channels, then the class map; detection: the
+    mask and class channel of the points inside ``win``)."""
+    import numpy as np
+
+    from biapy_tpu_torch.data.pre_processing import create_detection_masks, labels_into_channels
+
+    x = img[win].astype(np.float32)
+    x = (x - x.mean()) / max(float(x.std()), 1e-6)
+    if kind == "instance":
+        lab, cls = gt
+        y = np.concatenate([labels_into_channels(lab[win][..., None], wf.channel_codes,
+                                                 wf.channel_extra_opts),
+                            cls[win][..., None].astype(np.float32)], axis=-1)
+    else:
+        pts, cls = gt
+        inside = np.all([(pts[:, d] >= w.start) & (pts[:, d] < w.stop)
+                         for d, w in enumerate(win)], axis=0)
+        pts, cls = pts[inside], cls[inside]
+        dil = list(wf.cfg.PROBLEM.DETECTION.CENTRAL_POINT_DILATION)
+        y = create_detection_masks(pts - np.asarray([w.start for w in win]), x.shape,
+                                   dilation=dil * (3 // len(dil)), classes=cls, n_classes=CLASS_N)
+    return {"x": x[None, ..., None], "y": y[None].astype(np.float32)}
+
+
+def _counted_run(job, run):
+    """``run()`` (``job.test`` or ``predict``) with the launch counters set
+    to 0 just before it: the launches and conv3d routes it made, and those
+    that the model's count gives for the forwards it ran."""
+    import torch
+
+    from biapy_tpu_torch.ops.kernels import build
+
+    job._build_workflow()
+    calls = _count_forwards(job.workflow)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    t0 = time.perf_counter()
+    out = run()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    got = (dict(build.LAUNCHES), dict(build.CONV3D_ROUTES))
+    return out, secs, got, _expected_launches(job.workflow.model, calls)
+
+
+def phase_class_heads(smi):
+    """(a) The 3D instance template with DATA.N_CLASSES 3 on phase 12's first
+    training and test volumes of ellipsoids (``_class_head_sources``), the
+    GT their labels beside a seeded class map (a class for each ellipsoid),
+    from seeded initial weights, through ``run_job``: launches against the
+    model's count, the instances TIFF with its class channel, the class IoU
+    and matching; its best checkpoint card against CPU on one patch of the
+    template's size (``_class_head_card_vs_cpu``) and one float32 training
+    step card against CPU on a CLASS_STEP_PATCH patch at the template's rate
+    (CLASS_STEP_TOLS, phase 15's rule). (b) The 3D detection template with DATA.N_CLASSES 3 on phase
+    13's blobs with a seeded ``class`` column in the CSVs, the same way, the
+    points CSV with its class column and the class-aware metrics; then by
+    chunks on the test volume's first CLASS_DET_CHUNK_SHAPE voxels held
+    against ``predict`` in memory (phase 13 b's rule) with the same classes
+    at the same points, the launches of each against the model's count.
+    ``total`` adds up the launches of ``run_job``, by chunks and in memory;
+    those of the card-vs-CPU checks are set back to 0."""
+    import copy
+    import shutil
+
+    import numpy as np
+
+    from biapy_tpu_torch import BiaPy, native
+    from biapy_tpu_torch.data.tiff import read_tiff, write_tiff
+    from biapy_tpu_torch.data.zarr_store import ZarrArray
+    from biapy_tpu_torch.engine.detection import read_points_csv
+    from biapy_tpu_torch.ops.kernels import build
+
+    native._load()
+    root0 = OUT_DIR / "chip_smoke_class_heads"
+    shutil.rmtree(root0, ignore_errors=True)
+    total = {"launches": {}, "conv3d_routes": {}, "shuffle_routes": {}}
+    res = {}
+    try:
+        t_all = time.perf_counter()
+        srcs = _class_head_sources(root0)
+        rng = np.random.default_rng(17)
+
+        def card_vs_cpu(kind, cfg, wf, r, img, gt, centre, root):
+            """``_class_head_card_vs_cpu`` on the template's patch and the
+            training step on CLASS_STEP_PATCH, both centred on ``centre``."""
+            patch = tuple(int(n) for n in wf.cfg.DATA.PATCH_SIZE[:3])
+            win = _class_window(centre, patch, img.shape)
+            r["vs_plain"] = _class_head_card_vs_cpu(kind, cfg, r["best"], img[win], root)
+            win = _class_window(centre, CLASS_STEP_PATCH, img.shape)
+            t0 = time.perf_counter()
+            r["step_vs_plain"] = _restoration_step_vs_plain(
+                cfg, r["best"], _class_step_batch(kind, wf, img, gt, win), root, f"{kind}_cls",
+                CLASS_STEP_TOLS, float(wf.cfg.TRAIN.LR[0]))
+            r["step_vs_plain_seconds"] = time.perf_counter() - t0
+            build.reset_launches()
+            _print_step_vs_plain(kind, r["step_vs_plain"], img[win].shape, "class-heads")
+            print(f"[class-heads-vs-plain] {kind}: the training step card and CPU "
+                  f"{r['step_vs_plain_seconds']:.2f} s")
+
+        # (a) instances with a class head
+        root = root0 / "instance"
+        cfg = _class_head_cfg(srcs["instance"], "instance", root)
+        gts = {}
+        for split in ("train", "test"):
+            src_y = sorted((Path(srcs["instance"]["root"]) / split / "y").iterdir())[0]
+            lab = read_tiff(str(src_y))
+            cls_of = np.concatenate([[0], 1 + rng.integers(0, CLASS_N - 1, int(lab.max()))])
+            cls = cls_of[lab].astype(lab.dtype)
+            write_tiff(str(root / split / "y" / src_y.name), np.stack([lab, cls], axis=-1))
+            gts[split] = (lab, cls)
+        wf, r = _class_head_job("instance", cfg, root, smi, total)
+        per_image = Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE_INSTANCES)
+        inst = read_tiff(str(next(per_image.glob("*.tif"))))
+        cmaps = [p["classes"] for p in wf._predictions if p["role"] == "class_map"]
+        if (inst.shape != INSTANCE_SHAPE + (2,) or len(cmaps) != 1
+                or not np.array_equal(inst[..., 1], cmaps[0])
+                or not set(np.unique(cmaps[0])) <= set(range(CLASS_N))
+                or len(wf._class_ious) != 1 or not wf.matching_stats):
+            raise AssertionError(f"instance class head: instances {inst.shape}, class maps "
+                                 f"{len(cmaps)}, class IoU {wf._class_ious}")
+        r.update(class_iou=wf._class_ious[0], n_instances=int(inst[..., 0].max()),
+                 matching={str(s["thresh"]): s["f1"] for s in wf.matching_stats})
+        print(f"[class-heads] instance: {r['n_instances']} instances, class IoU "
+              f"{r['class_iou']:.4f}, matching F1 {r['matching']} (two epochs: a record)")
+        test_img = read_tiff(str(next((root / "test" / "x").iterdir())))
+        # one patch around the largest test ellipsoid
+        lab = gts["test"][0]
+        big_id = int(np.argmax(np.bincount(lab.ravel())[1:])) + 1
+        card_vs_cpu("instance", cfg, wf, r, test_img, gts["test"],
+                    np.argwhere(lab == big_id).mean(0), root)
+        res["instance"] = r
+
+        # (b) detection with a class head, in memory and by chunks
+        root = root0 / "detection"
+        cfg = _class_head_cfg(srcs["detection"], "detection", root)
+        gts = {}
+        for split in ("train", "test"):
+            src_csv = sorted((Path(srcs["detection"]["root"]) / split / "csv").glob("*.csv"))[0]
+            pts = read_points_csv(str(src_csv), 3).astype(np.int64)
+            cls = 1 + rng.integers(0, CLASS_N - 1, len(pts))
+            with open(root / split / "csv" / src_csv.name, "w") as f:
+                f.write("axis-0,axis-1,axis-2,class\n")
+                f.writelines(f"{p[0]},{p[1]},{p[2]},{k}\n" for p, k in zip(pts, cls))
+            gts[split] = (pts, cls)
+        wf, r = _class_head_job("detection", cfg, root, smi, total)
+        check = Path(wf.cfg.PATHS.RESULT_DIR.DET_LOCAL_MAX_COORDS_CHECK)
+        head = next(check.glob("*_points.csv")).read_text().splitlines()[0]
+        pts = [p for p in wf._predictions if p["role"] == "points"]
+        stats = wf.stats
+        if (head != "axis-0,axis-1,axis-2,class" or len(pts) != 1
+                or len(pts[0]["classes"]) != len(pts[0]["points"])
+                or "det_f1_class" not in stats):
+            raise AssertionError(f"detection class head: CSV header {head!r}, points {len(pts)}, "
+                                 f"stats {sorted(stats)}")
+        r.update(n_points=len(pts[0]["points"]),
+                 metrics={k: stats[k] for k in ("det_precision", "det_recall", "det_f1",
+                                                "det_precision_class", "det_recall_class",
+                                                "det_f1_class")})
+        print(f"[class-heads] detection: {r['n_points']} points; "
+              + ", ".join(f"{k[4:]} {v:.4f}" for k, v in r["metrics"].items())
+              + " (two epochs: a record)")
+        test_img = read_tiff(str(next((root / "test" / "x").iterdir())))
+        # one patch around the test volume's first GT point
+        card_vs_cpu("detection", cfg, wf, r, test_img, gts["test"], gts["test"][0][0], root)
+        # by chunks against in memory
+        big = np.ascontiguousarray(test_img[tuple(slice(0, n) for n in CLASS_DET_CHUNK_SHAPE)])
+        (root / "chunks").mkdir()
+        z = ZarrArray.create(str(root / "chunks" / "vol.zarr"), shape=big.shape + (1,),
+                             chunks=(24, 96, 96, 1), dtype="u1",
+                             compressor={"id": "zlib", "level": 1})
+        z[:, :, :, :] = big[..., None]
+        ccfg = copy.deepcopy(cfg)
+        ccfg["TRAIN"]["ENABLE"] = False
+        ccfg["MODEL"]["LOAD_CHECKPOINT"] = True
+        ccfg["PATHS"] = {"CHECKPOINT_FILE": r["best"]}
+        ccfg["DATA"]["TEST"].update(PATH=str(root / "chunks"), LOAD_GT=False, IN_MEMORY=False)
+        ccfg["DATA"]["NORMALIZATION"] = _fixed_stats(big)
+        ccfg["TEST"]["BY_CHUNKS"] = {"ENABLE": True, "WORKFLOW_PROCESS": {"ENABLE": True}}
+        jc = BiaPy(ccfg, result_dir=str(root / "results"), name="det_cls_chunks", silent=True)
+        _, chunk_s, got_c, want_c = _counted_run(jc, jc.test)
+        _launch_totals(total)
+        (pc,) = [p for p in jc.workflow._predictions if p["role"] == "points"]
+        mcfg = copy.deepcopy(ccfg)
+        mcfg["TEST"].pop("BY_CHUNKS")
+        jm = BiaPy(mcfg, result_dir=str(root / "results"), name="det_cls_memory", silent=True)
+        pm, mem_s, got_m, want_m = _counted_run(jm, lambda: jm.predict(big))
+        _launch_totals(total)
+        pm = {p["role"]: p for p in pm}
+        held = _hold_by_chunks(
+            jc.workflow, pm["raw"]["pred"], pm["points"]["points"], pc["points"],
+            jm.workflow._extract_points(pm["raw"]["pred"], global_post=False),
+            "vol_patch*_points.csv", int(jc.workflow.cfg.TEST.DET_PEAK_LOCAL_MAX_MIN_DISTANCE),
+            _detection_post(jc.workflow.cfg, CLASS_DET_CHUNK_SHAPE))
+        cls_mem = {tuple(int(v) for v in p): int(k)
+                   for p, k in zip(pm["points"]["points"], pm["points"]["classes"])}
+        common = [(tuple(int(v) for v in p), int(k))
+                  for p, k in zip(pc["points"], pc["classes"])
+                  if tuple(int(v) for v in p) in cls_mem]
+        cls_diff = sum(1 for p, k in common if cls_mem[p] != k)
+        r["by_chunks"] = dict(seconds=chunk_s, mvox_s=float(np.prod(big.shape)) / chunk_s / 1e6,
+                              memory_seconds=mem_s, launches=got_c[0], memory_launches=got_m[0],
+                              common_points=len(common), classes_differ=cls_diff, **held)
+        print(f"[class-heads] detection by chunks {big.shape}: {chunk_s:.2f} s, in memory "
+              f"{mem_s:.2f} s; {_held_line(held)}; {len(common)} points on both sides, "
+              f"{cls_diff} with other classes; launches by chunks {got_c[0]}, in memory "
+              f"{got_m[0]}")
+        if cls_diff or not common or got_c != want_c or got_m != want_m:
+            raise AssertionError(f"detection class head by chunks: {r['by_chunks']}; launches "
+                                 f"and routes by chunks {got_c} (want {want_c}), in memory "
+                                 f"{got_m} (want {want_m})")
+        res["detection"] = r
+        res.update(total, seconds=time.perf_counter() - t_all)
+        print(f"[class-heads] phase 17 launches {total['launches']}; conv3d routes "
+              f"{total['conv3d_routes']}")
+        return res
+    finally:
+        shutil.rmtree(root0, ignore_errors=True)
+
+
 def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, detection,
-              restoration, classification, twod):
+              restoration, classification, twod, heads):
     """One entry per kernel, in the main paths' dtype (bf16): ms, plain_ms,
     bound_ms and library_ms (device-side times, ``device_ms``; call_ms: the
     wrapper's call time, ``time_ms``) are sums over the kernel's launches in
@@ -4255,7 +4908,9 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     templates and the TEST.FULL_IMG predict: pool and pool backward only),
     and the pool and pool backward entries carry ``2d_<template>_*`` sums:
     the 2D templates' pools (one forward or backward at the template's
-    batch and patch)."""
+    batch and patch). ``launches`` also counts phase 12 c's runs (the
+    instance template by chunks with the merge, and ``predict`` in memory:
+    ``instance_merge``) and phase 17's (the class heads: ``class_heads``)."""
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -4326,7 +4981,10 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
                    "detection": detection["launches"].get(name, 0),
                    "restoration": restoration["launches"].get(name, 0),
                    "classification": classification["launches"].get(name, 0),
-                   "2d": twod["launches"].get(name, 0)}
+                   "2d": twod["launches"].get(name, 0),
+                   "instance_merge": (instance["by_chunks"]["launches"].get(name, 0)
+                                      + instance["by_chunks"]["memory_launches"].get(name, 0)),
+                   "class_heads": heads["launches"].get(name, 0)}
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
@@ -4362,10 +5020,12 @@ def main():
     restoration_only = sys.argv[1:] == ["--restoration-only"]
     classification_only = sys.argv[1:] == ["--classification-only"]
     twod_only = sys.argv[1:] == ["--2d-only"]
+    class_heads_only = sys.argv[1:] == ["--class-heads-only"]
     if sys.argv[1:] and not (conv3d_only or instance_only or detection_only or restoration_only
-                             or classification_only or twod_only):
+                             or classification_only or twod_only or class_heads_only):
         sys.exit("usage: chip_smoke.py [--conv3d-only | --instance-only | --detection-only | "
-                 "--restoration-only | --classification-only | --2d-only]")
+                 "--restoration-only | --classification-only | --2d-only | "
+                 "--class-heads-only]")
     smi, name = phase_environment()
     t_start = time.perf_counter()
     build_s, ptxas = phase_build()
@@ -4378,6 +5038,17 @@ def main():
             card=smi, build_seconds=build_s, instance=instance,
             seconds=time.perf_counter() - t_start), indent=1))
         print(f"[done] phases 1, 2 and 12 in {time.perf_counter() - t_start:.0f} s")
+        return
+    if class_heads_only:
+        # phases 1-2 and 17 alone, on data made as phases 12 and 13 make theirs
+        # (no checkpoint to start from): the quick check of the class heads;
+        # prints no result line
+        heads = phase_class_heads(smi)
+        OUT_DIR.mkdir(exist_ok=True)
+        (OUT_DIR / "chip_smoke_class_heads.json").write_text(json.dumps(dict(
+            card=smi, build_seconds=build_s, class_heads=heads,
+            seconds=time.perf_counter() - t_start), indent=1))
+        print(f"[done] phases 1, 2 and 17 in {time.perf_counter() - t_start:.0f} s")
         return
     if detection_only:
         # phases 1-2 and 13 alone: the quick check of point detection; prints
@@ -4457,19 +5128,23 @@ def main():
     tta = timed("11 c TTA vs plain", phase_tta_vs_plain)
     template = timed("11 d template", phase_template)
     instance = timed("12 instance", phase_instance_template)
+    # 12 c apart: the by-chunks run with the merge
+    phase_s["12 c by chunks"] = round(instance["by_chunks"]["phase_seconds"], 1)
+    phase_s["12 instance"] = round(phase_s["12 instance"] - phase_s["12 c by chunks"], 1)
     det = timed("13 detection", phase_detection, smi)
     rest = timed("14 restoration", phase_restoration, smi)
     cls = timed("15 classification", phase_classification, smi)
     twod = timed("16 2D", phase_2d, smi)
+    heads = timed("17 class heads", phase_class_heads, smi)
     print(f"[time] seconds by phase (build {build_s:.1f}): {phase_s}")
     kernels = summarise(rows, serve, train, larger_io, job, chunks, aug, template, instance, det,
-                        rest, cls, twod)
+                        rest, cls, twod, heads)
     OUT_DIR.mkdir(exist_ok=True)
     (OUT_DIR / "chip_smoke.json").write_text(json.dumps(dict(
         card=smi, build_seconds=build_s, ptxas=ptxas, kernel_rows=rows, main=serve, train=train,
         train_larger_io=larger_io, job=job, by_chunks=chunks, augmented=aug,
         tta_vs_plain=tta, template=template, instance_template=instance, detection=det,
-        restoration=rest, classification=cls, twod=twod,
+        restoration=rest, classification=cls, twod=twod, class_heads=heads,
         whole_vs_plain_max_abs=diff,
         whole_vs_plain_bf16=diff_bf16, grads_vs_plain=grads,
         kernels=kernels, phase_seconds=phase_s, seconds=time.perf_counter() - t_start),
@@ -4491,8 +5166,9 @@ def main():
           "zcat_bwds at batch 8; the 2d_<template>_* sums of pool_max_folded and "
           "pool_max_folded_bwd over each 2D template's pools at its batch and patch; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
-          "TTA passes, the template's, the instance template's, phase 13's, the restoration "
-          "templates', phase 15's and the 2D templates' included)")
+          "TTA passes, the template's, the instance template's (by chunks with the merge "
+          "apart: instance_merge), phase 13's, the restoration templates', phase 15's, the 2D "
+          "templates' and the class heads' included)")
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name,
                                               "count": torch.cuda.device_count()}}))

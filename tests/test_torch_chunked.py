@@ -451,23 +451,16 @@ def test_zarr_training_samples_and_first_batch_match_jax(tmp_path):
     assert tb["y"].any() and tb["x"].std() > 0
 
 
-@pytest.mark.parametrize("what", ["tta", "instance-merge"])
+@pytest.mark.parametrize("what", ["tta"])
 def test_left_out_parts_name_the_roadmap(what, chunk_jobs, tmp_path):
-    """The instance merge raises, naming the roadmap. Test-time augmentation
-    under TEST.BY_CHUNKS, left out until ROADMAP queue 1 item 1, now takes
-    the host crop/merge path and writes the store (its values against the
-    JAX package's: tests/test_torch_tta.py)."""
-    if what == "tta":
-        cfg = _chunks_cfg(chunk_jobs["root"], chunk_jobs["ckpt"], False)
-        cfg["TEST"].update(AUGMENTATION=True, AUGMENTATION_GROUP="flips")
-        job = biapy_tpu_torch.BiaPy(cfg, result_dir=str(tmp_path), name=NAME, silent=True,
-                                    device="cpu")
-        job.test()
-        raw = tzs.ZarrArray(f"{job.workflow.cfg.PATHS.RESULT_DIR.PER_IMAGE}/vol_chunks/"
-                            "raw_pred.zarr")
-        assert raw.shape == JOB_SHAPE + (1,) and np.asarray(raw[:]).std() > 0
-    else:
-        ci = tch.ChunkedInference(None, (16, 16, 16), (0.0,) * 3, (2, 2, 2), (1, 1, 1), 2,
-                                  str(tmp_path))
-        with pytest.raises(NotImplementedError, match="instance merge.*queue 1 item 9"):
-            ci.create_and_merge_instances(str(tmp_path / "raw_pred.zarr"), lambda p: p)
+    """Test-time augmentation under TEST.BY_CHUNKS, left out until ROADMAP
+    queue 1 item 1, now takes the host crop/merge path and writes the store
+    (its values against the JAX package's: tests/test_torch_tta.py)."""
+    cfg = _chunks_cfg(chunk_jobs["root"], chunk_jobs["ckpt"], False)
+    cfg["TEST"].update(AUGMENTATION=True, AUGMENTATION_GROUP="flips")
+    job = biapy_tpu_torch.BiaPy(cfg, result_dir=str(tmp_path), name=NAME, silent=True,
+                                device="cpu")
+    job.test()
+    raw = tzs.ZarrArray(f"{job.workflow.cfg.PATHS.RESULT_DIR.PER_IMAGE}/vol_chunks/"
+                        "raw_pred.zarr")
+    assert raw.shape == JOB_SHAPE + (1,) and np.asarray(raw[:]).std() > 0

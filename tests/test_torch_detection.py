@@ -17,9 +17,7 @@ Small numpy-seeded inputs, one function at a time:
   a resolution) and the synapse workflow's in-memory point extraction and
   metrics (thresholds, ``blob_log``, removal by radius and by mask):
   identical points;
-* ``all_gather_objects``: one process, and two over gloo;
-* the detection class head raises ``NotImplementedError`` naming ROADMAP
-  item 9.
+* ``all_gather_objects``: one process, and two over gloo.
 """
 
 import csv
@@ -258,13 +256,6 @@ def test_detection_loss_and_gradient_equal_jax(rebalance, weights):
     assert tv.dtype == torch.float32
     assert abs(tv.item() - jv) <= 1e-6 * abs(jv), (tv.item(), jv)
     np.testing.assert_allclose(tp.grad.numpy(), np.asarray(jg), rtol=0, atol=1e-6)
-
-
-def test_detection_class_head_raises_naming_item_9():
-    with pytest.raises(NotImplementedError, match="ROADMAP: queue 1 item 9"):
-        _det_wf(TD.Detection_Workflow, get_cfg_defaults, data={"N_CLASSES": 3})
-    with pytest.raises(NotImplementedError, match="ROADMAP: queue 1 item 9"):
-        TM.detection_loss(num_classes=3)
 
 
 # ---------------------------------------------------------------- point extraction

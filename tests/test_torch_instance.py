@@ -365,10 +365,7 @@ UNPORTED = {
         "DATA_CHANNELS": ["B", "Db"],
         "DATA_CHANNELS_EXTRA_OPTS": [{"Db": {"val_type": "omnipose"}}]}}},
     "rays": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["F", "R"]}}},
-    "class-head": {"DATA": {"N_CLASSES": 3}},
     "contrast": {"LOSS": {"CONTRAST": {"ENABLE": True}}},
-    "by-chunks": {"TEST": {"BY_CHUNKS": {"ENABLE": True,
-                                         "WORKFLOW_PROCESS": {"ENABLE": True}}}},
 }
 
 
