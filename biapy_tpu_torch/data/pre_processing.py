@@ -7,8 +7,9 @@ DATA.PREPROCESS pipeline, copied from the JAX package's
 TTA spec reads), ``create_detection_masks`` (CSV points to the dilated
 point mask of the detection workflow, with its class channel), and ``resize_image``, ``apply_gaussian_blur``,
 ``apply_median_blur``, ``match_histogram``, ``apply_clahe``,
-``detect_edges`` and ``preprocess_image``. The Omnipose and EmbedSeg
-channels raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
+``detect_edges`` and ``preprocess_image``. The Omnipose channels (flows
+and the distance field) come from the port's ``ops/omnipose.py``. The
+EmbedSeg channels raise ``NotImplementedError`` (ROADMAP queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -120,45 +121,168 @@ def hover_channels(labels: np.ndarray, norm: bool = True) -> np.ndarray:
     return out
 
 
-def cellpose_flows(labels: np.ndarray, n_iter: Optional[int] = None) -> np.ndarray:
-    """Cellpose heat-diffusion flows (reference: instances_to_flows:790 +
-    numba _extend_centers_2d/3d:700/747; Stringer et al. 2021).
+def _diffuse(pad: np.ndarray, center, it: int, device) -> np.ndarray:
+    """``cellpose_flows``' heat diffusion in float64 on ``device``: ``it``
+    times, one unit of heat added at ``center``, then the 2*nd-neighbour
+    average (the two neighbours of each axis summed, the axes added in
+    order, divided by 2*nd) kept inside the mask ``pad``. Additions and one
+    division, each rounded as IEEE float64 on any device: the NumPy loop's
+    bits."""
+    import torch
 
-    Diffuses heat from each instance's median center within the instance
-    mask, then returns the normalized gradient of the heat potential, per
-    axis, stacked channels-last. Background = 0.
-    """
-    nd = labels.ndim
+    m = torch.from_numpy(pad).to(device, torch.float64)
+    h = torch.zeros_like(m)
+    nd = pad.ndim
+    for _ in range(it):
+        h[center] += 1.0
+        acc = torch.zeros_like(h)
+        for d in range(nd):
+            acc += torch.roll(h, 1, d) + torch.roll(h, -1, d)
+        h = (acc / (2 * nd)) * m
+    return h.cpu().numpy()
+
+
+def _shifted(a, d: int, s: int):
+    """``a``'s value at p - s along axis ``d`` (s = 1 or -1), 0 past the edge."""
+    out = a.new_zeros(a.shape)
+    n = a.shape[d]
+    if s == 1:
+        out.narrow(d, 1, n - 1).copy_(a.narrow(d, 0, n - 1))
+    else:
+        out.narrow(d, 0, n - 1).copy_(a.narrow(d, 1, n - 1))
+    return out
+
+
+def _median_centres(labels: np.ndarray, ids: np.ndarray) -> np.ndarray:
+    """Each instance's centre as ``cellpose_flows`` takes it, the median of
+    its voxels' coordinates on each axis truncated to an integer, for all
+    instances at once: (len(ids), nd). np.median's middle element, or the
+    mean of the two middle ones."""
     fg = labels > 0
-    g_all = np.zeros(labels.shape + (nd,), np.float64)
+    lab = labels[fg].astype(np.int64)
+    coords = np.nonzero(fg)
+    counts = np.bincount(lab, minlength=int(labels.max()) + 1)
+    starts = np.cumsum(counts) - counts
+    n, s = counts[ids], starts[ids]
+    out = np.empty((len(ids), labels.ndim), np.int64)
+    for d, c in enumerate(coords):
+        srt = c[np.lexsort((c, lab))].astype(np.float64)
+        hi = srt[s + n // 2]
+        lo = srt[s + (n - 1) // 2]
+        out[:, d] = np.where(n % 2 == 1, hi, (lo + hi) / 2.0).astype(int)
+    return out
+
+
+def _flows_together(labels: np.ndarray, ids: np.ndarray, its: np.ndarray, device):
+    """``cellpose_flows``' per-instance gradients of the log heat, for all
+    instances at once: the diffusions over the whole volume in float64 on
+    ``device`` (each voxel averages only the neighbours of its own instance;
+    the others and the volume's outside count 0, as the zero ring of an
+    instance's padded box does; each instance takes its own heat at its own
+    centre and stops after its own number of steps; a centre outside its
+    instance reads exactly 1 to that instance's neighbours, as ``_diffuse``
+    leaves it: zeroed at each step's end, 1 added at the next one's start),
+    then on the host ``np.log1p`` and the central differences with the
+    other instances' neighbours as 0. The same operations in the same order
+    as box by box, so the same bits. Returns the gradients, (*shape, nd),
+    0 off the instances."""
+    import torch
+
+    dev = torch.device(device)
+    nd = labels.ndim
+    centres = _median_centres(labels, ids)
+    inside = labels[tuple(centres.T)] == ids
+    lab_t = torch.from_numpy(labels.astype(np.int64)).to(dev)
+    it_of = torch.zeros(int(labels.max()) + 1, dtype=torch.int64, device=dev)
+    it_of[torch.from_numpy(ids).to(dev)] = torch.from_numpy(its).to(dev)
+    vox_its = it_of[lab_t]  # each voxel's instance's steps (0 off the instances)
+    c_in = torch.from_numpy(centres[inside]).to(dev)
+    c_its = torch.from_numpy(its[inside]).to(dev)
+    m = (lab_t > 0).to(torch.float64)
+    same = [(_shifted(lab_t, d, 1) == lab_t, _shifted(lab_t, d, -1) == lab_t) for d in range(nd)]
+    # a centre outside its instance: its neighbours of that instance read 1
+    src = [[np.zeros(labels.shape, bool) for _ in range(2)] for _ in range(nd)]
+    for lab, c in zip(ids[~inside], centres[~inside]):
+        for d in range(nd):
+            for k, step in enumerate((1, -1)):  # the lo side reads p - e_d: p = c + e_d
+                p = c.copy()
+                p[d] += step
+                if 0 <= p[d] < labels.shape[d] and labels[tuple(p)] == lab:
+                    src[d][k][tuple(p)] = True
+    src = [[torch.from_numpy(a).to(dev, torch.float64) for a in pair] for pair in src]
+    h = torch.zeros(labels.shape, dtype=torch.float64, device=dev)
+    for t in range(int(its.max())):
+        at = tuple(c_in[c_its > t].T)
+        h[at] = h[at] + 1.0
+        acc = torch.zeros_like(h)
+        for d in range(nd):
+            (lo, hi), (s_lo, s_hi) = same[d], src[d]
+            acc += (torch.where(lo, _shifted(h, d, 1), s_lo)
+                    + torch.where(hi, _shifted(h, d, -1), s_hi))
+        h = torch.where(vox_its > t, (acc / (2 * nd)) * m, h)
+    f = torch.from_numpy(np.log1p(h.cpu().numpy())).to(dev)
+    g = torch.stack([(torch.where(hi, _shifted(f, d, -1), 0.0)
+                      - torch.where(lo, _shifted(f, d, 1), 0.0)) / 2.0
+                     for d, (lo, hi) in enumerate(same)], dim=-1)
+    return (g * m[..., None]).cpu().numpy()
+
+
+def _flows_in_boxes(labels: np.ndarray, ids: np.ndarray, its: np.ndarray, device):
+    """``cellpose_flows``' per-instance gradients of the log heat, instance by
+    instance, each in its bounding box padded by one zero voxel
+    (``_diffuse`` on ``device``), 0 off the instances."""
+    nd = labels.ndim
     objs = ndimage.find_objects(labels)
-    for lab, sl in zip(range(1, len(objs) + 1), objs):
-        if sl is None:
-            continue
+    g_all = np.zeros(labels.shape + (nd,), np.float64)
+    crop = tuple(slice(1, -1) for _ in range(nd))
+    for lab, it in zip(ids, its):
+        sl = objs[lab - 1]
         # pad the crop so diffusion has a zero boundary
-        sub = labels[sl] == lab
-        pad = np.pad(sub, 1)
-        h = np.zeros(pad.shape, np.float64)
-        idx = np.argwhere(pad)
-        center = tuple(np.median(idx, axis=0).astype(int))
-        it = n_iter or 2 * int(np.max(pad.shape))
-        for _ in range(it):
-            h[center] += 1.0
-            # 2*nd-neighbour average within the mask
-            acc = np.zeros_like(h)
-            for d in range(nd):
-                acc += np.roll(h, 1, axis=d) + np.roll(h, -1, axis=d)
-            h = (acc / (2 * nd)) * pad
+        pad = np.pad(labels[sl] == lab, 1)
+        center = tuple(np.median(np.argwhere(pad), axis=0).astype(int))
+        h = _diffuse(pad, center, int(it), device)
         # gradient PER INSTANCE on the padded crop, like the reference's
         # per-instance kernels (_extend_centers_2d/3d) — a global gradient
         # would mix a touching neighbour's heat field exactly at the
         # instance-separating boundary, the case flows exist to split
-        crop = tuple(slice(1, -1) for _ in range(nd))
         grads = np.gradient(np.log1p(h))
         gcrop = np.stack([gr[crop] for gr in grads], axis=-1)
+        sub = pad[crop]
         tgt = g_all[sl]
         tgt[sub] = gcrop[sub]
         g_all[sl] = tgt
+    return g_all
+
+
+def cellpose_flows(labels: np.ndarray, n_iter: Optional[int] = None,
+                   device="cpu") -> np.ndarray:
+    """Cellpose heat-diffusion flows (reference: instances_to_flows:790 +
+    numba _extend_centers_2d/3d:700/747; Stringer et al. 2021).
+
+    Diffuses heat from each instance's median center within the instance
+    mask (up to twice an instance's extent in steps over its box: the
+    loop that sets the cost, on ``device``), then returns the normalized
+    gradient of the heat potential, per axis, stacked channels-last.
+    Background = 0. All instances at once (``_flows_together``) on the
+    card, and on the CPU where that is less work than box by box
+    (``_flows_in_boxes``); the same bits either way.
+    """
+    import torch
+
+    nd = labels.ndim
+    fg = labels > 0
+    objs = ndimage.find_objects(labels)
+    ids = np.asarray([lab for lab, sl in enumerate(objs, 1) if sl is not None], np.int64)
+    if len(ids) == 0:
+        return np.zeros(labels.shape + (nd,), np.float32)
+    boxes = [tuple(s.stop - s.start + 2 for s in sl) for sl in objs if sl is not None]
+    its = np.asarray([n_iter or 2 * max(b) for b in boxes], np.int64)
+    if (torch.device(device).type != "cpu"
+            or int(its.max()) * labels.size < int(sum(it * np.prod(b)
+                                                      for it, b in zip(its, boxes)))):
+        g_all = _flows_together(labels, ids, its, device)
+    else:
+        g_all = _flows_in_boxes(labels, ids, its, device)
     mag = np.sqrt(np.sum(g_all**2, axis=-1, keepdims=True))
     g = np.where(mag > 1e-8, g_all / np.maximum(mag, 1e-8), 0.0)
     return (g * fg[..., None]).astype(np.float32)
@@ -292,20 +416,32 @@ def labels_into_channels(
                               for g in ("Gv", "Gh", "Gz")
                               if extra.get(g, {}).get("gradient_type")), "cellpose")
                 if gtype == "omnipose":
-                    raise _not_ported("Omnipose flows (gradient_type 'omnipose')")
-                flows = cellpose_flows(labels)
+                    # Omnipose flows: smoothed gradient of the eikonal
+                    # distance (reference: pre_processing.py:840)
+                    from biapy_tpu_torch.ops.omnipose import omnipose_flows
+
+                    flows = omnipose_flows(labels)[1]
+                else:
+                    flows = cellpose_flows(labels)
             axis = {"Gz": 0, "Gv": nd - 2, "Gh": nd - 1}[code]
             outs.append(flows[..., axis : axis + 1])
         elif code == "Db":
             if str(opts.get("val_type", "norm")) == "omnipose":
-                raise _not_ported("the Omnipose distance field (Db val_type 'omnipose')")
-            d = _edt(fg)
-            if bool(opts.get("norm", True)):
-                for lab, m in _per_instance(labels):
-                    mx = d[m].max()
-                    if mx > 0:
-                        d[m] = d[m] / mx
-            outs.append((d * fg)[..., None])
+                # Omnipose distance field, background -dist_bg (reference:
+                # pre_processing.py:1347)
+                from biapy_tpu_torch.ops.omnipose import smooth_distance
+
+                d = smooth_distance(labels)
+                d[d <= 0] = -float(opts.get("dist_bg", 5.0))
+                outs.append(d[..., None])
+            else:
+                d = _edt(fg)
+                if bool(opts.get("norm", True)):
+                    for lab, m in _per_instance(labels):
+                        mx = d[m].max()
+                        if mx > 0:
+                            d[m] = d[m] / mx
+                outs.append((d * fg)[..., None])
         elif code == "Dc":
             dc = np.zeros(labels.shape, np.float32)
             coords = np.indices(labels.shape).astype(np.float32)

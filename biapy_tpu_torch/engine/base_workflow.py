@@ -649,6 +649,16 @@ class Base_Workflow(metaclass=ABCMeta):
                                         group_level=str(self.cfg.TEST.AUGMENTATION_GROUP or "full"))
         return run_batches(patches)
 
+    def before_test_sample(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str):
+        """Workflow hook run before inference on one image (e.g. the Cellpose
+        test-time diameter rescale, reference: workflow_utils/cellpose.py)."""
+        return img, gt
+
+    def post_merge_transform(self, pred: np.ndarray, fname: str) -> np.ndarray:
+        """Workflow hook run on the merged prediction before metrics and
+        instance creation (e.g. resizing Cellpose flows back to native)."""
+        return pred
+
     def process_test_sample(self, img: np.ndarray, gt: Optional[np.ndarray], fname: str,
                             sample=None):
         """Sliding-window inference on one image (reference:
@@ -678,6 +688,7 @@ class Base_Workflow(metaclass=ABCMeta):
             self.after_merge_patches(merged, sample, fname)
             self._predictions.append({"role": "raw", "pred": merged, "file": fname, "metrics": m})
             return {"pred": merged}
+        img, gt = self.before_test_sample(img, gt, fname)
         ov = tuple(cfg.DATA.TEST.OVERLAP)
         pad = tuple(cfg.DATA.TEST.PADDING)
         # stats from the raw bytes; the device normalises (uint8 ships at
@@ -704,6 +715,7 @@ class Base_Workflow(metaclass=ABCMeta):
             merged = merge_data_with_overlap(
                 preds, (1,) + out_spatial + (preds.shape[-1],), overlap=ov,
                 padding=tuple(p * u for p, u in zip(pad, up)))[0]
+        merged = self.post_merge_transform(merged, fname)
         merged = self.apply_roi_mask(merged, fname)
         m = self.metric_calculation(merged, gt) if gt is not None else {}
         if m:
@@ -735,6 +747,7 @@ class Base_Workflow(metaclass=ABCMeta):
         pred = self.predict_patches(full[None])[0]
         up = self.y_upscaling
         pred = pred[tuple(slice(0, img.shape[d] * up[d]) for d in range(self.nd))]
+        pred = self.post_merge_transform(pred, fname)
         merged = self.apply_roi_mask(pred, fname)
         m = self.metric_calculation(merged, gt) if gt is not None else {}
         if m:

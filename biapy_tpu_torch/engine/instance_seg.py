@@ -24,9 +24,16 @@ the majority class of the head's argmax. By chunks (TEST.BY_CHUNKS with
 WORKFLOW_PROCESS), the instances are made tile by tile and merged across
 the tiles (``engine/chunked.py::ChunkedInference.create_and_merge_instances``)
 into ``instances.zarr``, or, with WORKFLOW_PROCESS.TYPE ``entire_pred``,
-made once over the whole raw prediction. EmbedSeg, Cellpose flows and
-Omnipose, StarDist rays and the contrastive head raise
-``NotImplementedError`` (ROADMAP queue 1 item 9).
+made once over the whole raw prediction. StarDist rays (R) make the
+instances by the ray-polygon NMS (``data/polygon_nms.py``); Cellpose flows
+(Gv/Gh/Gz) by flow tracking on the workflow's device
+(``ops/flows.py::follow_flows``) and the clustering of the landings on the
+host, with the test-time diameter rescale (``before_test_sample`` /
+``post_merge_transform``) and the training median diameter cached as
+``cellpose_diam.json`` beside the channels; Omnipose (gradient_type or
+Db val_type 'omnipose') by ``ops/omnipose.py::compute_masks_omnipose``.
+EmbedSeg and the contrastive head raise ``NotImplementedError`` (ROADMAP
+queue 1 item 9).
 """
 
 from __future__ import annotations
@@ -60,14 +67,6 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         process = str(inst.INSTANCE_CREATION_PROCESS or "").lower()
         if any(c.startswith("E") for c in codes) or process in ("embedseg", "embeddings"):
             raise _not_ported("EmbedSeg (the E* channels)", ITEM)
-        if any(c in FLOW_CODES for c in codes) or process in (
-                "flow_tracking", "gradient_tracking", "gradient-flow", "omnipose"):
-            raise _not_ported("Cellpose flows and Omnipose (Gv/Gh/Gz)", ITEM)
-        extra = (list(inst.DATA_CHANNELS_EXTRA_OPTS) or [{}])[0]
-        if str(extra.get("Db", {}).get("val_type", "")) == "omnipose":
-            raise _not_ported("the Omnipose distance field (Db val_type 'omnipose')", ITEM)
-        if "R" in codes or process in ("stardist", "nms"):
-            raise _not_ported("StarDist rays (R)", ITEM)
         if cfg.LOSS.CONTRAST.ENABLE:
             raise _not_ported("LOSS.CONTRAST (the contrastive head)", ITEM)
 
@@ -154,8 +153,14 @@ class Instance_Segmentation_Workflow(Base_Workflow):
         mask_distances = {}
         for c in self.channel_codes:
             opts = self.channel_extra_opts.get(c, {})
-            if c in ("Db", "Dc", "Dn", "H", "V", "Z"):
-                mask_distances[c] = bool(opts.get("mask_values", True))
+            # 'R' and the flows mask like the other regressions by default
+            # (reference config.py:217: the rays' loss restricted to the
+            # binary foreground)
+            if c in ("Db", "Dc", "Dn", "H", "V", "Z", "R") or c in FLOW_CODES:
+                # Omnipose's Db carries a negative background value the model
+                # must learn: never masked to the foreground
+                default_mask = not (c == "Db" and str(opts.get("val_type", "")) == "omnipose")
+                mask_distances[c] = bool(opts.get("mask_values", default_mask))
         self.loss = M.instance_segmentation_loss(
             out_channels=self.channel_codes,
             losses_to_use=self.channel_losses,
@@ -228,6 +233,9 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             os.makedirs(out_dir, exist_ok=True)
             if self.verbose:
                 print(f"Creating {self.channel_codes} channel masks for {split} in {out_dir}")
+            compute_diam = (split == "TRAIN"
+                            and any(c in self.channel_codes for c in FLOW_CODES))
+            diams: List[float] = []
             for p in gts:
                 lab = read_img_as_ndarray(p, is_3d=self.is_3d)
                 class_map = None
@@ -241,6 +249,10 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                             f"{lab.shape} for {p}")
                     class_map = lab[..., 1:2].astype(np.float32)
                     lab = lab[..., :1]
+                if compute_diam:
+                    d = self._estimate_diameter(lab[..., 0].astype(np.int64))
+                    if d:
+                        diams.append(d)
                 chans = labels_into_channels(lab, self.channel_codes, self.channel_extra_opts)
                 if class_map is not None:
                     chans = np.concatenate([chans, class_map], axis=-1)
@@ -252,8 +264,18 @@ class Instance_Segmentation_Workflow(Base_Workflow):
                 np.save(os.path.join(out_dir, base + ".npy"), chans.astype(np.float32))
             with open(meta_path, "w") as f:
                 json.dump(meta_want, f)
+            if compute_diam and diams:
+                # the training median diameter beside the channels, the JAX
+                # package's bytes (reference: cellpose diameter stats cache,
+                # pre_processing.py:67)
+                with open(os.path.join(out_dir, "cellpose_diam.json"), "w") as f:
+                    json.dump({"median_diameter": float(np.median(diams))}, f)
         barrier("instance_masks_" + split.lower())
         self._build_aug_channel_handler()
+        diam_file = os.path.join(out_dir, "cellpose_diam.json")
+        if split == "TRAIN" and os.path.exists(diam_file):
+            with open(diam_file) as f:
+                self.cellpose_diameter = float(json.load(f)["median_diameter"])
         frozen = self.cfg.is_frozen()
         if frozen:
             self.cfg.defrost()
@@ -336,10 +358,23 @@ class Instance_Segmentation_Workflow(Base_Workflow):
 
     # -- instances --------------------------------------------------------------
     def instance_seg_process(self, pred: np.ndarray) -> np.ndarray:
-        """Channel maps -> instance labels by marker-controlled watershed,
-        then the post-processing chain (reference: instance_seg_process,
-        instance_seg.py:924)."""
+        """Channel maps -> instance labels (reference: instance_seg_process,
+        instance_seg.py:924): Cellpose / Omnipose flow tracking with flow
+        channels, StarDist NMS with rays (or as
+        PROBLEM.INSTANCE_SEG.INSTANCE_CREATION_PROCESS names them), else the
+        marker-controlled watershed and the post-processing chain."""
         cfg = self.cfg
+        process = str(cfg.PROBLEM.INSTANCE_SEG.INSTANCE_CREATION_PROCESS or "").lower()
+        has_flows = any(c in FLOW_CODES for c in self.channel_codes)
+        has_rays = "R" in self.channel_codes
+        # "gradient-flow" is the reference's canonical name
+        # (check_configuration.py:1495); flow_tracking/gradient_tracking are
+        # accepted aliases
+        if process in ("flow_tracking", "gradient_tracking", "gradient-flow") \
+                or (not process and has_flows):
+            return self._instances_from_flows(pred)
+        if process in ("stardist", "nms") or (not process and has_rays):
+            return self._instances_from_rays(pred)
         ws = cfg.PROBLEM.INSTANCE_SEG.WATERSHED
         # one channel per code for the watershed; affinities travel whole
         # (the A-only recipe takes the min over the first three channels,
@@ -544,6 +579,168 @@ class Instance_Segmentation_Workflow(Base_Workflow):
             mp.ENABLE = was
             if frozen:
                 self.cfg.freeze()
+
+    def _channel_slice(self, code: str) -> Optional[slice]:
+        off = 0
+        for c, n in zip(self.channel_codes, self.channels_per_output):
+            if c == code:
+                return slice(off, off + n)
+            off += n
+        return None
+
+    # -- Cellpose test-time diameter rescale ---------------------------------
+    # (reference: CellposeTestPhaseMixin, workflow_utils/cellpose.py — rescale
+    # the input by DIAM_MEAN/diameter before the network, resize the flows
+    # back to native after the merge, derive niter from the diameter.)
+    def _cellpose_rescale_active(self) -> bool:
+        c = self.cfg.PROBLEM.INSTANCE_SEG
+        extra = self.channel_extra_opts.get("Gv", {})
+        return (any(ch in self.channel_codes for ch in FLOW_CODES)
+                and str(extra.get("gradient_type", "cellpose")) != "omnipose"
+                and str(c.INSTANCE_CREATION_PROCESS).lower() != "omnipose"
+                and not self.cfg.TEST.BY_CHUNKS.ENABLE)
+
+    def _estimate_diameter(self, labels: np.ndarray) -> Optional[float]:
+        """Median equivalent diameter over instances (the reference caches
+        these stats during channel creation, pre_processing.py:67-385)."""
+        ids, counts = np.unique(labels[labels > 0], return_counts=True)
+        if len(ids) == 0:
+            return None
+        if labels.ndim == 3:
+            diams = 2 * (counts * 3 / (4 * np.pi)) ** (1 / 3)
+        else:
+            diams = 2 * np.sqrt(counts / np.pi)
+        return float(np.median(diams))
+
+    def before_test_sample(self, img, gt, fname):
+        self._cellpose_factor = None
+        if not self._cellpose_rescale_active():
+            return img, gt
+        cp = self.cfg.PROBLEM.INSTANCE_SEG.CELLPOSE
+        diam = float(cp.DIAMETER)
+        if diam <= 0 and bool(cp.TEST_DOUBLE_INFERENCE):
+            diam = self._first_pass_diameter(img) or 0.0
+        if diam <= 0:
+            diam = float(getattr(self, "cellpose_diameter", 0.0) or 0.0)
+        if diam <= 0:
+            return img, gt
+        factor = min(4.0, max(0.25, float(cp.DIAM_MEAN) / diam))
+        self._cellpose_diam = diam
+        if abs(factor - 1.0) <= 1e-3:
+            return img, gt
+        from scipy import ndimage
+
+        # in-plane rescale only (z untouched), like Cellpose resample=True
+        zoomf = [1.0] * (self.nd - 2) + [factor, factor] + [1.0]
+        self._cellpose_factor = factor
+        self._cellpose_orig_shape = img.shape
+        img = ndimage.zoom(img, zoomf, order=1)
+        if self.verbose:
+            print(f"[Cellpose test rescale] {fname}: diameter={diam:.2f}px, "
+                  f"factor={factor:.4f}, shape {self._cellpose_orig_shape} -> {img.shape}")
+        return img, gt
+
+    def _first_pass_diameter(self, img: np.ndarray) -> Optional[float]:
+        """Cheap first inference on ONE central patch: run the model, create
+        instances at native scale, measure their median diameter
+        (reference: _estimate_cellpose_diameter_first_pass,
+        workflow_utils/cellpose.py:55)."""
+        from biapy_tpu_torch.data.norm import normalize_image
+        from biapy_tpu_torch.data.patching import pad_to_min_shape
+
+        ps = tuple(self.cfg.DATA.PATCH_SIZE)[: self.nd]
+        img_n, _ = normalize_image(img, self.norm_spec)
+        img_n, _ = pad_to_min_shape(img_n, ps)
+        starts = [(img_n.shape[d] - ps[d]) // 2 for d in range(self.nd)]
+        patch = img_n[tuple(slice(s, s + p) for s, p in zip(starts, ps))]
+        pred = np.asarray(self.predict_patches(patch[None]))[0]
+        lab = self._instances_from_flows(pred)
+        return self._estimate_diameter(lab)
+
+    def post_merge_transform(self, pred: np.ndarray, fname: str) -> np.ndarray:
+        if getattr(self, "_cellpose_factor", None) is None:
+            return pred
+        from scipy import ndimage
+
+        tgt = self._cellpose_orig_shape[: self.nd]
+        zoomf = [t / s for t, s in zip(tgt, pred.shape[: self.nd])] + [1.0]
+        return ndimage.zoom(pred, zoomf, order=1)
+
+    def _instances_from_flows(self, pred: np.ndarray) -> np.ndarray:
+        """Cellpose/Omnipose flow tracking (reference: gradient_tracking.py),
+        the integration on the workflow's device."""
+        from biapy_tpu_torch.ops.flows import flows_to_instances
+
+        axes = [("Gz", 0), ("Gv", self.nd - 2), ("Gh", self.nd - 1)]
+        comps = []
+        for code, _ in axes:
+            sl = self._channel_slice(code)
+            if sl is not None:
+                comps.append((code, pred[..., sl][..., 0]))
+        # order components by spatial axis: (z,)y,x
+        order = {"Gz": 0, "Gv": 1 if self.nd == 3 else 0, "Gh": 2 if self.nd == 3 else 1}
+        comps.sort(key=lambda t: order[t[0]])
+        flows = np.stack([c for _, c in comps], axis=-1)
+        fg_sl = self._channel_slice("F")
+        fg_th = float(self.cfg.PROBLEM.INSTANCE_SEG.CELLPOSE.FG_THRESH)
+        if fg_sl is not None:
+            # PROBLEM.INSTANCE_SEG.CELLPOSE.FG_THRESH (reference:
+            # create_instances_from_flows fg_thresh, gradient_tracking.py:681)
+            fg = pred[..., fg_sl][..., 0] > fg_th
+        else:
+            fg = np.linalg.norm(flows, axis=-1) > 0.3
+        # Omnipose is selected either by the process alias 'omnipose' or, in
+        # the reference's convention, by gradient_type 'omnipose' under the
+        # canonical 'gradient-flow' process (check_configuration.py:712)
+        suppressed = (
+            str(self.cfg.PROBLEM.INSTANCE_SEG.INSTANCE_CREATION_PROCESS).lower() == "omnipose"
+            or str(self.channel_extra_opts.get("Gv", {})
+                   .get("gradient_type", "cellpose")) == "omnipose")
+        db_sl = self._channel_slice("Db")
+        db_opts = self.channel_extra_opts.get("Db", {})
+        if suppressed and db_sl is not None and str(db_opts.get("val_type", "")) == "omnipose":
+            # full Omnipose reconstruction: hysteresis fg from the distance
+            # field, div-rescaled suppressed Euler, DBSCAN clustering
+            # (reference: compute_masks_omnipose, omnipose_core.py:501)
+            from biapy_tpu_torch.ops.omnipose import compute_masks_omnipose
+
+            om = self.cfg.PROBLEM.INSTANCE_SEG.OMNIPOSE
+            return compute_masks_omnipose(
+                flows, pred[..., db_sl][..., 0],
+                mask_threshold=float(om.MASK_THRESHOLD),
+                flow_threshold=float(om.FLOW_THRESHOLD),
+                niter=int(om.NITER) if int(om.NITER) > 0 else None,
+                device=self.device,
+            )
+        cp = self.cfg.PROBLEM.INSTANCE_SEG.CELLPOSE
+        n_iter = int(cp.N_STEPS) if int(cp.N_STEPS) > 0 else 200
+        diam = getattr(self, "_cellpose_diam", 0.0)
+        if diam and float(cp.DIAM_MEAN) > 0:
+            # Cellpose: niter = (diameter / diam_mean) * 200 (reference:
+            # workflow_utils/cellpose.py niter derivation)
+            n_iter = max(1, int(round(diam / float(cp.DIAM_MEAN) * 200)))
+        return flows_to_instances(flows, fg, n_iter=n_iter, suppressed=suppressed,
+                                  flow_error_th=float(cp.FLOW_THRESHOLD),
+                                  expansion_gate=str(getattr(cp, "EXPANSION_GATE", "cellpose")),
+                                  device=self.device)
+
+    def _instances_from_rays(self, pred: np.ndarray) -> np.ndarray:
+        """StarDist ray NMS — 2D polygons / 3D polyhedra (reference:
+        polygon_nms.py:395)."""
+        from biapy_tpu_torch.data.polygon_nms import stardist_nms_2d, stardist_nms_3d
+
+        rays_sl = self._channel_slice("R")
+        prob_sl = self._channel_slice("P") or self._channel_slice("F")
+        prob = pred[..., prob_sl][..., 0] if prob_sl is not None else np.ones(pred.shape[:-1],
+                                                                              np.float32)
+        sd = self.cfg.PROBLEM.INSTANCE_SEG.STARDIST
+        kw = dict(prob_threshold=float(sd.PROB_THRESH),
+                  iou_threshold=float(sd.NMS_IOU_THRESH))
+        if sd.GRID:
+            kw["grid_step"] = int(list(sd.GRID)[0])
+        if self.nd == 3:
+            return stardist_nms_3d(prob, pred[..., rays_sl], **kw)
+        return stardist_nms_2d(prob, pred[..., rays_sl], **kw)
 
     def after_by_chunks_prediction(self, ci, raw_path: str, base: str) -> None:
         """By chunks with WORKFLOW_PROCESS (reference:

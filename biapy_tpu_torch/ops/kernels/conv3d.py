@@ -164,6 +164,13 @@ def conv3d_dx(gy: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _launch(gy, w, dx=True)
 
 
+# the float32 weight gradient on the card in groups of this many (N*D)
+# planes, the groups' sums then added: with one library reduction over all
+# planes the instance template's float32 step lay 5.4e-5 of scale from
+# float64, with groups of 4 (and the kernel's chunk sums) 2.8e-6
+_WGRAD_F32_PLANES = 4
+
+
 def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     """dw of the 3x3x3 SAME conv, ``(3, 3, 3, Cin, Cout)`` in x's dtype.
 
@@ -171,15 +178,22 @@ def conv3d_wgrad(x: torch.Tensor, gy: torch.Tensor) -> torch.Tensor:
     z-shifted planes concatenated into channels by the ``zcat`` kernel (no
     tap crosses an image seam), then the weight gradient of ONE 2D 3x3 conv
     of ``(N*D, H, W, 3*Cin)`` against ``gy`` as a library product (float32
-    without TF32, bf16 with float32 accumulation), un-concatenated."""
+    without TF32, bf16 with float32 accumulation), un-concatenated. Float32
+    on the card takes the planes ``_WGRAD_F32_PLANES`` at a time and adds
+    the groups' sums."""
     n, d, h, wd, cin = x.shape
     cout = gy.shape[-1]
     xc = zcat_fwd(x.reshape(n * d, h, wd, cin), 3, d)
+    gy2 = gy.reshape(n * d, h, wd, cout)
+    planes = _WGRAD_F32_PLANES if x.is_cuda and x.dtype == torch.float32 else n * d
+    parts = []
     with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
-        # NCHW-shaped views of the channels-last tensors: no copy
-        dw2 = torch.nn.grad.conv2d_weight(xc.permute(0, 3, 1, 2), (cout, 3 * cin, 3, 3),
-                                          gy.reshape(n * d, h, wd, cout).permute(0, 3, 1, 2),
-                                          padding=1)
+        for i in range(0, n * d, planes):
+            # NCHW-shaped views of the channels-last tensors: no copy
+            parts.append(torch.nn.grad.conv2d_weight(
+                xc[i:i + planes].permute(0, 3, 1, 2), (cout, 3 * cin, 3, 3),
+                gy2[i:i + planes].permute(0, 3, 1, 2), padding=1))
+    dw2 = parts[0] if len(parts) == 1 else torch.stack(parts).sum(0)
     del xc  # kz times the activation: freed before the caller goes on
     # (Cout, kz*Cin, ky, kx) -> (kz, ky, kx, Cin, Cout)
     return dw2.reshape(cout, 3, cin, 3, 3).permute(1, 3, 4, 2, 0).contiguous()

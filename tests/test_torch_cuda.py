@@ -406,3 +406,58 @@ def test_by_chunks_on_a_card_other_than_the_current_one(tmp_path):
     assert raw.dtype == np.uint8 and raw.shape == whole.shape == (96, 96, 96, 1)
     assert np.abs(raw.astype(np.float64) - whole).max() <= 1
     assert raw.std() > 0
+
+
+@pytest.mark.parametrize("suppressed", [False, True], ids=["plain", "suppressed"])
+def test_follow_flows_on_the_card_equals_the_cpu(suppressed):
+    """``ops/flows.py::follow_flows`` on the card gives the CPU's positions
+    bit for bit (the same IEEE float64 operations emulate the fused sums on
+    both), at small odd shapes in 2D and 3D."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from biapy_tpu_torch.ops.flows import follow_flows
+
+    g = torch.Generator(device="cpu").manual_seed(3)
+    for shape in ((13, 11, 2), (5, 9, 7, 3)):
+        flows = torch.randn(shape, generator=g)
+        cpu = follow_flows(flows, n_iter=25, suppressed=suppressed)
+        card = follow_flows(flows.to("cuda:0"), n_iter=25, suppressed=suppressed)
+        assert card.device.type == "cuda"
+        assert torch.equal(card.cpu(), cpu)
+
+
+def test_float32_weight_gradient_in_groups_of_planes_on_the_card():
+    """conv3d's float32 weight gradient on the card, summed in groups of
+    planes (26 planes: a ragged last group), against the float64 one."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    from biapy_tpu_torch.ops.kernels import conv3d as kconv
+
+    g = torch.Generator(device="cpu").manual_seed(5)
+    x = torch.randn((2, 13, 7, 9, 8), generator=g).to("cuda:0")
+    gy = torch.randn((2, 13, 7, 9, 12), generator=g).to("cuda:0")
+    ref = kconv.conv3d_wgrad(x.double(), gy.double())
+    got = kconv.conv3d_wgrad(x, gy)
+    assert got.dtype == torch.float32 and got.shape == (3, 3, 3, 8, 12)
+    assert (got.double() - ref).abs().max().item() <= 1e-5 * ref.abs().max().item()
+
+
+def test_float32_conv_sums_chunks_apart_on_the_card():
+    """The CUDA-core conv3d in float32 (forward and input gradient) at Cin
+    112 (K = 3024 products a voxel) no farther from float64 than its plain
+    version's tap-by-tap sums, times 2.5: one chain of K additions lies about
+    an order of magnitude farther."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    g = torch.Generator(device="cpu").manual_seed(7)
+    x = torch.randn((1, 5, 7, 9, 112), generator=g)
+    w = torch.randn((3, 3, 3, 112, 24), generator=g) * 0.05
+    ref = torch.nn.functional.conv3d(x.double().movedim(-1, 1),
+                                     w.double().permute(4, 3, 0, 1, 2), padding=1).movedim(1, -1)
+    plain = conv3d_plain(x, w)
+    dev = torch.device("cuda:0")
+    assert conv3d_route(torch.float32, 112, 24) == "fma"
+    card = conv3d_fwd(x.to(dev), w.to(dev)).cpu()
+    err_plain = (plain.double() - ref).abs().max().item()
+    err_card = (card.double() - ref).abs().max().item()
+    assert err_card <= 2.5 * err_plain, (err_card, err_plain)

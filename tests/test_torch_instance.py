@@ -17,8 +17,8 @@ Small seeded inputs, one module at a time:
   warped label column): within the tolerances that
   ``tests/test_torch_augment.py`` pins for warps;
 * the watershed of a GT's own B/C/D channels recovers the instances;
-* each instance mode this slice leaves out raises ``NotImplementedError``
-  naming ROADMAP item 9.
+* each instance mode still to port (EmbedSeg, the contrastive head) raises
+  ``NotImplementedError`` naming ROADMAP item 9.
 """
 
 import copy
@@ -146,11 +146,11 @@ def test_labels_into_channels_equals_jax(codes):
 
 
 def test_omnipose_and_embedseg_channels_raise_naming_item_9():
+    # the Omnipose channels are ported (tests/test_torch_rays_flows.py holds
+    # them against the JAX package); the EmbedSeg ones still raise
     lab = _labels()[..., None]
-    for mode, extra in ((["Gv", "Gh"], {"Gv": {"gradient_type": "omnipose"}}),
-                        (["Db"], {"Db": {"val_type": "omnipose"}}), (["E"], {})):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            TP.labels_into_channels(lab, mode, extra)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        TP.labels_into_channels(lab, ["E"], {})
 
 
 # ---------------------------------------------------------------- workflows
@@ -360,11 +360,6 @@ def test_augmented_batches_from_the_cache_match_jax(tmp_path):
 UNPORTED = {
     "embedseg": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["E_offset", "E_sigma",
                                                                  "E_seediness"]}}},
-    "flows": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["F", "Gz", "Gv", "Gh"]}}},
-    "omnipose": {"PROBLEM": {"INSTANCE_SEG": {
-        "DATA_CHANNELS": ["B", "Db"],
-        "DATA_CHANNELS_EXTRA_OPTS": [{"Db": {"val_type": "omnipose"}}]}}},
-    "rays": {"PROBLEM": {"INSTANCE_SEG": {"DATA_CHANNELS": ["F", "R"]}}},
     "contrast": {"LOSS": {"CONTRAST": {"ENABLE": True}}},
 }
 

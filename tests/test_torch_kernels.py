@@ -239,7 +239,7 @@ def test_shuffle_wrappers_reject_shapes_they_do_not_take(call):
         call(torch.zeros(4, 2, 2, 6))
 
 
-_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack", "cv2")
+_FORBIDDEN = ("jax", "flax", "optax", "biapy_tpu", "msgpack", "cv2", "sklearn")
 # optional dependencies of the port: imported only inside the functions
 # that use them, where they are optional
 _LAZY_ONLY = ("matplotlib", "yaml", "PIL", "h5py", "imageio")
@@ -285,5 +285,6 @@ def test_port_imports_nothing_of_jax():
         for mod in _imports(f, top_level_only=True):
             if mod.split(".")[0] in _LAZY_ONLY:
                 bad.append(f"{f.relative_to(REPO)}: {mod} at module level")
-    assert not bad, ("the port must not import JAX, the JAX package, msgpack or OpenCV, and "
+    assert not bad, ("the port must not import JAX, the JAX package, msgpack, OpenCV or "
+                     "scikit-learn, and "
                      "imports optional packages inside functions:\n" + "\n".join(bad))
