@@ -1,8 +1,8 @@
 // 3x3x3, stride-1, SAME convolution on channels-last volumes, for Hopper
-// (sm_90a): two kernels, one per route (the wrapper's rule on dtype and
-// widths picks the route; nothing here chooses at run time).
+// (sm_90a): three kernels, one per route (the wrapper's rule on dtype, Cin
+// and Cout picks the route; nothing here chooses at run time).
 //
-// Both replace: biapy_tpu/ops/pallas/conv3d.py::_kernel (launched by
+// All three replace: biapy_tpu/ops/pallas/conv3d.py::_kernel (launched by
 // _conv3d_pallas, reached from biapy_tpu/ops/conv3d.py::conv3d_dispatch).
 //
 // Function:
@@ -12,63 +12,97 @@
 // volume read zero; the sum is kept in float32 and y is written in the input
 // dtype. No bias.
 //
-// What bounds it on this card: operations. A voxel costs 54*Cin*Cout flops
-// against (Cin + Cout) * itemsize bytes, which at the main path's widths
-// (Cin 32..192, Cout 32..192) is far above the H100's ~295 flop/byte ridge;
-// only the 1-channel stem (Cin = 1) is bound by bytes.
+// What bounds it on this card: operations where Cin is a few channels or
+// more. A voxel costs 54*Cin*Cout flops against (Cin + Cout) * itemsize
+// bytes, far above the H100's ~295 flop/byte ridge from Cin ~ 16 on; the
+// stems (Cin = 1..3) are bound by the bytes of their output.
 //
-// 1. conv3d_k3_kernel, the CUDA-core route (float32, the Cin = 1 stem, widths
-//    that 16 / 8 do not divide): an implicit GEMM with M = N*D*H*W output
-//    voxels, N = Cout, K = 27*Cin, k = tap*Cin + ci, so the DHWIO weight
-//    tensor already is the (K, Cout) row-major B matrix. Each block owns a
-//    BM x BN output tile and walks K in chunks of BK: it stages the BK
-//    reduction entries of its BM voxels (zero where a tap falls outside the
-//    volume: the padding is a mask, never a padded copy) and the matching
-//    BK x BN weight slice in shared memory as float32, then every thread
-//    accumulates a TM x TN register tile with FMAs. Flattening K makes every
-//    Cin work alike, ragged M, N and K edges are masked. Its ceiling is the
-//    CUDA cores' 67 TFLOP/s; float32 stays here because the tensor cores
-//    would round its products to TF32. For float32 inputs each chunk of BK
-//    products is summed into its own register tile first and that tile
-//    added to the total, two levels in place of one chain of 27*Cin
-//    additions: the rounding grows with BK + K/BK, not K (a chain of K
-//    left the instance template's float32 gradients 6.5e-5 of scale from
-//    float64, against 5e-6 for the plain version's tap-by-tap sums).
-//
-// 2. conv3d_k3_wgmma_kernel, the tensor-core route (bf16, Cin % 16 == 0,
-//    Cout % 8 == 0): bf16 operands staged in shared memory by TMA, products
-//    by wgmma (m64nNk16, float32 accumulators in registers), a ring of stages
-//    whose copies overlap the arithmetic. What bounds it in practice is the
-//    traffic from the L2 into shared memory (every tap re-reads the
+// 1. conv3d_k3_wgmma_kernel, the tensor-core route (bf16, Cin >= the stem
+//    cut, any Cout): bf16 operands staged in shared memory by TMA, products
+//    by wgmma (m64nNk16, float32 accumulators in registers), a ring of
+//    stages whose copies overlap the arithmetic. What bounds it in practice
+//    is the traffic from the L2 into shared memory (every tap re-reads the
 //    activation) and, for narrow Cout, the A reads of wgmma itself; the
 //    design cuts the first by loading one y-slab for the three dy taps.
+//      - Widths off the grid: x's channel count must be a multiple of 8
+//        (TMA's 16-byte global strides); where it is not (Cin 28, 36, 84)
+//        the wrapper hands over a channel-padded copy that
+//        pad_channels_kernel (below) writes, one more read and write of x.
+//        Gathering such rows with 8-byte cp.async copies in the producer
+//        warp instead was measured slower at every template shape: one warp
+//        cannot issue a stage's 2304 copies as fast as the tensor cores use
+//        them. The packed weights are
+//        (27, Cout_p, Cin_p), zero-padded to multiples of 8. Channels past
+//        the tensor's arrive from TMA as zeros, so a Cin that the chunk does
+//        not divide costs no mask arithmetic. The tile's N is the narrowest
+//        instantiated width that holds Cout_p (8, 16, 32, 40, 48, 64, 96,
+//        128, 192, 256), and the epilogue writes the real channels alone,
+//        with the widest store the row's alignment allows.
 //      - A block owns a brick of 1 x 8 x 16 or 1 x 16 x 16 (z, y, x) output
 //        voxels of one image (one 64-row wgmma tile, 4 rows of y, for each of
 //        its two or four consumer warpgroups) and a tile of BN <= 256 output
 //        channels (all of Cout up to 256, so A is staged once per tap, not
 //        once per Cout tile).
-//      - K is walked as (dz, dx, channel chunk of KC); one ring stage holds
-//        the A slab of that step, a TMA box (KC, 16, 10 or 18, 1, 1) of x
-//        starting at (c0, x0+dx-1, y0-1, z+dz-1, n), and the weights of its three dy
-//        taps, a box (KC, BN, 1, 3, 1) of the packed weights
-//        (27, Cout, Cin) seen as (Cin, Cout, 3, 3, 3). TMA coordinates are
-//        signed and elements outside the tensor arrive as zeros: that is the
-//        SAME padding, the channel tail of a Cin that KC does not divide
-//        (zeros on both operands) and the rows of B past Cout, with no padded
-//        copy and no mask arithmetic in any thread; n is its own coordinate,
-//        so no tap crosses an image seam.
-//      - The slab lands as 160 or 288 rows (y*16 + x) of KC channels, K-major and
-//        swizzled over the row (KC = 32: 64-byte rows, SWIZZLE_64B; KC = 64:
-//        128-byte rows, SWIZZLE_128B): the tile a wgmma descriptor reads. Tap dy of output row r reads slab row r + 16*dy, a
-//        whole number of swizzle atoms further on, so the three taps are
-//        three descriptors into one slab.
+//      - K is walked as (dz, dx, channel chunk); one ring stage holds the A
+//        slab of that step, a TMA box (KC, 16, 10 or 18, 1, 1) of x starting
+//        at (c0, x0+dx-1, y0-1, z+dz-1, n), and the weights of its three dy
+//        taps, a box (KC, BN, 1, 3, 1) of the packed weights seen as
+//        (Cin_p, Cout_p, 3, 3, 3). Chunks are KC = 32 or 64 channels, and
+//        where 32 leaves 16 over (Cin_p 16, 40, 48, 80) a tap's last 16
+//        channels are a step of their own through a second pair of tensor
+//        maps (32-byte rows), so no step walks a half-empty chunk; those
+//        steps come after every tap's whole chunks, in a loop of their own
+//        (ptxas serializes the wgmmas under a branch that picks a step's
+//        kind: its warning C7520). TMA
+//        coordinates are signed and elements outside the tensor arrive as
+//        zeros: that is the SAME padding and the channel tail, with no
+//        padded copy of the volume and no mask arithmetic in any thread; n
+//        is its own coordinate, so no tap crosses an image seam.
+//      - The slab lands as 160 or 288 rows (y*16 + x) of KC channels,
+//        K-major and swizzled over the row (64-byte rows: SWIZZLE_64B;
+//        128-byte: SWIZZLE_128B; the tail's 32-byte: SWIZZLE_32B): the tile
+//        a wgmma descriptor reads. Tap dy of output row r reads slab row
+//        r + 16*dy, a whole number of swizzle atoms further on, so the
+//        three taps are three descriptors into one slab.
 //      - One producer thread keeps the TMA loads in flight (full / empty
 //        mbarrier pair per stage); the consumer warpgroups issue the wgmmas
 //        of a stage as one group and release the stage before once the group
 //        before has retired.
 //      - Epilogue: float32 -> bf16 through (padded, conflict-free) shared
-//        memory, then 16-byte stores; voxels of a brick that overhang the
-//        volume and channels past Cout are not written.
+//        memory, then 16-, 8-, 4- or 2-byte stores by Cout's alignment;
+//        voxels of a brick that overhang the volume and channels past Cout
+//        are not written.
+//
+// 2. conv3d_k3_stem_kernel, the stem route (float32 or bf16, Cin below the
+//    cut: the 1-channel input of every U-Net, 3-channel images): K = 27*Cin
+//    is too short for the tensor cores' tiles to pay (a 16-deep wgmma step
+//    would be mostly zeros) and the output, Cout values a voxel, is what the
+//    card must move. A block (2 x 8 x 32 output voxels) stages a halo brick
+//    of x (4 x 10 x 34 voxels) and the 27*Cin x 32 weights of an
+//    output-channel chunk in shared memory as float32, once; each of its 256
+//    threads computes the chunk's 32 channels at one (y, x) of both z planes
+//    with float32 FMAs (27*Cin*32 a voxel; per tap and input channel 2 halo
+//    reads and 8 broadcast 16-byte weight reads feed 64 FMAs) and writes
+//    them with 16-byte stores (8-, 4- or 2-byte where Cout's alignment
+//    allows no wider). On the card two planes a thread ran faster than one
+//    (the weights' reads then feed twice the FMAs) and than four lanes a
+//    voxel with stores coalesced across the warp.
+//
+// 3. conv3d_k3_kernel, the CUDA-core route (float32 at Cin >= the stem cut,
+//    which must stay full float32: the tensor cores would round its
+//    products to TF32): an implicit GEMM with M = N*D*H*W output voxels,
+//    N = Cout, K = 27*Cin, k = tap*Cin + ci, so the DHWIO weight tensor
+//    already is the (K, Cout) row-major B matrix. Each block owns a BM x BN
+//    output tile and walks K in chunks of BK: it stages the BK reduction
+//    entries of its BM voxels (zero where a tap falls outside the volume)
+//    and the matching BK x BN weight slice in shared memory, then every
+//    thread accumulates a TM x TN register tile with FMAs. Each chunk of BK
+//    products is summed into its own register tile first and that tile
+//    added to the total, two levels in place of one chain of 27*Cin
+//    additions: the rounding grows with BK + K/BK, not K (a chain of K left
+//    the instance template's float32 gradients 6.5e-5 of scale from
+//    float64, against 5e-6 for the plain version's tap-by-tap sums). Its
+//    ceiling is the CUDA cores' 67 TFLOP/s.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
 #include <cuda_bf16.h>
@@ -81,18 +115,42 @@ namespace {
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) { return __bfloat162float(v); }
 
-template <typename T> __device__ __forceinline__ T from_f32(float v);
-template <> __device__ __forceinline__ float from_f32<float>(float v) { return v; }
-template <> __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float v) {
-  return __float2bfloat16_rn(v);
+// the bits of one stored element
+__device__ __forceinline__ uint32_t out_bits(float v, float*) { return __float_as_uint(v); }
+__device__ __forceinline__ uint16_t out_bits(float v, __nv_bfloat16*) {
+  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
 }
+
+template <int BYTES> struct VecOf;
+template <> struct VecOf<16> { using type = uint4; };
+template <> struct VecOf<8> { using type = uint2; };
+template <> struct VecOf<4> { using type = uint32_t; };
+template <> struct VecOf<2> { using type = uint16_t; };
+
+// V float32 values rounded to T and written as one V * sizeof(T)-byte store
+template <typename T, int V>
+__device__ __forceinline__ void store_vec(T* dst, const float* v) {
+  using Bits = decltype(out_bits(0.f, static_cast<T*>(nullptr)));
+  using Vec = typename VecOf<V * sizeof(T)>::type;
+  union {
+    Vec vec;
+    Bits e[V];
+  } u;
+#pragma unroll
+  for (int i = 0; i < V; ++i) u.e[i] = out_bits(v[i], static_cast<T*>(nullptr));
+  *reinterpret_cast<Vec*>(dst) = u.vec;
+}
+
+// ---------------------------------------------------------------------------
+// The CUDA-core route: float32 implicit GEMM, chunk sums.
+// ---------------------------------------------------------------------------
 
 constexpr int kThreads = 256;
 constexpr int kBK = 16;
 
-template <typename T, int BM, int BN, int TM, int TN>
+template <int BM, int BN, int TM, int TN>
 __global__ void __launch_bounds__(kThreads)
-conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y,
+conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
                  int n_img, int D, int H, int W, int Cin, int Cout) {
   static_assert((BM / TM) * (BN / TN) == kThreads, "one TM x TN tile per thread");
   __shared__ float As[kBK][BM + 4];
@@ -145,7 +203,7 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
         if ((unsigned)iz < (unsigned)D && (unsigned)iy < (unsigned)H &&
             (unsigned)ix < (unsigned)W) {
           const long long off = ((((long long)nn * D + iz) * H + iy) * W + ix) * Cin + ci;
-          v = to_f32(x[off]);
+          v = x[off];
         }
       }
       As[kl][ml] = v;
@@ -154,45 +212,30 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
     for (int e = tid; e < kBK * BN; e += kThreads) {
       const int nl = e % BN, kl = e / BN;
       const int k = k0 + kl, co = n0 + nl;
-      Bs[kl][nl] = (k < K && co < Cout) ? to_f32(w[(long long)k * Cout + co]) : 0.f;
+      Bs[kl][nl] = (k < K && co < Cout) ? w[(long long)k * Cout + co] : 0.f;
     }
     __syncthreads();
-    if constexpr (sizeof(T) == 4) {
-      float part[TM][TN];
+    float part[TM][TN];
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
+#pragma unroll
+    for (int kk = 0; kk < kBK; ++kk) {
+      float a[TM], b[TN];
+#pragma unroll
+      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
+#pragma unroll
+      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
 #pragma unroll
       for (int i = 0; i < TM; ++i)
 #pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-      }
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    } else {
-#pragma unroll
-      for (int kk = 0; kk < kBK; ++kk) {
-        float a[TM], b[TN];
-#pragma unroll
-        for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-        for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-        for (int i = 0; i < TM; ++i)
-#pragma unroll
-          for (int j = 0; j < TN; ++j) acc[i][j] = fmaf(a[i], b[j], acc[i][j]);
-      }
+        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
     }
+#pragma unroll
+    for (int i = 0; i < TM; ++i)
+#pragma unroll
+      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
     __syncthreads();
   }
 
@@ -203,29 +246,144 @@ conv3d_k3_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict
 #pragma unroll
     for (int j = 0; j < TN; ++j) {
       const int co = n0 + tx * TN + j;
-      if (co < Cout) y[m * Cout + co] = from_f32<T>(acc[i][j]);
+      if (co < Cout) y[m * Cout + co] = acc[i][j];
     }
   }
 }
 
-template <typename T, int BM, int BN, int TM, int TN>
-void launch(const void* x, const void* w, void* y, int n_img, int D, int H, int W,
-            int Cin, int Cout, cudaStream_t stream) {
+template <int BM, int BN, int TM, int TN>
+void launch(const void* x, const void* w, void* y, int n_img, int D, int H, int W, int Cin,
+            int Cout, cudaStream_t stream) {
   const long long M = (long long)n_img * D * H * W;
   dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
-  conv3d_k3_kernel<T, BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y),
-      n_img, D, H, W, Cin, Cout);
+  conv3d_k3_kernel<BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(
+      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), n_img,
+      D, H, W, Cin, Cout);
+}
+
+// ---------------------------------------------------------------------------
+// The stem route: a halo brick and the weights in shared memory, 32 output
+// channels at one (y, x) of two z planes a thread.
+// ---------------------------------------------------------------------------
+
+constexpr int kStemX = 32;     // output voxels of a block along x
+constexpr int kStemY = 8;      // ... along y: 256 threads, one (y, x) each
+constexpr int kStemZ = 2;      // ... along z: each thread computes both planes
+constexpr int kStemCo = 32;    // output channels a thread computes at a time
+// the widest Cin the entry takes: above the wrapper's cut (Cin < 4), so
+// that the cut can be measured on both sides of it
+// (tools/torch_conv3d_f32_ab.py --cut calls the entries directly)
+constexpr int kStemMaxCin = 8;
+constexpr int kStemHX = kStemX + 2, kStemHY = kStemY + 2, kStemHZ = kStemZ + 2;
+
+// a voxel's n (a multiple of V) output channels of a chunk, V a store
+template <typename T, int V>
+__device__ __forceinline__ void stem_store(T* dst, const float* acc, int n) {
+#pragma unroll
+  for (int c = 0; c < kStemCo; c += V)
+    if (c < n) store_vec<T, V>(dst + c, acc + c);
 }
 
 template <typename T>
-void dispatch(const void* x, const void* w, void* y, int n_img, int D, int H, int W,
-              int Cin, int Cout, cudaStream_t stream) {
-  // narrow outputs take a narrow tile so no thread idles on masked columns
-  if (Cout <= 32)
-    launch<T, 128, 32, 4, 4>(x, w, y, n_img, D, H, W, Cin, Cout, stream);
-  else
-    launch<T, 128, 64, 8, 4>(x, w, y, n_img, D, H, W, Cin, Cout, stream);
+__global__ void __launch_bounds__(kStemX * kStemY)
+conv3d_k3_stem_kernel(const T* __restrict__ x, const T* __restrict__ w, T* __restrict__ y, int D,
+                      int H, int W, int Cin, int Cout, int tiles_x, int tiles_y, int tiles_z) {
+  extern __shared__ float4 stem_smem[];
+  float* halo = reinterpret_cast<float*>(stem_smem);  // [kStemHZ][kStemHY][kStemHX][Cin]
+  // [27 * Cin][kStemCo]; 4 * 10 * 34 floats a channel keep it 16-byte aligned
+  float* ws = halo + kStemHZ * kStemHY * kStemHX * Cin;
+
+  int b = blockIdx.x;
+  const int x0 = (b % tiles_x) * kStemX; b /= tiles_x;
+  const int y0 = (b % tiles_y) * kStemY; b /= tiles_y;
+  const int z0 = (b % tiles_z) * kStemZ;
+  const int n = b / tiles_z;
+  const int tid = threadIdx.x;
+  const int tx = tid % kStemX, ty = tid / kStemX;
+
+  // the halo: rows of kStemHX voxels x Cin channels, contiguous in x
+  const int row = kStemHX * Cin;
+  for (int e = tid; e < kStemHZ * kStemHY * row; e += kStemX * kStemY) {
+    const int r = e / row, c = e - r * row;
+    const int hz = r / kStemHY, hy = r - hz * kStemHY;
+    const int iz = z0 + hz - 1, iy = y0 + hy - 1, ix = x0 - 1 + c / Cin;
+    float v = 0.f;
+    if ((unsigned)iz < (unsigned)D && (unsigned)iy < (unsigned)H && (unsigned)ix < (unsigned)W)
+      v = to_f32(x[((((long long)n * D + iz) * H + iy) * W + x0 - 1) * Cin + c]);
+    halo[e] = v;
+  }
+
+  const int K = 27 * Cin;
+  const int oy = y0 + ty, ox = x0 + tx;
+  const float* hp = halo + (ty * kStemHX + tx) * Cin;
+  constexpr int kPlane = kStemHY * kStemHX;  // halo voxels a z plane
+  for (int co0 = 0; co0 < Cout; co0 += kStemCo) {
+    __syncthreads();  // the halo is in; the chunk before is read
+    for (int e = tid; e < K * kStemCo; e += kStemX * kStemY) {
+      const int k = e / kStemCo, c = e - k * kStemCo;
+      ws[e] = co0 + c < Cout ? to_f32(w[(long long)k * Cout + co0 + c]) : 0.f;
+    }
+    __syncthreads();
+    float acc[kStemZ][kStemCo];
+#pragma unroll
+    for (int v = 0; v < kStemZ; ++v)
+#pragma unroll
+      for (int c = 0; c < kStemCo; ++c) acc[v][c] = 0.f;
+#pragma unroll
+    for (int tap = 0; tap < 27; ++tap) {
+      const int dz = tap / 9, dy = (tap / 3) % 3, dx = tap % 3;
+      const float* xp = hp + ((dz * kStemHY + dy) * kStemHX + dx) * Cin;
+      const float4* wp = reinterpret_cast<const float4*>(ws + tap * Cin * kStemCo);
+      for (int ci = 0; ci < Cin; ++ci) {
+        float xv[kStemZ];
+#pragma unroll
+        for (int v = 0; v < kStemZ; ++v) xv[v] = xp[v * kPlane * Cin + ci];
+#pragma unroll
+        for (int q = 0; q < kStemCo / 4; ++q) {
+          const float4 wv = wp[ci * (kStemCo / 4) + q];
+#pragma unroll
+          for (int v = 0; v < kStemZ; ++v) {
+            acc[v][4 * q] = fmaf(xv[v], wv.x, acc[v][4 * q]);
+            acc[v][4 * q + 1] = fmaf(xv[v], wv.y, acc[v][4 * q + 1]);
+            acc[v][4 * q + 2] = fmaf(xv[v], wv.z, acc[v][4 * q + 2]);
+            acc[v][4 * q + 3] = fmaf(xv[v], wv.w, acc[v][4 * q + 3]);
+          }
+        }
+      }
+    }
+    if (oy < H && ox < W) {
+      const int left = Cout - co0;
+#pragma unroll
+      for (int v = 0; v < kStemZ; ++v) {
+        if (z0 + v >= D) continue;
+        T* dst = y + ((((long long)n * D + z0 + v) * H + oy) * W + ox) * Cout + co0;
+        // the widest store that every row start keeps aligned: co0 and Cout
+        // are multiples of it
+        constexpr int kMax = 16 / sizeof(T);
+        if (Cout % kMax == 0) stem_store<T, kMax>(dst, acc[v], left);
+        else if (Cout % 4 == 0) stem_store<T, 4>(dst, acc[v], left);
+        else if (Cout % 2 == 0) stem_store<T, 2>(dst, acc[v], left);
+        else stem_store<T, 1>(dst, acc[v], left);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch_stem(const void* x, const void* w, void* y, int n_img, int D, int H, int W, int Cin,
+                int Cout, cudaStream_t stream) {
+  auto kernel = conv3d_k3_stem_kernel<T>;
+  const int smem =
+      (kStemHZ * kStemHY * kStemHX * Cin + 27 * Cin * kStemCo) * (int)sizeof(float);
+  cudaError_t err =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + kStemX - 1) / kStemX, tiles_y = (H + kStemY - 1) / kStemY;
+  const int tiles_z = (D + kStemZ - 1) / kStemZ;
+  kernel<<<(unsigned)((long long)n_img * tiles_z * tiles_y * tiles_x), kStemX * kStemY, smem,
+           stream>>>(static_cast<const T*>(x), static_cast<const T*>(w), static_cast<T*>(y), D,
+                     H, W, Cin, Cout, tiles_x, tiles_y, tiles_z);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
@@ -235,6 +393,7 @@ void dispatch(const void* x, const void* w, void* y, int n_img, int D, int H, in
 constexpr int kBrickX = 16;  // output voxels of a brick along x
 constexpr int kWgY = 4;      // ... along y for each consumer warpgroup: one 64-row wgmma tile
 constexpr int kMaxStages = 8;
+constexpr int kTailKC = 16;  // channels of a tail step: one wgmma deep, 32-byte rows
 // An SM has 228 KB of shared memory, a block at most 227 KB, and every
 // resident block reserves 1 KB: what one of MINB resident blocks may ask for
 constexpr int smem_budget(int minb) { return (minb >= 2 ? 112 : 226) * 1024; }
@@ -303,7 +462,9 @@ template <int ROW_BYTES> __device__ __forceinline__ uint64_t smem_desc(uint32_t 
          (static_cast<uint64_t>((8 * ROW_BYTES) >> 4) << 32) | (mode << 62);
 }
 
-#define BIAPY_P16_0 "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+#define BIAPY_P4_0 "%0, %1, %2, %3"
+#define BIAPY_P8_0 BIAPY_P4_0 ", %4, %5, %6, %7"
+#define BIAPY_P16_0 BIAPY_P8_0 ", %8, %9, %10, %11, %12, %13, %14, %15"
 #define BIAPY_P16_1 "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
 #define BIAPY_P16_2 "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
 #define BIAPY_P16_3 "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
@@ -312,9 +473,8 @@ template <int ROW_BYTES> __device__ __forceinline__ uint64_t smem_desc(uint32_t 
 #define BIAPY_P16_6 "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, %108, %109, %110, %111"
 #define BIAPY_P16_7 "%112, %113, %114, %115, %116, %117, %118, %119, %120, %121, %122, %123, %124, %125, %126, %127"
 #define BIAPY_COMMA ,
-#define BIAPY_ACC8(d, i)                                                                 \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]), "+f"(d[i + 4]), "+f"(d[i + 5]), \
-      "+f"(d[i + 6]), "+f"(d[i + 7])
+#define BIAPY_ACC4(d, i) "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3])
+#define BIAPY_ACC8(d, i) BIAPY_ACC4(d, i), BIAPY_ACC4(d, i + 4)
 #define BIAPY_ACC16(d, i) BIAPY_ACC8(d, i), BIAPY_ACC8(d, i + 8)
 #define BIAPY_ACC32(d, i) BIAPY_ACC16(d, i), BIAPY_ACC16(d, i + 16)
 #define BIAPY_ACC64(d, i) BIAPY_ACC32(d, i), BIAPY_ACC32(d, i + 32)
@@ -335,7 +495,13 @@ template <int ROW_BYTES> __device__ __forceinline__ uint64_t smem_desc(uint32_t 
   }
 
 template <int N> struct Wgmma;
+BIAPY_WGMMA(8, BIAPY_P4_0, BIAPY_ACC4(d, 0), "%4", "%5", "%6");
+BIAPY_WGMMA(16, BIAPY_P8_0, BIAPY_ACC8(d, 0), "%8", "%9", "%10");
 BIAPY_WGMMA(32, BIAPY_P16_0, BIAPY_ACC16(d, 0), "%16", "%17", "%18");
+BIAPY_WGMMA(40, BIAPY_P16_0 ", %16, %17, %18, %19", BIAPY_ACC16(d, 0) BIAPY_COMMA BIAPY_ACC4(d, 16),
+            "%20", "%21", "%22");
+BIAPY_WGMMA(48, BIAPY_P16_0 ", %16, %17, %18, %19, %20, %21, %22, %23",
+            BIAPY_ACC16(d, 0) BIAPY_COMMA BIAPY_ACC8(d, 16), "%24", "%25", "%26");
 BIAPY_WGMMA(64, BIAPY_P16_0 ", " BIAPY_P16_1, BIAPY_ACC32(d, 0), "%32", "%33", "%34");
 BIAPY_WGMMA(96, BIAPY_P16_0 ", " BIAPY_P16_1 ", " BIAPY_P16_2,
             BIAPY_ACC32(d, 0) BIAPY_COMMA BIAPY_ACC16(d, 32), "%48", "%49", "%50");
@@ -358,22 +524,51 @@ template <int BN, int KC, int MINB, int NWG> struct TcTile {
   static constexpr int kRowBytes = KC * 2;
   static constexpr int kABytes = kSlabY * kBrickX * kRowBytes;  // the y-slab of one (dz, dx, chunk)
   static constexpr int kBTapBytes = BN * kRowBytes;      // one tap's (BN, KC) weights
-  static constexpr int kStageBytes = kABytes + 3 * kBTapBytes;
+  static constexpr int kTxBytes = kABytes + 3 * kBTapBytes;  // what a step's two loads bring
+  // a tail step: the same boxes at 16 channels (32-byte rows); its B tile
+  // sits where a full step's does
+  static constexpr int kTailTxBytes = (kSlabY * kBrickX + 3 * BN) * kTailKC * 2;
+  // stages start on 1024-byte boundaries, the period of every swizzle mode
+  static constexpr int kStageBytes = (kTxBytes + 1023) / 1024 * 1024;
   static constexpr int kOutPitch = BN + 8;  // bf16 per staged output row: no bank conflicts
   // the ring takes what the budget leaves after the slack that aligns it
   static constexpr int kFit = (smem_budget(MINB) - 1024 - 256) / kStageBytes;
   static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
   static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
-  static_assert(kABytes % 1024 == 0 && kBTapBytes % 1024 == 0, "tiles start on swizzle atoms");
+  // every tile a descriptor or TMA box starts at is a whole number of
+  // swizzle periods (8 rows) from the stage's start
+  static_assert(kABytes % 1024 == 0 && BN % 8 == 0, "tiles start on swizzle atoms");
   static_assert(kStages >= 2, "the consumers release a stage one step late");
   static_assert(kStages * kStageBytes >= 64 * NWG * kOutPitch * 2, "the epilogue reuses the ring");
 };
 
+// the staged output rows of one warpgroup (64 x BN bf16 at pitch PITCH) to
+// y, V channels a store; rows past the volume and channels past Cout unwritten
+template <int V, int BN, int PITCH>
+__device__ __forceinline__ void tc_store(const __nv_bfloat16* out, __nv_bfloat16* y, int t, int wg,
+                                         long long plane, int x0, int y0, int n0, int H, int W,
+                                         int Cout) {
+  using Vec = typename VecOf<V * 2>::type;
+  constexpr int kVecs = BN / V;  // stores per output row
+  for (int i = t; i < 64 * kVecs; i += 128) {
+    const int row = i / kVecs, v = i - row * kVecs;
+    const int r = wg * 64 + row;
+    const int oy = y0 + r / kBrickX, ox = x0 + r % kBrickX;
+    const int co = n0 + V * v;
+    if (oy < H && ox < W && co < Cout)
+      *reinterpret_cast<Vec*>(y + ((plane + oy) * W + ox) * Cout + co) =
+          *reinterpret_cast<const Vec*>(out + row * PITCH + V * v);
+  }
+}
+
 template <int BN, int KC, int MINB, int NWG>
 __global__ void __launch_bounds__(128 * NWG + 32, MINB)
 conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
-                       const __grid_constant__ CUtensorMap map_w, __nv_bfloat16* __restrict__ y,
-                       int D, int H, int W, int Cin, int Cout, int tiles_x, int tiles_y) {
+                       const __grid_constant__ CUtensorMap map_w,
+                       const __grid_constant__ CUtensorMap map_xt,
+                       const __grid_constant__ CUtensorMap map_wt, __nv_bfloat16* __restrict__ y,
+                       int D, int H, int W, int full, int tail, int Cout, int tiles_x,
+                       int tiles_y) {
   using T = TcTile<BN, KC, MINB, NWG>;
   constexpr int stages = T::kStages;
   extern __shared__ uint8_t smem_raw[];
@@ -390,8 +585,8 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   const int z = b % D;
   const int n = b / D;
   const int n0 = blockIdx.y * BN;
-  const int chunks = (Cin + KC - 1) / KC;
-  const int steps = 9 * chunks;  // (dz, dx, chunk); the three dy taps share a step
+  // the steps: `full` chunks of KC channels for each (dz, dx), then a
+  // 16-channel one for each if `tail`; the three dy taps share a step
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
@@ -403,22 +598,27 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   __syncthreads();
 
   if (warp == 4 * NWG) {
-    // producer: one thread keeps the ring full
+    // producer: one thread keeps the ring full, in the consumers' order of
+    // steps: every (dz, dx)'s whole chunks, then every (dz, dx)'s tail
     if (lane == 0) {
       int s = 0;
       uint32_t phase = 0;
-      for (int it = 0; it < steps; ++it) {
-        const int tap2 = it / chunks;  // dz * 3 + dx
-        const int c0 = (it - tap2 * chunks) * KC;
+      // one step's two loads into the next stage, from maps mx and mw
+      auto load = [&](const CUtensorMap* mx, const CUtensorMap* mw, uint32_t bytes, int tap2,
+                      int c0) {
         const int dz = tap2 / 3, dx = tap2 - dz * 3;
-        const uint32_t full = smem_u32(&full_bar[s]);
+        const uint32_t full_b = smem_u32(&full_bar[s]);
         mbar_wait(smem_u32(&empty_bar[s]), phase ^ 1u);  // passes at once on the first round
-        mbar_expect_tx(full, T::kStageBytes);
         const uint32_t a_dst = ring + s * T::kStageBytes;
-        tma_load_5d(a_dst, &map_x, full, c0, x0 + dx - 1, y0 - 1, z + dz - 1, n);
-        tma_load_5d(a_dst + T::kABytes, &map_w, full, c0, n0, dx, 0, dz);
+        mbar_expect_tx(full_b, bytes);
+        tma_load_5d(a_dst, mx, full_b, c0, x0 + dx - 1, y0 - 1, z + dz - 1, n);
+        tma_load_5d(a_dst + T::kABytes, mw, full_b, c0, n0, dx, 0, dz);
         if (++s == stages) { s = 0; phase ^= 1u; }
-      }
+      };
+      for (int tap2 = 0; tap2 < 9; ++tap2)  // dz * 3 + dx
+        for (int ch = 0; ch < full; ++ch) load(&map_x, &map_w, T::kTxBytes, tap2, ch * KC);
+      for (int tap2 = 0; tap2 < 9 * tail; ++tap2)
+        load(&map_xt, &map_wt, T::kTailTxBytes, tap2, full * KC);
     }
     return;
   }
@@ -429,13 +629,26 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
 #pragma unroll
   for (int i = 0; i < BN / 2; ++i) acc[i] = 0.f;
 
-  int s = 0, prev = 0;
+  int s = 0, prev = 0, it = 0;
   uint32_t phase = 0;
-  for (int it = 0; it < steps; ++it) {
+  // a step's wgmmas are issued, as one group, by a loop of its own kind: a
+  // wgmma under a branch is serialized by ptxas (C7520)
+  auto wait_full = [&]() -> uint32_t {
     mbar_wait(smem_u32(&full_bar[s]), phase);
-    const uint32_t a0 = ring + s * T::kStageBytes + wg * 64 * T::kRowBytes;
-    const uint32_t b0 = ring + s * T::kStageBytes + T::kABytes;
     wgmma_fence();
+    return ring + s * T::kStageBytes;
+  };
+  auto retire = [&]() {
+    wgmma_commit();
+    wgmma_wait<1>();  // the group of the step before has retired: its stage is free
+    if (it > 0 && lane == 0) mbar_arrive(smem_u32(&empty_bar[prev]));
+    prev = s;
+    if (++s == stages) { s = 0; phase ^= 1u; }
+    ++it;
+  };
+  for (int i = 0; i < 9 * full; ++i) {
+    const uint32_t stage = wait_full();
+    const uint32_t a0 = stage + wg * 64 * T::kRowBytes, b0 = stage + T::kABytes;
 #pragma unroll
     for (int dy = 0; dy < 3; ++dy) {
       const uint64_t da = smem_desc<T::kRowBytes>(a0 + dy * kBrickX * T::kRowBytes);
@@ -444,11 +657,17 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
       for (int k = 0; k < KC / 16; ++k)  // 16 channels = 32 bytes = 2 address units on
         Wgmma<BN>::mma(acc, da + 2 * k, db + 2 * k);
     }
-    wgmma_commit();
-    wgmma_wait<1>();  // the group of the step before has retired: its stage is free
-    if (it > 0 && lane == 0) mbar_arrive(smem_u32(&empty_bar[prev]));
-    prev = s;
-    if (++s == stages) { s = 0; phase ^= 1u; }
+    retire();
+  }
+  for (int i = 0; i < 9 * tail; ++i) {
+    // a tail step: one 16-channel product a dy tap, 32-byte rows
+    const uint32_t stage = wait_full();
+    const uint32_t a0 = stage + wg * 64 * kTailKC * 2, b0 = stage + T::kABytes;
+#pragma unroll
+    for (int dy = 0; dy < 3; ++dy)
+      Wgmma<BN>::mma(acc, smem_desc<kTailKC * 2>(a0 + dy * kBrickX * kTailKC * 2),
+                     smem_desc<kTailKC * 2>(b0 + dy * BN * kTailKC * 2));
+    retire();
   }
   wgmma_wait<0>();
 
@@ -470,18 +689,18 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
     }
   }
   asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
-  constexpr int kVecs = BN / 8;  // 16-byte vectors per output row
   const int t = tid & 127;
   const long long plane = ((long long)n * D + z) * H;
-  for (int i = t; i < 64 * kVecs; i += 128) {
-    const int row = i / kVecs, v = i - row * kVecs;
-    const int r = wg * 64 + row;
-    const int oy = y0 + r / kBrickX, ox = x0 + r % kBrickX;
-    const int co = n0 + 8 * v;
-    if (oy < H && ox < W && co < Cout)
-      *reinterpret_cast<uint4*>(y + ((plane + oy) * W + ox) * Cout + co) =
-          *reinterpret_cast<const uint4*>(out + row * T::kOutPitch + 8 * v);
-  }
+  // the widest store that keeps every row start aligned: Cout's largest
+  // power-of-two factor, up to 8 channels (16 bytes)
+  if (Cout % 8 == 0)
+    tc_store<8, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+  else if (Cout % 4 == 0)
+    tc_store<4, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+  else if (Cout % 2 == 0)
+    tc_store<2, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+  else
+    tc_store<1, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -503,36 +722,70 @@ EncodeTiledFn encode_tiled() {
 constexpr int kErrNoEncoder = -1;   // cuTensorMapEncodeTiled not found
 constexpr int kErrEncodeBase = -1000;   // minus the CUresult of a refused tensor map
 
+CUtensorMapSwizzle swizzle_of(int row_bytes) {
+  return row_bytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B
+         : row_bytes == 64 ? CU_TENSOR_MAP_SWIZZLE_64B
+                           : CU_TENSOR_MAP_SWIZZLE_32B;
+}
+
+// the map of x (N, D, H, W, Cin), Cin % 8 == 0, for steps of kc channels: a
+// box is the y-slab of one brick; returns 0 or the launcher's error code
+int encode_x(EncodeTiledFn encode, CUtensorMap* map, const void* x, int n_img, int D, int H,
+             int W, int Cin, int kc, int slab_y) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t e = 2;  // bytes per element
+  // innermost first: (Cin, W, H, D, N)
+  const cuuint64_t xd[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
+                            (cuuint64_t)n_img};
+  const cuuint64_t xs[4] = {e * Cin, e * Cin * W, e * Cin * W * H, e * Cin * W * H * D};
+  const cuuint32_t xb[5] = {(cuuint32_t)kc, kBrickX, (cuuint32_t)slab_y, 1, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xd,
+                             xs, xb, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * 2),
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase - (int)rc;
+}
+
+// the map of the packed weights (27, Cout_p, Cin_p), Cin_p % 8 == 0, for steps of kc
+// channels: a box is the three dy taps of one (dz, dx)
+int encode_w(EncodeTiledFn encode, CUtensorMap* map, const void* wp, int Cin_p, int Cout_p,
+             int kc, int bn) {
+  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
+  const cuuint64_t e = 2;
+  // innermost first: (Cin_p, Cout_p, dx, dy, dz)
+  const cuuint64_t wd[5] = {(cuuint64_t)Cin_p, (cuuint64_t)Cout_p, 3, 3, 3};
+  const cuuint64_t ws[4] = {e * Cin_p, e * Cin_p * Cout_p, 3 * e * Cin_p * Cout_p,
+                            9 * e * Cin_p * Cout_p};
+  const cuuint32_t wb[5] = {(cuuint32_t)kc, (cuuint32_t)bn, 1, 3, 1};
+  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(wp), wd,
+                             ws, wb, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * 2),
+                             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+                             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+  return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase - (int)rc;
+}
+
 template <int BN, int KC, int MINB, int NWG>
 int launch_tc(const void* x, const void* wp, void* y, int n_img, int D, int H, int W, int Cin,
               int Cout, cudaStream_t stream) {
   using T = TcTile<BN, KC, MINB, NWG>;
   EncodeTiledFn encode = encode_tiled();
   if (!encode) return kErrNoEncoder;
-  const CUtensorMapSwizzle swizzle =
-      T::kRowBytes == 128 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B;
-  const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const cuuint64_t e = 2;  // bytes per element
-
-  // x, innermost first: (Cin, W, H, D, N); the box is the y-slab of one brick
-  CUtensorMap map_x, map_w;
-  const cuuint64_t xd[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
-                            (cuuint64_t)n_img};
-  const cuuint64_t xs[4] = {e * Cin, e * Cin * W, e * Cin * W * H, e * Cin * W * H * D};
-  const cuuint32_t xb[5] = {KC, kBrickX, T::kSlabY, 1, 1};
-  CUresult rc = encode(&map_x, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xd, xs,
-                       xb, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
-                       CU_TENSOR_MAP_L2_PROMOTION_L2_128B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return kErrEncodeBase - (int)rc;
-  // packed weights (27, Cout, Cin), innermost first: (Cin, Cout, dx, dy, dz);
-  // the box is the three dy taps of one (dz, dx)
-  const cuuint64_t wd[5] = {(cuuint64_t)Cin, (cuuint64_t)Cout, 3, 3, 3};
-  const cuuint64_t ws[4] = {e * Cin, e * Cin * Cout, 3 * e * Cin * Cout, 9 * e * Cin * Cout};
-  const cuuint32_t wb[5] = {KC, BN, 1, 3, 1};
-  rc = encode(&map_w, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(wp), wd, ws, wb,
-              ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
-  if (rc != CUDA_SUCCESS) return kErrEncodeBase - (int)rc;
+  const int cout_p = (Cout + 7) / 8 * 8;
+  // the channel steps of a tap: whole chunks of KC over Cin rounded up to
+  // wgmma's 16, and a 16-channel tail step for what KC leaves
+  const int cin16 = (Cin + 15) / 16 * 16;
+  const int full = cin16 / KC, tail = (cin16 % KC) / kTailKC;
+  if (tail > 1) return (int)cudaErrorInvalidValue;  // KC = 64 takes Cin % 64 == 0 only
+  CUtensorMap map_x, map_w, map_xt, map_wt;
+  int rc = encode_x(encode, &map_x, x, n_img, D, H, W, Cin, KC, T::kSlabY);
+  if (!rc) rc = encode_w(encode, &map_w, wp, Cin, cout_p, KC, BN);
+  if (!rc && tail) rc = encode_x(encode, &map_xt, x, n_img, D, H, W, Cin, kTailKC, T::kSlabY);
+  if (!rc && tail) rc = encode_w(encode, &map_wt, wp, Cin, cout_p, kTailKC, BN);
+  if (rc) return rc;
+  if (!tail) {  // never read: copies of the maps a launch does read
+    map_xt = map_x;
+    map_wt = map_w;
+  }
 
   auto kernel = conv3d_k3_wgmma_kernel<BN, KC, MINB, NWG>;
   // per device, so set at every launch (dynamic shared memory above 48 KB)
@@ -541,69 +794,147 @@ int launch_tc(const void* x, const void* wp, void* y, int n_img, int D, int H, i
   if (err != cudaSuccess) return (int)err;
   const int tiles_x = (W + kBrickX - 1) / kBrickX, tiles_y = (H + T::kBrickY - 1) / T::kBrickY;
   dim3 grid((unsigned)((long long)n_img * D * tiles_y * tiles_x), (unsigned)((Cout + BN - 1) / BN));
-  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(
-      map_x, map_w, static_cast<__nv_bfloat16*>(y), D, H, W, Cin, Cout, tiles_x, tiles_y);
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(map_x, map_w, map_xt, map_wt,
+                                                       static_cast<__nv_bfloat16*>(y), D, H, W,
+                                                       full, tail, Cout, tiles_x, tiles_y);
   return (int)cudaGetLastError();
+}
+
+// x (M, C) of 2-byte elements to y (M, Cp), Cp = C rounded up to 8, zeros
+// past C: a thread writes one 16-byte vector of y from L-element loads of x
+// (L = 4, 8 bytes, where 4 divides C and x is 8-byte aligned; else 1).
+// Bound by bytes: it reads x once and writes y once, in order across a warp.
+template <int L>
+__global__ void __launch_bounds__(256)
+pad_channels_kernel(const uint16_t* __restrict__ x, uint4* __restrict__ y, long long M, int C,
+                    int Cp) {
+  const int groups = Cp / 8;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= M * groups) return;
+  const long long m = v / groups;
+  const int c0 = (int)(v - m * groups) * 8;
+  const uint16_t* src = x + m * C + c0;
+  union {
+    uint4 vec;
+    uint2 part[2];
+    uint16_t e[8];
+  } u;
+  if constexpr (L == 4) {
+#pragma unroll
+    for (int h = 0; h < 2; ++h)
+      u.part[h] = c0 + 4 * h < C ? *reinterpret_cast<const uint2*>(src + 4 * h) : make_uint2(0, 0);
+  } else {
+#pragma unroll
+    for (int c = 0; c < 8; ++c) u.e[c] = c0 + c < C ? src[c] : uint16_t(0);
+  }
+  y[v] = u.vec;
 }
 
 }  // namespace
 
-// The tensor-core route: x (N, D, H, W, Cin) bf16, wp the packed weights
-// (27, Cout, Cin) bf16 (tap-major, then output channel, input channel
-// contiguous), y (N, D, H, W, Cout) bf16; Cin % 16 == 0, Cout % 8 == 0, all
-// three pointers 16-byte aligned. Returns 0, a cudaError, or a negative code
-// (-1: no cuTensorMapEncodeTiled in libcuda, -1000 - r: libcuda refused a
-// tensor map with CUresult r).
+// The channel-padded copy that the tensor-core route hands a bf16 x whose
+// Cin 8 does not divide: x (M, C) 2-byte elements, y (M, Cp) with Cp = C
+// rounded up to 8, 16-byte aligned. Returns 0 or a cudaError.
+extern "C" int biapy_pad_channels(const void* x, void* y, long long M, int C, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const int cp = (C + 7) / 8 * 8;
+  const long long vecs = M * (cp / 8);
+  const unsigned blocks = (unsigned)((vecs + 255) / 256);
+  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 8 == 0)
+    pad_channels_kernel<4><<<blocks, 256, 0, s>>>(static_cast<const uint16_t*>(x),
+                                                   static_cast<uint4*>(y), M, C, cp);
+  else
+    pad_channels_kernel<1><<<blocks, 256, 0, s>>>(static_cast<const uint16_t*>(x),
+                                                   static_cast<uint4*>(y), M, C, cp);
+  return (int)cudaGetLastError();
+}
+
+// The tensor-core route: x (N, D, H, W, Cin) bf16 with Cin % 8 == 0 (the
+// wrapper pads the channels of any other Cin), wp the packed weights
+// (27, Cout_p, Cin) bf16 (tap-major, then output channel, input channel
+// contiguous; Cout_p = Cout rounded up to 8, zeros past Cout), y
+// (N, D, H, W, Cout) bf16 for any Cout >= 1; all three pointers 16-byte
+// aligned. Returns 0, a cudaError, or a negative code (-1: no
+// cuTensorMapEncodeTiled in libcuda, -1000 - r: libcuda refused a tensor map
+// with CUresult r).
 extern "C" int biapy_conv3d_k3_wgmma(const void* x, const void* wp, void* y, int n_img, int D,
                                      int H, int W, int Cin, int Cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Cin <= 0 || Cin % 16 != 0 || Cout <= 0 || Cout % 8 != 0) return (int)cudaErrorInvalidValue;
-  // BN: the narrowest tile that holds Cout (rows of B past Cout arrive as
-  // zeros and are not written); above 256 the grid's second dimension walks
-  // tiles. KC: 64 channels a step (128-byte rows) where 64 divides Cin and the
-  // tile is narrow enough to leave the ring its depth, else 32 (64-byte rows).
+  if (Cin <= 0 || Cin % 8 != 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
+  // BN: the narrowest tile that holds Cout_p (rows of B past Cout_p arrive as
+  // zeros, channels past Cout are not written); above 256 the grid's second
+  // dimension walks tiles. KC: 64 channels a step (128-byte rows) where 64
+  // divides Cin and the tile is narrow enough to leave the ring its depth,
+  // else 32 (64-byte rows) with a 16-channel tail step where 32 leaves 16.
   // MINB: two blocks an SM where registers and shared memory allow it.
   // NWG: four consumer warpgroups (a 16 x 16 brick: the weights of a step
   // feed twice the voxels and the dy halo is 2 rows in 18, not in 10) where
   // the accumulators leave room (BN <= 128), the taller brick overhangs the
-  // volume no further and there are bricks for two waves of an H100's 132
-  // SMs; else two (8 x 16). Measured on the main path's shapes, each choice
-  // is the faster of its alternatives, by 9-23% where they differ.
+  // volume no further and either the tile is at most 64 wide or there are
+  // bricks for two waves of an H100's 132 SMs; else two (8 x 16). Measured
+  // on the main path's and the 3D templates' shapes, each choice is the
+  // faster of its alternatives where they differ (the templates' 16^2 level
+  // has 80 tall bricks, and four warpgroups still win there;
+  // tools/torch_conv3d_tiles.py times every variant).
 #define BIAPY_TC(BN, KC, MINB, NWG) \
   return launch_tc<BN, KC, MINB, NWG>(x, wp, y, n_img, D, H, W, Cin, Cout, s)
+  const int cout_p = (Cout + 7) / 8 * 8;
+  if (cout_p <= 8) BIAPY_TC(8, 32, 2, 2);
+  if (cout_p <= 16) BIAPY_TC(16, 32, 2, 2);
   const long long tall_bricks = (long long)n_img * D * ((H + 15) / 16) * ((W + 15) / 16);
-  if (Cout <= 128 && 2 * ((H + 15) / 16) == (H + 7) / 8 && tall_bricks >= 2 * 132) {
-    if (Cout <= 64 && Cin % 64 == 0) {
-      if (Cout <= 32) BIAPY_TC(32, 64, 2, 4);
+  if (cout_p <= 128 && 2 * ((H + 15) / 16) == (H + 7) / 8 &&
+      (cout_p <= 64 || tall_bricks >= 2 * 132)) {
+    if (cout_p <= 64 && Cin % 64 == 0) {
+      if (cout_p <= 32) BIAPY_TC(32, 64, 2, 4);
+      if (cout_p <= 48) BIAPY_TC(48, 64, 1, 4);
       BIAPY_TC(64, 64, 1, 4);
     }
-    if (Cout <= 32) BIAPY_TC(32, 32, 2, 4);
-    if (Cout <= 64) BIAPY_TC(64, 32, 1, 4);
-    if (Cout <= 96) BIAPY_TC(96, 32, 1, 4);
+    if (cout_p <= 32) BIAPY_TC(32, 32, 2, 4);
+    if (cout_p <= 40) BIAPY_TC(40, 32, 2, 4);
+    if (cout_p <= 48) BIAPY_TC(48, 32, 1, 4);
+    if (cout_p <= 64) BIAPY_TC(64, 32, 1, 4);
+    if (cout_p <= 96) BIAPY_TC(96, 32, 1, 4);
     BIAPY_TC(128, 32, 1, 4);
   }
-  if (Cout <= 64 && Cin % 64 == 0) {
-    if (Cout <= 32) BIAPY_TC(32, 64, 2, 2);
+  if (cout_p <= 64 && Cin % 64 == 0) {
+    if (cout_p <= 32) BIAPY_TC(32, 64, 2, 2);
     BIAPY_TC(64, 64, 2, 2);
   }
-  if (Cout <= 32) BIAPY_TC(32, 32, 2, 2);
-  if (Cout <= 64) BIAPY_TC(64, 32, 2, 2);
-  if (Cout <= 96) BIAPY_TC(96, 32, 2, 2);
-  if (Cout <= 128) BIAPY_TC(128, 32, 2, 2);
-  if (Cout <= 192) BIAPY_TC(192, 32, 1, 2);
+  if (cout_p <= 32) BIAPY_TC(32, 32, 2, 2);
+  if (cout_p <= 40) BIAPY_TC(40, 32, 2, 2);
+  if (cout_p <= 48) BIAPY_TC(48, 32, 2, 2);
+  if (cout_p <= 64) BIAPY_TC(64, 32, 2, 2);
+  if (cout_p <= 96) BIAPY_TC(96, 32, 2, 2);
+  if (cout_p <= 128) BIAPY_TC(128, 32, 2, 2);
+  if (cout_p <= 192) BIAPY_TC(192, 32, 1, 2);
   BIAPY_TC(256, 32, 1, 2);
 #undef BIAPY_TC
 }
 
-// The CUDA-core route. dtype: 0 = float32, 1 = bfloat16. Returns cudaGetLastError() after the launch.
+// The stem route: x (N, D, H, W, Cin) with 1 <= Cin <= 8, w the DHWIO
+// weights (3, 3, 3, Cin, Cout) as they are, y (N, D, H, W, Cout), any
+// Cout >= 1, all of one dtype (0 = float32, 1 = bfloat16). Returns 0 or a
+// cudaError.
+extern "C" int biapy_conv3d_k3_stem(const void* x, const void* w, void* y, int dtype, int n_img,
+                                    int D, int H, int W, int Cin, int Cout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin < 1 || Cin > kStemMaxCin || Cout < 1) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_stem<float>(x, w, y, n_img, D, H, W, Cin, Cout, s);
+  if (dtype == 1) return launch_stem<__nv_bfloat16>(x, w, y, n_img, D, H, W, Cin, Cout, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The CUDA-core route, float32 only (dtype 0; any other is refused). Returns
+// cudaGetLastError() after the launch.
 extern "C" int biapy_conv3d_k3(const void* x, const void* w, void* y, int dtype, int n_img,
                                int D, int H, int W, int Cin, int Cout, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    dispatch<float>(x, w, y, n_img, D, H, W, Cin, Cout, s);
-  else if (dtype == 1)
-    dispatch<__nv_bfloat16>(x, w, y, n_img, D, H, W, Cin, Cout, s);
+  if (dtype != 0) return (int)cudaErrorInvalidValue;
+  // narrow outputs take a narrow tile so no thread idles on masked columns
+  if (Cout <= 32)
+    launch<128, 32, 4, 4>(x, w, y, n_img, D, H, W, Cin, Cout, s);
   else
-    return (int)cudaErrorInvalidValue;
+    launch<128, 64, 8, 4>(x, w, y, n_img, D, H, W, Cin, Cout, s);
   return (int)cudaGetLastError();
 }

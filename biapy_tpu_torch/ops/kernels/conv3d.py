@@ -1,4 +1,4 @@
-"""3x3x3 stride-1 SAME convolution, channels-last: the two hand-written
+"""3x3x3 stride-1 SAME convolution, channels-last: the three hand-written
 Hopper kernels (``csrc/conv3d.cu``), the plain PyTorch version and the
 differentiable entry point.
 
@@ -7,25 +7,33 @@ Counterpart of ``biapy_tpu/ops/pallas/conv3d.py::conv3d`` and its
 w is DHWIO ``(3, 3, 3, Cin, Cout)``, the sum is kept in float32 and the
 output has the input's dtype. No bias.
 
-Both kernels replace ``biapy_tpu/ops/pallas/conv3d.py::_kernel``; the
-function is bound by operations at every width but the 1-channel stem's.
-Which one a CUDA launch takes is a rule on dtype and widths alone
+All three kernels replace ``biapy_tpu/ops/pallas/conv3d.py::_kernel``.
+Which one a CUDA launch takes is a rule on dtype, Cin and Cout alone
 (``conv3d_route``), never a ``try`` and never a setting:
 
-- ``"wgmma"``, the tensor-core kernel: bfloat16, ``Cin % 16 == 0`` (the
-  depth of one ``wgmma``) and ``Cout % 8 == 0`` (its width step, and the
-  16-byte rows that TMA and the vector stores want). bf16 tiles staged by
-  TMA, whose out-of-bounds zero fill is the SAME padding; float32
-  accumulators in registers; a ring of stages. It walks channels in chunks
-  of 32 (64 where 64 divides Cin and Cout <= 64): the tail of a Cin that 32
-  does not divide (16, 48, 80) arrives as zeros on both operands, so it
-  costs a half-empty chunk and changes nothing. It reads the weights
-  packed K-major, ``(27, Cout, Cin)`` (``pack_weights``, repacked at every
-  launch: no cache to go stale).
-- ``"fma"``, the CUDA-core kernel: everything else, i.e. float32 (which
-  must stay full float32; the tensor cores would round to TF32), the
-  1-channel stem (K = 27, bound by bytes) and widths the rule above
-  leaves out. An implicit GEMM with masked edges on float32 FMAs.
+- ``"stem"``: float32 or bfloat16 with ``Cin < STEM_CIN`` (the 1-channel
+  input of every U-Net, 3-channel images). K = 27 * Cin is too short for a
+  tensor-core tile and the output is what the card must write, so the
+  function is bound by bytes: a block stages a halo brick of x and the
+  weights in shared memory once, a thread computes 32 output channels at
+  one (y, x) of two z planes with float32 FMAs and writes them with
+  16-byte stores.
+- ``"wgmma"``, the tensor-core kernel: bfloat16 at every other Cin and
+  any Cout, bound by operations. bf16 tiles staged by TMA, whose
+  out-of-bounds zero fill is the SAME padding and the channel tail;
+  float32 accumulators in registers; a ring of stages. TMA wants x's
+  channel rows a multiple of 16 bytes, so an x whose Cin 8 does not divide
+  (28, 36, 84) is handed over as a channel-padded copy (``pad_channels``,
+  a copy kernel of its own, counted apart: one more read and write of
+  the activation, bound by those bytes). It reads the weights packed K-major and zero-padded, ``(27, Cout_p, Cin_p)``
+  with both widths rounded up to 8 (``pack_weights``, repacked at every
+  launch: no cache to go stale). The tile is Cout_p wide, channels are
+  walked 32 (or 64) at a time with a 16-channel tail step, and only the
+  real output channels are written.
+- ``"fma"``, the CUDA-core kernel: float32 at ``Cin >= STEM_CIN``, which
+  must stay full float32 (the tensor cores would round to TF32). An
+  implicit GEMM with masked edges on float32 FMAs, each 16-product chunk
+  summed apart. Any other dtype takes this route and is refused there.
 
 The backward, as in the JAX package: dx is the same kernel on the spatially
 flipped, IO-swapped weights, whose packed form is ``w.flip(0, 1, 2)`` in
@@ -81,29 +89,74 @@ def conv3d_plain(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return acc.to(x.dtype)
 
 
+# Cin below this takes the stem kernel: at 1 x 128^3 -> 32 on an H100 the
+# stem kernel is faster than the tensor cores (whose K then pads to 16) at
+# Cin 1-3 and level with them at 4 (PERF.md, tools/torch_conv3d_f32_ab.py --cut)
+STEM_CIN = 4
+
+
 def conv3d_route(dtype: torch.dtype, cin: int, cout: int) -> str:
-    """The kernel a CUDA launch takes: ``"wgmma"`` for bfloat16 with
-    ``cin % 16 == 0`` and ``cout % 8 == 0``, else ``"fma"``."""
-    if dtype == torch.bfloat16 and cin > 0 and cin % 16 == 0 and cout > 0 and cout % 8 == 0:
+    """The kernel a CUDA launch takes: ``"stem"`` for float32 or bfloat16
+    with ``0 < cin < STEM_CIN``, ``"wgmma"`` for any other bfloat16 conv,
+    else ``"fma"``."""
+    if dtype in (torch.float32, torch.bfloat16) and 0 < cin < STEM_CIN and cout > 0:
+        return "stem"
+    if dtype == torch.bfloat16 and cin > 0 and cout > 0:
         return "wgmma"
     return "fma"
 
 
+def _round8(n: int) -> int:
+    return -(-n // 8) * 8
+
+
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
-    """DHWIO ``(3, 3, 3, Cin, Cout)`` -> ``(27, Cout, Cin)`` contiguous, the
-    K-major B operand of the tensor-core kernel:
+    """DHWIO ``(3, 3, 3, Cin, Cout)`` -> ``(27, Cout_p, Cin_p)`` contiguous,
+    both widths rounded up to a multiple of 8 and zero past the real ones:
+    the K-major B operand of the tensor-core kernel,
     ``pack(w)[t, co, ci] == w.reshape(27, Cin, Cout)[t, ci, co]``."""
     cin, cout = w.shape[3], w.shape[4]
-    return w.reshape(27, cin, cout).transpose(1, 2).contiguous()
+    p = w.reshape(27, cin, cout).transpose(1, 2)
+    if cin % 8 or cout % 8:  # (a zero F.pad would copy once more)
+        p = F.pad(p, (0, _round8(cin) - cin, 0, _round8(cout) - cout))
+    return p.contiguous()
 
 
 def pack_weights_dx(w: torch.Tensor) -> torch.Tensor:
     """The packed weights of the dx conv (w flipped in space, I and O
     swapped) without a transpose: ``pack_weights(w.flip(0, 1, 2)
-    .transpose(3, 4)) == w.flip(0, 1, 2).reshape(27, Cin, Cout)``, because
-    the rows of the flipped w are already the dx conv's output channels with
-    its reduction dimension contiguous."""
-    return w.flip(0, 1, 2).reshape(27, w.shape[3], w.shape[4])
+    .transpose(3, 4)) == w.flip(0, 1, 2).reshape(27, Cin, Cout)``, zero-padded
+    in the same way, because the rows of the flipped w are already the dx
+    conv's output channels with its reduction dimension contiguous."""
+    cin, cout = w.shape[3], w.shape[4]
+    p = w.flip(0, 1, 2).reshape(27, cin, cout)
+    if cin % 8 or cout % 8:
+        p = F.pad(p, (0, _round8(cout) - cout, 0, _round8(cin) - cin))
+    return p.contiguous()
+
+
+def pad_channels(x: torch.Tensor) -> torch.Tensor:
+    """x with its channels zero-padded to a multiple of 8 (TMA's 16-byte
+    rows), or x itself where 8 divides them. A CPU x takes ``F.pad``; a
+    CUDA x must be bfloat16 (the tensor-core route's dtype) and is copied
+    by the ``biapy_pad_channels`` kernel, counted in
+    ``build.LAUNCHES["pad_channels"]``."""
+    c = x.shape[-1]
+    if c % 8 == 0:
+        return x
+    if x.device.type == "cpu":
+        return F.pad(x, (0, _round8(c) - c))
+    build.check_cuda(x, "pad_channels")
+    if x.dtype != torch.bfloat16:
+        raise TypeError(f"pad_channels: the kernel takes bfloat16, got {x.dtype}")
+    y = torch.empty(x.shape[:-1] + (_round8(c),), dtype=x.dtype, device=x.device)
+    if y.numel():
+        with torch.cuda.device(x.device):
+            rc = build.lib().biapy_pad_channels(x.data_ptr(), y.data_ptr(), x.numel() // c, c,
+                                                build.stream_ptr(x))
+        build.check_rc(rc, "pad_channels")
+        build.LAUNCHES["pad_channels"] += 1
+    return y
 
 
 def _check_operands(x: torch.Tensor, w: torch.Tensor, cin_axis: int, name: str) -> None:
@@ -119,8 +172,8 @@ def _check_operands(x: torch.Tensor, w: torch.Tensor, cin_axis: int, name: str) 
 
 def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool) -> torch.Tensor:
     """One kernel launch on the route of ``(x.dtype, C of x, C of y)``, with
-    the weights in the form that route's kernel reads: the forward conv of x
-    with w, or (``dx``) the conv of x with w flipped and IO-swapped."""
+    the operands in the form that route's kernel reads: the forward conv of
+    x with w, or (``dx``) the conv of x with w flipped and IO-swapped."""
     name = "conv3d"
     n, d, h, wd, cin = x.shape
     cout = w.shape[3] if dx else w.shape[4]
@@ -130,16 +183,20 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool) -> torch.Tensor:
         return y
     with torch.cuda.device(x.device):
         if route == "wgmma":
+            if x.dtype != torch.bfloat16:
+                raise TypeError(f"{name}: the tensor-core kernel takes bfloat16, got {x.dtype}")
+            xk = pad_channels(x)
             wp = pack_weights_dx(w) if dx else pack_weights(w)
-            if x.data_ptr() % 16 or wp.data_ptr() % 16 or y.data_ptr() % 16:
+            if xk.data_ptr() % 16 or wp.data_ptr() % 16 or y.data_ptr() % 16:
                 raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned tensors")
-            rc = build.lib().biapy_conv3d_k3_wgmma(x.data_ptr(), wp.data_ptr(), y.data_ptr(),
-                                                   n, d, h, wd, cin, cout, build.stream_ptr(x))
+            rc = build.lib().biapy_conv3d_k3_wgmma(xk.data_ptr(), wp.data_ptr(), y.data_ptr(),
+                                                   n, d, h, wd, xk.shape[-1], cout,
+                                                   build.stream_ptr(x))
         else:
             wk = w.flip(0, 1, 2).transpose(3, 4).contiguous() if dx else w
-            rc = build.lib().biapy_conv3d_k3(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
-                                             build.dtype_code(x), n, d, h, wd, cin, cout,
-                                             build.stream_ptr(x))
+            fn = build.lib().biapy_conv3d_k3_stem if route == "stem" else build.lib().biapy_conv3d_k3
+            rc = fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(), build.dtype_code(x), n, d, h, wd,
+                    cin, cout, build.stream_ptr(x))
     build.check_rc(rc, f"{name} ({route})")
     build.LAUNCHES[name] += 1
     build.CONV3D_ROUTES[route] += 1

@@ -18,8 +18,11 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    patch) (bf16 and f32, plus
    odd shapes: ragged sizes,
    c = 1, kz = 5, two images, tied pool windows with a NaN; for conv3d also
-   odd shapes on the tensor-core route: overhanging bricks, a channel tail,
-   an output-tile loop) against its plain PyTorch version, with the
+   odd shapes on each route: overhanging bricks, channel tails, widths off
+   the 8 grid (Cin 28, 36, 84, Cout 28, 36, 12, 1), stems at Cin 1 and 3,
+   an output-tile loop; and the 3D templates' 14 forward convs and 13 input
+   gradients in bf16 at batch 2 and depth 40, with their sums against
+   ``F.conv3d`` and the bound) against its plain PyTorch version, with the
    kernel's, the plain version's and the library call's device-side times
    (``device_ms``: CUDA events around ten back-to-back calls queued behind a
    spin kernel, divided by ten), the kernel's and the library call's call
@@ -29,15 +32,16 @@ Phases, in order; any failure ends the run with a nonzero exit code:
 4. serving path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
    32/64/128, BatchNorm, ELU, 128^3 patches, halo 10, bf16, uint8 drain) on
    a seeded 216^3 uint8 volume, three calls, with the launch counters
-   checked at 10 conv3d (9 on the tensor-core route), 2 pool and 2 zd2s
-   per patch;
+   checked at 10 conv3d (9 on the tensor-core route, the stem on the stem
+   route), 2 pool and 2 zd2s per patch;
 5. whole path vs plain path: the same model at reduced width on the card
    and on the CPU (plain versions), probabilities compared, in float32
-   (CUDA-core conv) and in bf16 at widths that take the tensor-core conv;
+   (CUDA-core conv) and in bf16 (the stem kernel and the tensor-core conv);
 6. training path: ``prepare_model()`` and ``make_train_step`` on the same
    model at 128^3 under bf16 mixed precision, batch 1 then 2 (two steps to
    settle, at least six timed), with the launch counters checked per step
-   (19 conv3d, 18 of them on the tensor-core route, 10 zcat, 2 each of
+   (19 conv3d, 18 of them on the tensor-core route and the stem's on the
+   stem route, 10 zcat, 2 each of
    pool, pool backward, zd2s, zs2d), a
    falling finite loss, changed weights and statistics, patches/s, peak
    memory and one profiled step;
@@ -76,8 +80,9 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     (d) ``templates/semantic_segmentation/3d_semantic_segmentation.yaml``
     as it is but for its data paths (seeded TIFFs under
     ``chiprun_out/chip_smoke_template/``), EPOCHS 2 and a one-epoch warm-up:
-    trains, writes its checkpoints, tests; seconds and conv3d routes; every
-    pool, pool backward and zcat launch on a 16-byte route
+    trains, writes its checkpoints, tests; seconds; conv3d's launches by
+    route equal to the rule's for every forward (and backward) the model
+    ran; every pool, pool backward and zcat launch on a 16-byte route
     (``build.SHUFFLE_ROUTES``);
 12. the 3D instance-segmentation template: (a)
     ``templates/instance_segmentation/3d_instance_segmentation.yaml`` as it
@@ -89,7 +94,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     the matching; compile seconds per volume, the loop's patches/s,
     regeneration seconds per rotated sample, test Mvox/s with its predict
     and watershed seconds, matching F1, peak memory and launches by kernel
-    and route (every pool, pool backward and zcat on a 16-byte route); (b)
+    and route (conv3d's by route as the rule names them for the model's
+    forwards, every pool, pool backward and zcat on a 16-byte route); (b)
     the best checkpoint's test pass on a 40 x 256 x 256 crop on the card and
     on the CPU (the CPU side in the child of 19), float32 and bf16, held to
     phase 5's tolerances, the instances at matching F1 >= 0.99 (IoU 0.5);
@@ -110,7 +116,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     follows GT_PATH), training, the bf16 test pass and the points; mask
     seconds per volume, the loop's patches/s, test Mvox/s with its predict
     and point-extraction seconds, P/R/F1 at DET_TOLERANCE 8, peak memory,
-    launches by kernel and route (a ``scalar`` launch is reported, not
+    launches by kernel and route (conv3d's by route as the rule names them
+    for the model's forwards; a ``scalar`` launch is reported, not
     failed); (b) the best checkpoint by chunks on a seeded 168 x 512 x 512
     Zarr with WORKFLOW_PROCESS on: its heatmap and candidate points equal
     ``predict``'s in memory (the candidates but near a tile core boundary),
@@ -410,18 +417,27 @@ ZCAT_BWD_MAIN = LARGER_IO_ZCATS[1]
 # launches per training step at batch 1 (the LARGER_IO model adds two kz = 5
 # zcat forwards and one zcat backward)
 TRAIN_LAUNCHES = {"conv3d": 19, "zcat": 10, "pool_max_folded": 2, "pool_max_folded_bwd": 2,
-                  "zd2s": 2, "zs2d": 2, "zcat_bwd": 0}
+                  "zd2s": 2, "zs2d": 2, "zcat_bwd": 0, "pad_channels": 0}
 LARGER_IO_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d=20, zcat=12, zcat_bwd=1)
-# conv3d's launches by route (biapy_tpu_torch/ops/kernels/conv3d.py::conv3d_route):
-# in bf16 only the 1-channel stem's forward stays on the CUDA cores; with
-# LARGER_IO the stem is a 5x5x5 conv (cat2d path), so every 3x3x3 conv has
-# Cin = 32 or more
-SERVE_ROUTES = {"wgmma": 9, "fma": 1}
-TRAIN_ROUTES = {"wgmma": 18, "fma": 1}
-LARGER_IO_ROUTES = {"wgmma": 20, "fma": 0}
+# conv3d's routes (biapy_tpu_torch/ops/kernels/conv3d.py::conv3d_route) and
+# its launches by route: in bf16 the 1-channel stem's forward takes the stem
+# kernel and every other conv the tensor cores; the CUDA-core route runs
+# float32 alone; with LARGER_IO the stem is a 5x5x5 conv (cat2d path), so
+# every 3x3x3 conv has Cin = 32 or more
+CONV3D_ROUTE_NAMES = ("wgmma", "stem", "fma")
+SERVE_ROUTES = {"wgmma": 9, "stem": 1, "fma": 0}
+TRAIN_ROUTES = {"wgmma": 18, "stem": 1, "fma": 0}
+LARGER_IO_ROUTES = {"wgmma": 20, "stem": 0, "fma": 0}
+# the 1-channel stems, ((N, D, H, W), Cin, Cout): the main path's, the 3D
+# templates' and the classification template's
+STEM_CONVS = [((1, 128, 128, 128), 1, 32), ((TEMPLATE_BATCH, TEMPLATE_DEPTH, 128, 128), 1, 28),
+              ((CLS_BATCH,) + CLS_LEVELS[0], 1, 32)]
 _SHUFFLE = "biapy_tpu_torch/csrc/shuffle.cu"
 KERNEL_META = {
     "conv3d": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
+    # conv3d's channel pad (tensor-core route, Cin off the 8 grid): a part of
+    # the same kernel's port
+    "pad_channels": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
     "pool_max_folded": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:232"),
     "zd2s": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:294"),
     "zcat": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:109"),
@@ -561,6 +577,12 @@ def phase_build():
         if "wgmma" in k["kernel"] or k["spill_bytes"]:
             print(f"[build] {k['kernel'][:100]}: {k['registers']} registers, "
                   f"{k['spill_bytes']} bytes of spills")
+    # ptxas's performance warnings (C7520: wgmma serialized), which no
+    # kernel should have
+    losses = [ln for ln in str(build.BUILD_INFO.get("log", "")).splitlines()
+              if "Potential Performance Loss" in ln]
+    print(f"[build] ptxas performance warnings: {len(losses)}"
+          + "".join(f"\n[build]   {ln.strip()[:200]}" for ln in losses[:4]))
     return secs, ptxas
 
 
@@ -628,23 +650,110 @@ class _Rows:
             self.failures.append(row)
 
 
-# odd conv3d shapes, (N, D, H, W), Cin, Cout. The first stays on the CUDA
-# cores in both dtypes; the others take the tensor cores in bf16: bricks that
-# overhang the volume, two images (the seam), a channel tail (Cin 16, 48), an
-# output tile wider than Cout (8, 40), a loop over output tiles (264), and a
-# ragged volume with bricks enough for the kernel's taller (16 x 16) brick
+# odd conv3d shapes, (N, D, H, W), Cin, Cout, on every route: in bf16 the
+# tensor cores take bricks that overhang the volume, two images (the seam),
+# channel tails (Cin 16 and 48: a 16-channel step; 24 and 5: zeros from TMA),
+# x's channels padded to 8 (Cin 28, 36 with a tail step, 84, 5), tiles of
+# Cout_p (8, 16, 32, 40) wider than Cout (1, 12, 28, 36: 2- and 8-byte
+# stores), a loop over output tiles (264), and ragged volumes with bricks
+# enough for the kernel's taller (16 x 16) brick (Cin 48, 28 and 36); the
+# stem kernel takes Cin 3 and 1 (Cout 28, 36: two channel chunks, 1) in both
+# dtypes; float32 at Cin >= 4 takes the CUDA cores
 ODD_CONVS = [((2, 13, 7, 9), 24, 40), ((2, 13, 7, 9), 32, 40), ((2, 13, 7, 9), 48, 32),
-             ((2, 13, 7, 9), 64, 264), ((2, 3, 19, 35), 16, 8), ((2, 40, 30, 35), 48, 40)]
+             ((2, 13, 7, 9), 64, 264), ((2, 3, 19, 35), 16, 8), ((2, 40, 30, 35), 48, 40),
+             ((2, 13, 7, 9), 28, 36), ((2, 13, 7, 9), 36, 28), ((2, 5, 21, 19), 84, 12),
+             ((2, 13, 7, 9), 28, 1), ((2, 6, 11, 13), 5, 12), ((2, 40, 30, 35), 28, 28),
+             ((2, 40, 30, 35), 36, 36), ((2, 9, 11, 13), 3, 28), ((2, 7, 10, 33), 1, 36),
+             ((1, 4, 5, 6), 1, 1)]
 # the CUDA cores' float32 peak: no FMA kernel can pass it
 TENSOR_CORE_PROOF_TFLOPS = 67.0
+
+
+def _template_conv_rows():
+    """The 3D templates' 14 forward convs and 13 input gradients (all but
+    the stem's: the same kernel with Cin and Cout swapped) at batch 2 and
+    depth 40, as ((N, D, H, W), Cin, Cout) in network order."""
+    vol = [((TEMPLATE_BATCH, TEMPLATE_DEPTH, s, s), cin, cout) for s, cin, cout in TEMPLATE_CONVS]
+    return vol, [(v, cout, cin) for v, cin, cout in vol[1:]]
+
+
+def _template_conv_sums(rows):
+    """Prints the templates' bf16 forward sum and forward-plus-dx sum
+    against ``F.conv3d``'s and the bound, which of their rows and of the
+    stems' (``STEM_CONVS``) took longer than ``F.conv3d``, and the sums of
+    each route's rows; returns the sums."""
+    def pick(shapes):
+        return [next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
+                     and r["shape"] == list(v) + [cin] and r["cout"] == cout)
+                for v, cin, cout in shapes]
+
+    fwd, dx = _template_conv_rows()
+    sums = {}
+    for what, picked in (("forward", pick(fwd)), ("forward_dx", pick(fwd + dx))):
+        sums[what] = {k: sum(r.get(k, 0.0) for r in picked)
+                      for k in ("ms", "library_ms", "bound_ms", "pad_ms")}
+        print(f"[kernels] conv3d templates' bf16 {what} ({len(picked)} convs) at 2 x 40 x "
+              f"128^2: {sums[what]['ms']:.3f} ms (the channel pads {sums[what]['pad_ms']:.3f} "
+              f"of it), F.conv3d {sums[what]['library_ms']:.3f} ms, bound "
+              f"{sums[what]['bound_ms']:.3f} ms")
+    slower = sorted({(tuple(r["shape"]), r["cout"], round(r["ms"], 4), round(r["library_ms"], 4))
+                     for r in pick(fwd + dx + STEM_CONVS) if r["ms"] > r["library_ms"]})
+    print(f"[kernels] conv3d templates' and stems' bf16 rows slower than F.conv3d (shape, "
+          f"Cout, ms, F.conv3d ms): {slower if slower else 'none'}")
+    # conv3d by route: the tensor cores at widths on the 8 grid (the main
+    # path's 9 forward convs after the stem, a 128^3 serving patch), off it
+    # (the templates' forward and dx convs with Cin or Cout that 8 does not
+    # divide), the stems, and the CUDA cores (the same 9 in float32)
+    main9 = [((1, s, s, s), cin, cout) for s, cin, cout in MAIN_CONVS[1:]]
+    groups = (("wgmma on the grid, bf16", "bfloat16", main9),
+              ("wgmma off the grid, bf16", "bfloat16",
+               [r for r in fwd[1:] + dx if r[1] % 8 or r[2] % 8]),
+              ("stem, bf16", "bfloat16", STEM_CONVS),
+              ("fma, float32", "float32", main9))
+    for what, dt, shapes in groups:
+        picked = [next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == dt
+                       and r["shape"] == list(v) + [cin] and r["cout"] == cout)
+                  for v, cin, cout in shapes]
+        tot = {k: sum(r.get(k, 0.0) for r in picked)
+               for k in ("ms", "pad_ms", "plain_ms", "library_ms", "bound_ms")}
+        sums[what] = tot
+        print(f"[kernels] conv3d route {what}: {len(picked)} rows, {tot['ms']:.3f} ms (the "
+              f"channel pads {tot['pad_ms']:.3f} of it), plain "
+              f"{tot['plain_ms']:.3f} ms, F.conv3d {tot['library_ms']:.3f} ms, bound "
+              f"{tot['bound_ms']:.3f} ms ({', '.join(sorted({r['route'] for r in picked}))})")
+    return sums
+
+
+def _pad_row(out, x):
+    """The channel pad (``pad_channels``) of bf16 ``x`` against ``F.pad``,
+    bit-equal with the zero lanes: the block the pad's output takes is
+    filled with NaN first (the allocator hands a freed block of that size
+    back), so a lane the kernel left unwritten shows. Bound by its bytes,
+    x read once and the padded copy written once. Returns its ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from biapy_tpu_torch.ops.kernels.conv3d import pad_channels
+
+    c = x.shape[-1]
+    cp = -(-c // 8) * 8
+    poison = torch.full(x.shape[:-1] + (cp,), float("nan"), dtype=x.dtype, device=x.device)
+    del poison
+    got = pad_channels(x)
+    out.add("pad_channels", x.dtype, tuple(x.shape), got, F.pad(x, (0, cp - c)), 0.0,
+            lambda: pad_channels(x), lambda: F.pad(x, (0, cp - c)),
+            lambda: F.pad(x, (0, cp - c)), "F.pad",
+            nbytes=(x.numel() + got.numel()) * x.element_size(), cp=cp)
+    return out.rows[-1]["ms"]
 
 
 def conv_rows(out, rand, g, dev, classification_only=False):
     """conv3d against its plain version: every main-path forward and dx shape
     and the odd shapes, and the classification template's, in both dtypes,
-    and the U-Net variants' (their runs train and serve in bf16) in bf16;
-    each row with the route it took. ``classification_only``: the
-    classification template's and the variants' rows alone."""
+    and the U-Net variants' and the 3D templates' forward and dx convs
+    (their runs train and serve in bf16) in bf16; each row with the route it
+    took. ``classification_only``: the classification template's and the
+    variants' rows alone."""
     import torch
     import torch.nn.functional as F
 
@@ -658,10 +767,14 @@ def conv_rows(out, rand, g, dev, classification_only=False):
     cls_convs, cls_dx = _cls_rows()[:2]
     cls_shapes = list(dict.fromkeys(cls_convs + cls_dx))
     variant_shapes = [r for r in _variant_rows()[0] if r not in cls_shapes]
+    tpl_fwd, tpl_dx = _template_conv_rows()
+    tpl_shapes = [r for r in dict.fromkeys(tpl_fwd + tpl_dx)
+                  if r not in cls_shapes and r not in variant_shapes]
+    pad_ms = {}  # x's shape -> its channel pad's ms
     for dt in (torch.bfloat16, torch.float32):
         todo = ([] if classification_only else shapes + ODD_CONVS) + cls_shapes
         if dt == torch.bfloat16:
-            todo = todo + variant_shapes
+            todo = todo + variant_shapes + ([] if classification_only else tpl_shapes)
         for vol, cin, cout in todo:
             shape = vol + (cin,)
             x = rand(shape, dt)
@@ -669,14 +782,21 @@ def conv_rows(out, rand, g, dev, classification_only=False):
             xc = x.permute(0, 4, 1, 2, 3)  # NCDHW view in channels_last_3d strides
             wc = w.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
             m = x.numel() // cin
+            extra = dict(cout=cout, route=conv3d_route(dt, cin, cout))
+            if extra["route"] == "wgmma" and cin % 8:
+                # the channel-padded copy of x, a part of the row's time
+                if shape not in pad_ms:
+                    pad_ms[shape] = _pad_row(out, x)
+                extra["pad_ms"] = pad_ms[shape]
             out.add("conv3d", dt, shape, conv3d_fwd(x, w), conv3d_plain(x, w), tols[dt],
                     lambda: conv3d_fwd(x, w), lambda: conv3d_plain(x, w),
                     lambda: F.conv3d(xc, wc, padding=1), "F.conv3d",
                     nbytes=(x.numel() + w.numel() + m * cout) * x.element_size(),
-                    flops=2 * 27 * cin * cout * m, cout=cout, route=conv3d_route(dt, cin, cout))
+                    flops=2 * 27 * cin * cout * m, **extra)
             del x, w, xc, wc
     if out.failures or classification_only:
         return
+    _template_conv_sums(out.rows)
     main = [r for r in out.rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
             and r["shape"][0] == 1]
     best = max(main, key=lambda r: r["tflops"])
@@ -711,7 +831,8 @@ def phase_kernels(card, conv3d_only=False, classification_only=False, twod_only=
     if not twod_only:
         conv_rows(out, rand, g, dev, classification_only)
     if out.failures:
-        raise AssertionError(f"{len(out.failures)} conv3d checks failed: {out.failures}")
+        raise AssertionError(f"{len(out.failures)} conv3d and channel-pad checks failed: "
+                             f"{out.failures}")
     if conv3d_only:
         return out.rows
 
@@ -1054,8 +1175,7 @@ def phase_main_path():
     launches = dict(build.LAUNCHES)
     routes = dict(build.CONV3D_ROUTES)
     peak = torch.cuda.max_memory_allocated()
-    want = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2}
-    for k, per_patch in want.items():
+    for k, per_patch in SERVE_LAUNCHES.items():
         if launches[k] != 3 * n_patches * per_patch:
             raise AssertionError(f"{k}: {launches[k]} launches in 3 predict calls, want "
                                  f"{3 * n_patches * per_patch} ({per_patch} per patch)")
@@ -1410,8 +1530,9 @@ def phase_whole_vs_plain_bf16():
         _random_bn_stats(job.workflow.model, seed=1)
         preds.append(np.asarray(job.predict(vol)[0]["pred"], dtype=np.float32))
     routes = dict(build.CONV3D_ROUTES)
-    if routes["fma"] * 9 != routes["wgmma"] or not routes["wgmma"]:
-        raise AssertionError(f"bf16 small path: conv3d routes {routes}, want 9 wgmma per fma")
+    if routes["stem"] * 9 != routes["wgmma"] or not routes["wgmma"] or routes["fma"]:
+        raise AssertionError(f"bf16 small path: conv3d routes {routes}, want 9 wgmma per stem "
+                             "and no fma")
     diff = np.abs(preds[0] - preds[1])
     worst, mean = float(diff.max()), float(diff.mean())
     # every layer rounds its activations to bf16 (2^-8 relative) and the two
@@ -1434,7 +1555,7 @@ def phase_whole_vs_plain_bf16():
 JOB_TRAIN_SHAPE, JOB_TEST_SHAPE, JOB_EPOCHS, JOB_BATCH = (256, 256, 256), (216, 216, 216), 2, 2
 # launches of one forward batch of the serving path (phase 4's per patch at
 # batch 1: the kernels take the whole batch in one launch)
-SERVE_LAUNCHES = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2}
+SERVE_LAUNCHES = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2, "pad_channels": 0}
 
 
 def _job_volume(g, shape, dev):
@@ -1474,8 +1595,8 @@ def _write_job_data(root):
 def _steady_idle_share(events, per, units, what):
     """Idle share of the device from the first conv3d launch of the second
     unit (a training step, a tile) to the end of the last event; each unit
-    launches conv3d ``per`` times, the first being a stem's (on the CUDA
-    cores, the unit's last on the tensor cores). Busy time is the union of
+    launches conv3d ``per`` times, the first being a stem's (on the stem
+    kernel, the unit's last on the tensor cores). Busy time is the union of
     the events' intervals on every stream (a tile's drain copy overlaps the
     next tile's compute).
 
@@ -2156,6 +2277,8 @@ def phase_template():
         cfg["TRAIN"]["EPOCHS"] = 2
         cfg["TRAIN"]["LR_SCHEDULER"]["WARMUP_COSINE_DECAY_EPOCHS"] = 1
         job = BiaPy(cfg, result_dir=str(root / "results"), name="template", silent=True)
+        job._build_workflow()
+        calls = _count_forwards(job.workflow)
         torch.cuda.synchronize()
         build.reset_launches()
         t0 = time.perf_counter()
@@ -2174,9 +2297,14 @@ def phase_template():
                 or written.shape != TEMPLATE_TEST_SHAPE or not np.all(np.isfinite(written))):
             raise AssertionError(f"template: epochs {hist}, checkpoints {ck}, prediction "
                                  f"{written.shape}")
+        # conv3d's routes: each the rule names for the model's convs, its
+        # counted number of times over every forward (and backward) it ran
+        want, want_routes = _expected_launches(wf.model, calls)
         if not (launches["pool_max_folded"] and launches["pool_max_folded_bwd"]
-                and launches["zd2s"] == 0 and routes["fma"] and routes["wgmma"]):
-            raise AssertionError(f"template: launches {launches}, conv3d routes {routes}")
+                and launches["zd2s"] == 0 and routes == want_routes
+                and launches["pad_channels"] == want["pad_channels"]):
+            raise AssertionError(f"template: launches {launches}, conv3d routes {routes}, "
+                                 f"want {want_routes} and {want['pad_channels']} pads")
         # every pool, pool backward and zcat of the template on 16-byte vectors
         if not all(launches[k] and shuffle_routes[k]["scalar"] == 0
                    and sum(shuffle_routes[k].values()) == launches[k] for k in shuffle_routes):
@@ -2188,8 +2316,9 @@ def phase_template():
               f"patches, 2 epochs: run_job {secs:.2f} s (seconds per epoch "
               f"{[round(h['time'], 3) for h in hist]}, loss {[round(h['loss'], 5) for h in hist]}, "
               f"test IoU {wf.stats['iou']:.4f})")
-        print(f"[template] launches {launches}; conv3d routes {routes} (widths 28 and 36 on the "
-              f"CUDA cores); pool and zcat routes {shuffle_routes}")
+        print(f"[template] launches {launches}; conv3d routes {routes} (as the rule names them "
+              f"for the {len(calls)} forwards: bf16 on the tensor cores and the stem kernel, "
+              f"float32 on the CUDA cores); pool and zcat routes {shuffle_routes}")
         return dict(seconds=secs, epoch_seconds=[h["time"] for h in hist], launches=launches,
                     conv3d_routes=routes, shuffle_routes=shuffle_routes, iou=wf.stats["iou"])
     finally:
@@ -2303,6 +2432,7 @@ def phase_instance_template():
         job = BiaPy(cfg, result_dir=str(root / "results"), name="instance", silent=True)
         job._build_workflow()
         wf = job.workflow
+        calls = _count_forwards(wf)
         loop_s, predict_s, ws_s, train_s, test_s = [], [], [], [], []
         step_launches = []
 
@@ -2340,9 +2470,12 @@ def phase_instance_template():
             raise AssertionError(f"instance template: epochs {hist}, checkpoints {ck}, "
                                  f"instances {inst.shape}, channel maps {raw.shape}, "
                                  f"matching {sorted(stats)}")
-        if not (launches["conv3d"] and routes["fma"] and routes["wgmma"]
+        want, want_routes = _expected_launches(wf.model, calls)
+        if not (launches["conv3d"] and routes == want_routes
+                and launches["pad_channels"] == want["pad_channels"]
                 and launches["zd2s"] == 0 and launches["zs2d"] == 0):
-            raise AssertionError(f"instance template: launches {launches}, routes {routes}")
+            raise AssertionError(f"instance template: launches {launches}, routes {routes}, "
+                                 f"want {want_routes} and {want['pad_channels']} pads")
         # every pool, pool backward and zcat of the template on 16-byte vectors
         if not all(launches[k] and shuffle_routes[k]["scalar"] == 0
                    and sum(shuffle_routes[k].values()) == launches[k] for k in shuffle_routes):
@@ -2992,6 +3125,7 @@ def phase_detection(smi):
         job = BiaPy(cfg, result_dir=str(root / "results"), name="detection", silent=True)
         job._build_workflow()
         wf = job.workflow
+        calls = _count_forwards(wf)
         # the point-mask caches sit next to the GT dirs, under this run's root
         # (update_dependencies derives DETECTION_MASK_DIR from GT_PATH)
         mask_dirs = [str(wf.cfg.DATA[s].DETECTION_MASK_DIR) for s in ("TRAIN", "TEST")]
@@ -3028,10 +3162,13 @@ def phase_detection(smi):
             raise AssertionError(f"detection template: epochs {hist}, checkpoints {ck}, "
                                  f"heatmap {raw.shape}, {len(mask_s)} mask compiles, "
                                  f"stats {stats}")
-        if not (routes["fma"] and routes["wgmma"] and launches["pool_max_folded"]
+        want, want_routes = _expected_launches(wf.model, calls)
+        if not (routes == want_routes and launches["pad_channels"] == want["pad_channels"]
+                and launches["pool_max_folded"]
                 and launches["pool_max_folded_bwd"] and launches["zcat"]
                 and launches["zd2s"] == 0 and launches["zs2d"] == 0):
-            raise AssertionError(f"detection template: launches {launches}, routes {routes}")
+            raise AssertionError(f"detection template: launches {launches}, routes {routes}, "
+                                 f"want {want_routes} and {want['pad_channels']} pads")
         scalar = {k: v["scalar"] for k, v in shuffle_routes.items() if v["scalar"]}
         steps = len(wf.train_loader)
         bs = int(wf.cfg.TRAIN.BATCH_SIZE)
@@ -3387,6 +3524,15 @@ def _write_restoration_data(kind, root):
     return test
 
 
+def _channel_pads(dtype, launched):
+    """The channel pads of conv3d launches ``[(C of x, C of y), ...]``: one
+    for each on the tensor-core route whose x has channels off the 8 grid."""
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_route
+
+    return sum(1 for cin, cout in launched
+               if conv3d_route(dtype, cin, cout) == "wgmma" and cin % 8)
+
+
 def _model_launches(model, dtype, training):
     """Kernel launches of one forward (``training``: one training step,
     forward and backward) of a 3D U-Net, read off the model: a conv3d per
@@ -3404,14 +3550,16 @@ def _model_launches(model, dtype, training):
     k3 = [k[3:] for k in convs if k[:3] == (3, 3, 3)]
     z_ups = sum(1 for m in model.modules() if isinstance(m, ConvTranspose) and m.ks[0] > 1)
     pools = len(model.windows)
-    routes = {"wgmma": 0, "fma": 0}
-    for cin, cout in k3:
+    routes = dict.fromkeys(CONV3D_ROUTE_NAMES, 0)
+    launched = [(cin, cout) for cin, cout in k3]
+    if training:  # the stem's input needs no gradient
+        launched += [(cout, cin) for cin, cout in k3[1:]]
+    for cin, cout in launched:
         routes[conv3d_route(dtype, cin, cout)] += 1
     out = {"conv3d": len(k3), "pool_max_folded": pools, "zd2s": z_ups, "zcat": 0,
-           "zcat_bwd": 0, "pool_max_folded_bwd": 0, "zs2d": 0}
+           "zcat_bwd": 0, "pool_max_folded_bwd": 0, "zs2d": 0,
+           "pad_channels": _channel_pads(dtype, launched)}
     if training:
-        for cin, cout in k3[1:]:  # the stem's input needs no gradient
-            routes[conv3d_route(dtype, cout, cin)] += 1
         out.update(conv3d=2 * len(k3) - 1, zcat=len(k3), pool_max_folded_bwd=pools, zs2d=z_ups)
     return out, routes
 
@@ -3445,7 +3593,7 @@ def _expected_launches(model, calls, count=None):
     forward runs in its input's dtype, bf16 under mixed precision), each
     forward's read off the model by ``count`` (``_model_launches``)."""
     count = count or _model_launches
-    want, routes = {}, {"wgmma": 0, "fma": 0}
+    want, routes = {}, dict.fromkeys(CONV3D_ROUTE_NAMES, 0)
     for training, dt in calls:
         n, r = count(model, dt, training)
         for k, v in n.items():
@@ -3928,9 +4076,8 @@ def _classifier_launches(model, dtype, training):
     from biapy_tpu_torch.models.simple_cnn import SimpleCNN
     from biapy_tpu_torch.ops.kernels.conv3d import conv3d_route
 
-    out = dict.fromkeys(("conv3d", "pool_max_folded", "zd2s", "zcat", "zcat_bwd",
-                         "pool_max_folded_bwd", "zs2d"), 0)
-    routes = {"wgmma": 0, "fma": 0}
+    out = dict.fromkeys(KERNEL_META, 0)
+    routes = dict.fromkeys(CONV3D_ROUTE_NAMES, 0)
     if not isinstance(model, SimpleCNN):
         return out, routes
     convs = [tuple(m.kernel.shape) for m in model.modules() if isinstance(m, Conv)]
@@ -3938,12 +4085,14 @@ def _classifier_launches(model, dtype, training):
     k5 = [k for k in convs if k[:3] == (5, 5, 5)]
     if len(k3) + len(k5) != len(convs) or convs[0][:3] != (3, 3, 3):
         raise AssertionError(f"launch count: convs {convs} not counted here")
-    for cin, cout in k3:
+    launched = [(cin, cout) for cin, cout in k3]
+    if training:  # the stem's input needs no gradient
+        launched += [(cout, cin) for cin, cout in k3[1:]]
+    for cin, cout in launched:
         routes[conv3d_route(dtype, cin, cout)] += 1
-    out.update(conv3d=len(k3), zcat=len(k5), pool_max_folded=len(k5))
+    out.update(conv3d=len(k3), zcat=len(k5), pool_max_folded=len(k5),
+               pad_channels=_channel_pads(dtype, launched))
     if training:
-        for cin, cout in k3[1:]:  # the stem's input needs no gradient
-            routes[conv3d_route(dtype, cout, cin)] += 1
         out.update(conv3d=2 * len(k3) - 1, zcat=len(k3) + len(k5), zcat_bwd=len(k5),
                    pool_max_folded_bwd=len(k5))
     return out, routes
@@ -4426,7 +4575,7 @@ def _launches_2d(model, dtype, training):
     out["pool_max_folded"] = pools
     if training:
         out["pool_max_folded_bwd"] = pools
-    return out, {"wgmma": 0, "fma": 0}
+    return out, dict.fromkeys(CONV3D_ROUTE_NAMES, 0)
 
 
 def _twod_metric(kind, wf):
@@ -5586,7 +5735,12 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     one unit of its path's work: one 128^3 serving patch for the three forward
     kernels (conv3d also carries the sums over one training step, forward +
     dx, under ``train_step_*``), one training step at batch 1 for the four
-    backward-side kernels (zcat_bwd: one LARGER_IO step). ``launches`` adds
+    backward-side kernels (zcat_bwd: one LARGER_IO step), and for conv3d's
+    channel pad (pad_channels), which no main path launches (their widths
+    are on the 8 grid), one training step of the 3D templates at batch 2 and
+    depth 40 (their forward and dx convs whose x has 28, 36 or 84
+    channels).
+    ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
     each counted from zero, the instance template's (phase 12), phase 13's
@@ -5613,6 +5767,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     instance template by chunks with the merge, and ``predict`` in memory:
     ``instance_merge``), phase 17's (the class heads: ``class_heads``) and
     phase 18's (StarDist, Cellpose and Omnipose: ``rays_flows``)."""
+    import torch
+
     def pick(name, wants):
         picked = []
         for want in wants:
@@ -5646,6 +5802,11 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
         "zcat_bwd": [dict(shape=list(ZCAT_BWD_MAIN[0]), kz=ZCAT_BWD_MAIN[1], depth=None)],
         "pool_max_folded_bwd": [dict(shape=list(s)) for s, _ in MAIN_POOLS],
         "zs2d": [dict(shape=[r * sz, h, w, c // sz]) for (r, h, w, c), sz in MAIN_ZD2S],
+        # the main paths' widths are all on the 8 grid: the pad's unit is the
+        # templates' training step (forward and dx) at batch 2 and depth 40
+        "pad_channels": [dict(shape=list(vol) + [cin]) for vol, cin, cout in
+                         sum(_template_conv_rows(), [])
+                         if _channel_pads(torch.bfloat16, [(cin, cout)])],
     }
     def per_template(depth, pools):
         return {
@@ -5881,7 +6042,8 @@ def main():
     print("(kernels: ms, plain_ms, bound_ms and library_ms (device-side; call_ms: one wrapper "
           "call, host work included) are sums over each kernel's launches in one serving patch "
           "(conv3d, pool_max_folded, zd2s) or one training step at batch 1 (the others; conv3d's "
-          "train_step_* too), bf16; the template_* sums of pool_max_folded, pool_max_folded_bwd "
+          "train_step_* too; pad_channels: one training step of the 3D templates at batch 2 and "
+          "depth 40), bf16; the template_* sums of pool_max_folded, pool_max_folded_bwd "
           "and zcat are over the templates' three pools and their 14 zcats of a training step at "
           "batch 2 and depth 40, the detection_* sums the same at the detection template's depth "
           "20, the denoising_*, sr_* and i2i_* sums of pool_max_folded, pool_max_folded_bwd, "

@@ -1,12 +1,14 @@
 """The port's conv3d routing rule and weight packs, on the CPU.
 
 ``conv3d_route`` decides from (dtype, Cin, Cout) alone which CUDA kernel a
-launch takes; ``pack_weights`` / ``pack_weights_dx`` build the K-major
-``(27, Cout, Cin)`` operand of the tensor-core kernel. The kernel itself
-runs only on the card (``tests/test_torch_cuda.py``, ``chip_smoke.py``);
-here its operands are held against their definitions, and the packed
-arithmetic (27 shifted ``x @ pack[t].T`` products) against ``conv3d_plain``
-and against autograd's input gradient.
+launch takes; ``pack_weights`` / ``pack_weights_dx`` build the K-major,
+zero-padded ``(27, Cout_p, Cin_p)`` operand of the tensor-core kernel and
+``pad_channels`` its channel-padded x. The kernels run only on the card
+(``tests/test_torch_cuda.py``, ``chip_smoke.py``); here their operands are
+held against their definitions, and their arithmetic (the tensor-core
+kernel's 27 shifted ``x_p @ pack[t].T`` products, the stem kernel's
+32-channel weight chunks) against ``conv3d_plain`` and against autograd's
+input gradient.
 """
 
 import sys
@@ -18,8 +20,9 @@ import torch
 import torch.nn.functional as F
 
 from biapy_tpu_torch.ops.kernels import build
-from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_plain, conv3d_route,
-                                                pack_weights, pack_weights_dx)
+from biapy_tpu_torch.ops.kernels.conv3d import (STEM_CIN, conv3d, conv3d_dx, conv3d_plain,
+                                                conv3d_route, pack_weights, pack_weights_dx,
+                                                pad_channels)
 
 sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
 import chip_smoke  # noqa: E402  (imports nothing but the standard library at import)
@@ -29,9 +32,10 @@ torch.set_num_threads(2)
 
 @pytest.mark.parametrize("size,cin,cout", chip_smoke.MAIN_CONVS)
 def test_route_of_main_path_forward_shapes(size, cin, cout):
-    want = "fma" if cin == 1 else "wgmma"  # only the 1-channel stem stays on the CUDA cores
-    assert conv3d_route(torch.bfloat16, cin, cout) == want
-    assert conv3d_route(torch.float32, cin, cout) == "fma"
+    # the 1-channel stem takes the stem kernel in either dtype; the rest the
+    # tensor cores in bf16 and the CUDA cores in float32
+    assert conv3d_route(torch.bfloat16, cin, cout) == ("stem" if cin == 1 else "wgmma")
+    assert conv3d_route(torch.float32, cin, cout) == ("stem" if cin == 1 else "fma")
 
 
 @pytest.mark.parametrize("size,cin,cout", chip_smoke.DX_CONVS)
@@ -44,11 +48,25 @@ def test_route_of_main_path_dx_shapes(size, cin, cout):
     (torch.bfloat16, 16, 8, "wgmma"),     # the narrowest widths the rule takes
     (torch.bfloat16, 48, 40, "wgmma"),    # a channel tail, a tile wider than Cout
     (torch.bfloat16, 80, 264, "wgmma"),   # a loop over output tiles
-    (torch.bfloat16, 24, 40, "fma"),      # Cin % 16 != 0
-    (torch.bfloat16, 8, 8, "fma"),
-    (torch.bfloat16, 32, 12, "fma"),      # Cout % 8 != 0
-    (torch.bfloat16, 32, 1, "fma"),
-    (torch.bfloat16, 1, 32, "fma"),
+    (torch.bfloat16, 24, 40, "wgmma"),    # Cin % 16 != 0: zeros from TMA
+    (torch.bfloat16, 8, 8, "wgmma"),
+    (torch.bfloat16, 32, 12, "wgmma"),    # Cout % 8 != 0: a tile of Cout_p
+    (torch.bfloat16, 32, 1, "wgmma"),
+    (torch.bfloat16, 1, 32, "stem"),      # the 1-channel stem
+    (torch.bfloat16, 28, 28, "wgmma"),    # the templates' widths: x padded to 32 channels
+    (torch.bfloat16, 28, 36, "wgmma"),
+    (torch.bfloat16, 36, 36, "wgmma"),    # x padded to 40, a 16-channel tail step
+    (torch.bfloat16, 84, 36, "wgmma"),
+    (torch.bfloat16, 36, 84, "wgmma"),
+    (torch.bfloat16, 3, 32, "stem"),      # a 3-channel image
+    (torch.bfloat16, 3, 28, "stem"),
+    (torch.bfloat16, STEM_CIN - 1, 32, "stem"),  # the stem cut
+    (torch.bfloat16, STEM_CIN, 32, "wgmma"),
+    (torch.float32, STEM_CIN - 1, 32, "stem"),
+    (torch.float32, STEM_CIN, 32, "fma"),
+    (torch.float32, 1, 28, "stem"),
+    (torch.float32, 28, 28, "fma"),
+    (torch.float16, 1, 32, "fma"),        # no stem kernel in half either
     (torch.float32, 64, 64, "fma"),       # float32 stays full float32
     (torch.float16, 32, 32, "fma"),       # (and is refused there: no half kernel)
     (torch.float64, 32, 32, "fma"),
@@ -58,8 +76,9 @@ def test_route_rule(dtype, cin, cout, want):
 
 
 def test_route_counts_of_the_smoke_run_follow_from_the_rule():
-    def count(shapes):
-        return dict(Counter(conv3d_route(torch.bfloat16, cin, cout) for _, cin, cout in shapes))
+    def count(shapes, dtype=torch.bfloat16):
+        got = Counter(conv3d_route(dtype, cin, cout) for _, cin, cout in shapes)
+        return {k: got.get(k, 0) for k in build.CONV3D_ROUTES}
 
     assert count(chip_smoke.MAIN_CONVS) == chip_smoke.SERVE_ROUTES
     assert count(chip_smoke.MAIN_CONVS + chip_smoke.DX_CONVS) == chip_smoke.TRAIN_ROUTES
@@ -67,15 +86,44 @@ def test_route_counts_of_the_smoke_run_follow_from_the_rule():
     # Cin = 32 and gets an input gradient as well
     larger_io = [(128, 32, 32)] + chip_smoke.MAIN_CONVS[1:]
     both = larger_io + [(s, cout, cin) for s, cin, cout in larger_io]
-    got = count(both)
-    assert {"wgmma": got.get("wgmma", 0), "fma": got.get("fma", 0)} == chip_smoke.LARGER_IO_ROUTES
+    assert count(both) == chip_smoke.LARGER_IO_ROUTES
     for routes, launches in ((chip_smoke.TRAIN_ROUTES, chip_smoke.TRAIN_LAUNCHES),
                              (chip_smoke.LARGER_IO_ROUTES, chip_smoke.LARGER_IO_LAUNCHES)):
         assert sum(routes.values()) == launches["conv3d"]
-    assert set(build.CONV3D_ROUTES) == {"wgmma", "fma"}
-    # the odd shapes of the smoke run: the first on the CUDA cores, the rest not
+    assert set(build.CONV3D_ROUTES) == set(chip_smoke.CONV3D_ROUTE_NAMES) == {"wgmma", "stem",
+                                                                             "fma"}
+    # the 3D templates' 14 forward convs (the stem on its kernel, the rest,
+    # 28 and 36 channels included, on the tensor cores) and 13 input
+    # gradients (all on the tensor cores); in float32 all but the stem on
+    # the CUDA cores
+    fwd, dx = chip_smoke._template_conv_rows()
+    assert count(fwd) == {"wgmma": 13, "stem": 1, "fma": 0}
+    assert count(dx) == {"wgmma": 13, "stem": 0, "fma": 0}
+    assert count(fwd + dx, torch.float32) == {"wgmma": 0, "stem": 1, "fma": 26}
+    # the forward convs that hand the tensor cores a channel-padded x, and
+    # the input gradients that do (gy of 28 or 36 channels): the pads of a
+    # template step, none on the main paths
+    assert [cin for _, cin, _ in fwd[1:] if cin % 8] == [28, 28, 36, 36, 84, 36, 28]
+    assert [cin for _, cin, _ in dx if cin % 8] == [28, 36, 36, 36, 36, 28, 28]
+
+    def pads(shapes, dtype=torch.bfloat16):
+        return chip_smoke._channel_pads(dtype, [(cin, cout) for *_, cin, cout in shapes])
+    assert pads(fwd) + pads(dx) == 14 and pads(fwd + dx, torch.float32) == 0
+    assert pads(chip_smoke.MAIN_CONVS) == chip_smoke.SERVE_LAUNCHES["pad_channels"] == 0
+    assert (pads(chip_smoke.MAIN_CONVS + chip_smoke.DX_CONVS)
+            == chip_smoke.TRAIN_LAUNCHES["pad_channels"] == 0)
+    assert set(chip_smoke.KERNEL_META) == set(build.LAUNCHES)
+    # the stems the script times, all on the stem kernel in either dtype
+    for dtype in (torch.bfloat16, torch.float32):
+        assert count(chip_smoke.STEM_CONVS, dtype) == {"wgmma": 0, "stem": 3, "fma": 0}
+    # the odd shapes of the smoke run: the last three on the stem kernel, the
+    # rest on the tensor cores in bf16 and on the CUDA cores in float32
     odd = [conv3d_route(torch.bfloat16, cin, cout) for _, cin, cout in chip_smoke.ODD_CONVS]
-    assert odd == ["fma"] + ["wgmma"] * (len(odd) - 1)
+    assert odd == ["wgmma"] * (len(odd) - 3) + ["stem"] * 3
+    odd32 = [conv3d_route(torch.float32, cin, cout) for _, cin, cout in chip_smoke.ODD_CONVS]
+    assert odd32 == ["fma"] * (len(odd) - 3) + ["stem"] * 3
+    assert {cin for _, cin, _ in chip_smoke.ODD_CONVS} >= {28, 36, 84, 3, 1}
+    assert {cout for _, _, cout in chip_smoke.ODD_CONVS} >= {28, 36, 12, 1}
 
 
 def _weights(cin, cout, seed=0, dtype=torch.float32):
@@ -83,25 +131,46 @@ def _weights(cin, cout, seed=0, dtype=torch.float32):
     return (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dtype)
 
 
-@pytest.mark.parametrize("cin,cout", [(16, 8), (48, 40), (32, 32), (3, 5)])
+def _r8(n):
+    return -(-n // 8) * 8
+
+
+@pytest.mark.parametrize("cin,cout", [(16, 8), (48, 40), (32, 32), (3, 5), (28, 36), (36, 28),
+                                      (84, 12), (5, 1)])
 def test_pack_weights_matches_its_definition(cin, cout):
+    """(27, Cout_p, Cin_p), both widths rounded up to 8, zero in the pad."""
     w = _weights(cin, cout)
     p = pack_weights(w)
-    assert p.shape == (27, cout, cin) and p.is_contiguous()
+    assert p.shape == (27, _r8(cout), _r8(cin)) and p.is_contiguous()
     flat = w.reshape(27, cin, cout)
-    for t, co, ci in ((0, 0, 0), (13, cout - 1, 0), (26, 1, cin - 1), (5, cout // 2, cin // 2)):
+    for t, co, ci in ((0, 0, 0), (13, cout - 1, 0), (26, cout // 2, cin - 1),
+                      (5, cout // 2, cin // 2)):
         assert p[t, co, ci] == flat[t, ci, co]
-    assert torch.equal(p, flat.permute(0, 2, 1))
+    assert torch.equal(p[:, :cout, :cin], flat.permute(0, 2, 1))
+    assert not p[:, cout:].any() and not p[:, :, cin:].any()
 
 
-@pytest.mark.parametrize("cin,cout", [(16, 8), (48, 40), (32, 96), (3, 5)])
+@pytest.mark.parametrize("cin,cout", [(16, 8), (48, 40), (32, 96), (3, 5), (28, 36), (36, 84)])
 def test_dx_pack_is_a_flip_and_no_transpose(cin, cout):
     w = _weights(cin, cout, seed=1)
     wdx = w.flip(0, 1, 2).transpose(3, 4)  # the dx conv's DHWIO weights: (3,3,3,Cout,Cin)
     p = pack_weights_dx(w)
-    assert p.shape == (27, cin, cout) and p.is_contiguous()
-    assert torch.equal(pack_weights(wdx), w.flip(0, 1, 2).reshape(27, cin, cout))
+    assert p.shape == (27, _r8(cin), _r8(cout)) and p.is_contiguous()
+    assert torch.equal(pack_weights(wdx)[:, :cin, :cout], w.flip(0, 1, 2).reshape(27, cin, cout))
     assert torch.equal(p, pack_weights(wdx))
+    assert not p[:, cin:].any() and not p[:, :, cout:].any()
+
+
+@pytest.mark.parametrize("c", [1, 3, 8, 28, 36, 84])
+def test_pad_channels_pads_to_eight_with_zeros(c):
+    build.reset_launches()
+    x = torch.randn((2, 3, 4, 5, c), generator=torch.Generator().manual_seed(c))
+    xp = pad_channels(x)
+    assert xp.shape == (2, 3, 4, 5, _r8(c))
+    assert torch.equal(xp[..., :c], x) and not xp[..., c:].any()
+    if c % 8 == 0:
+        assert xp is x  # no copy where TMA reads x as it is
+    assert build.LAUNCHES["pad_channels"] == 0  # a CPU tensor takes F.pad
 
 
 def test_packs_are_rebuilt_from_the_weights_as_they_are_now():
@@ -118,31 +187,65 @@ def test_packs_are_rebuilt_from_the_weights_as_they_are_now():
     assert not torch.equal(pack_weights(w), before)
 
 
-def _conv_from_packed(x, packed):
-    """What the tensor-core kernel computes from its operands: for tap
-    t = (dz, dy, dx) the shifted x times ``packed[t].T``, summed in float32."""
+def _conv_from_packed(x, packed, cout):
+    """What the tensor-core kernel computes from its operands: x with its
+    channels padded to the pack's Cin_p (``pad_channels``, then TMA's zeros
+    up to 16), for tap t = (dz, dy, dx) the shifted x times ``packed[t].T``,
+    summed in float32 over the whole Cout_p tile; the first ``cout``
+    channels are written."""
     n, d, h, wd, _ = x.shape
-    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    xk = pad_channels(x)
+    assert xk.shape[-1] == packed.shape[2]
+    xp = F.pad(xk.float(), (0, 0, 1, 1, 1, 1, 1, 1))
     acc = torch.zeros((n, d, h, wd, packed.shape[1]))
     for t in range(27):
         dz, dy, dx = t // 9, (t // 3) % 3, t % 3
         acc += xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :] @ packed[t].float().T
-    return acc.to(x.dtype)
+    return acc[..., :cout].to(x.dtype)
 
 
-@pytest.mark.parametrize("shape,cout", [((2, 5, 7, 9, 16), 8), ((1, 3, 9, 17, 48), 40)])
+def _stem_from_chunks(x, w):
+    """What the stem kernel computes: each voxel's 27 * Cin taps (tap-major,
+    then input channel, zero outside the volume) times the (27 * Cin, 32)
+    weight chunk of each 32 output channels, zero past Cout, summed in
+    float32; the first Cout channels are written."""
+    n, d, h, wd, cin = x.shape
+    cout = w.shape[-1]
+    xp = F.pad(x.float(), (0, 0, 1, 1, 1, 1, 1, 1))
+    taps = torch.cat([xp[:, dz:dz + d, dy:dy + h, dx:dx + wd, :]
+                      for dz in range(3) for dy in range(3) for dx in range(3)], dim=-1)
+    wk = F.pad(w.float().reshape(27 * cin, cout), (0, -cout % 32))
+    out = torch.cat([taps @ wk[:, c:c + 32] for c in range(0, wk.shape[1], 32)], dim=-1)
+    return out[..., :cout].to(x.dtype)
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 5, 7, 9, 16), 8), ((1, 3, 9, 17, 48), 40),
+                                        ((2, 3, 5, 6, 28), 36), ((1, 4, 6, 5, 36), 28)])
 def test_packed_arithmetic_matches_plain_forward_and_dx(shape, cout):
     g = torch.Generator().manual_seed(3)
     cin = shape[-1]
     x = torch.randn(shape, generator=g)
     w = _weights(cin, cout, seed=4)
     ref = conv3d_plain(x, w)
-    got = _conv_from_packed(x, pack_weights(w))
+    got = _conv_from_packed(x, pack_weights(w), cout)
     assert (got - ref).abs().max().item() <= 1e-5  # float32 sums in another order, |y| ~ 1
     gy = torch.randn(shape[:4] + (cout,), generator=g)
     ref_dx = conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous())
-    got_dx = _conv_from_packed(gy, pack_weights_dx(w))
+    got_dx = _conv_from_packed(gy, pack_weights_dx(w), cin)
     assert (got_dx - ref_dx).abs().max().item() <= 1e-5
+
+
+@pytest.mark.parametrize("shape,cout", [((2, 5, 7, 9, 1), 28), ((1, 4, 6, 35, 1), 36),
+                                        ((1, 3, 9, 10, 3), 28)])
+def test_stem_chunk_arithmetic_matches_plain(shape, cout):
+    """The stem kernel's operands: the 27 * Cin taps and zero-padded
+    32-channel weight chunks (1 -> 28: one chunk, 1 -> 36: two)."""
+    g = torch.Generator().manual_seed(8)
+    x = torch.randn(shape, generator=g)
+    w = _weights(shape[-1], cout, seed=9)
+    assert conv3d_route(torch.bfloat16, shape[-1], cout) == "stem"
+    got = _stem_from_chunks(x, w)
+    assert (got - conv3d_plain(x, w)).abs().max().item() <= 1e-5
 
 
 def test_conv3d_dx_is_the_input_gradient():
@@ -164,8 +267,9 @@ def test_cpu_conv_counts_no_route():
     w = _weights(16, 8, dtype=torch.bfloat16)
     conv3d(x, w)
     conv3d_dx(torch.randn(1, 3, 4, 5, 8).to(torch.bfloat16), w)
-    assert build.CONV3D_ROUTES == {"wgmma": 0, "fma": 0}
+    assert build.CONV3D_ROUTES == {"wgmma": 0, "stem": 0, "fma": 0}
     assert build.LAUNCHES["conv3d"] == 0
     build.CONV3D_ROUTES["wgmma"] = 3
+    build.CONV3D_ROUTES["stem"] = 2
     build.reset_launches()
-    assert build.CONV3D_ROUTES == {"wgmma": 0, "fma": 0}
+    assert build.CONV3D_ROUTES == {"wgmma": 0, "stem": 0, "fma": 0}

@@ -14,7 +14,7 @@ import torch
 
 from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_fwd, conv3d_plain,
-                                                conv3d_route)
+                                                conv3d_route, pad_channels)
 from biapy_tpu_torch.ops.kernels.shuffle import (_launch_pool_bwd, pool_max_folded,
                                                  pool_max_folded_bwd,
                                                  pool_max_folded_bwd_plain, pool_max_folded_fwd,
@@ -61,8 +61,9 @@ def test_cuda_wrappers_count_launches_and_raise_on_bad_input():
     conv3d(x, w)
     pool_max_folded(x.view(4, 4, 4, 8), (2, 2, 2))
     zd2s(x.view(4, 4, 4, 8), 2)
-    assert build.LAUNCHES == {"conv3d": 1, "pool_max_folded": 1, "pool_max_folded_bwd": 0,
-                              "zd2s": 1, "zs2d": 0, "zcat": 0, "zcat_bwd": 0}
+    assert build.LAUNCHES == {"conv3d": 1, "pad_channels": 0, "pool_max_folded": 1,
+                              "pool_max_folded_bwd": 0, "zd2s": 1, "zs2d": 0, "zcat": 0,
+                              "zcat_bwd": 0}
     with pytest.raises(TypeError):
         conv3d(x.half(), w.half())
     with pytest.raises(ValueError):
@@ -287,8 +288,9 @@ def test_cuda_functions_backward_match_plain_on_the_card():
     both(lambda x: zd2s(x, 2), (3, 4, 5, 6))
     both(lambda x: zcat(x, 5, 3), (6, 3, 5, 2))
     # conv3d: forward + dx; zcat: the conv's dw operand + zcat's own forward
-    assert build.LAUNCHES == {"conv3d": 2, "pool_max_folded": 1, "pool_max_folded_bwd": 1,
-                              "zd2s": 1, "zs2d": 1, "zcat": 2, "zcat_bwd": 1}
+    assert build.LAUNCHES == {"conv3d": 2, "pad_channels": 0, "pool_max_folded": 1,
+                              "pool_max_folded_bwd": 1, "zd2s": 1, "zs2d": 1, "zcat": 2,
+                              "zcat_bwd": 1}
 
 
 def test_cuda_conv3d_tensor_core_route_matches_plain_on_the_card():
@@ -303,7 +305,7 @@ def test_cuda_conv3d_tensor_core_route_matches_plain_on_the_card():
     g = torch.Generator(device="cpu").manual_seed(4)
     dt = torch.bfloat16
     build.reset_launches()
-    want = {"wgmma": 0, "fma": 0}
+    want = {"wgmma": 0, "stem": 0, "fma": 0}
     for shape, cout in (((2, 5, 7, 9, 16), 8), ((2, 3, 19, 35, 48), 40), ((1, 4, 9, 17, 64), 264),
                         ((2, 13, 7, 9, 48), 32), ((1, 3, 10, 20, 64), 272),
                         ((2, 24, 30, 35, 16), 8), ((2, 24, 30, 35, 48), 32)):
@@ -324,9 +326,87 @@ def test_cuda_conv3d_tensor_core_route_matches_plain_on_the_card():
             err = (got.float() - ref.float()).abs().max().item()
             assert err <= 1e-2 * max(1.0, ref.float().abs().max().item())
     torch.cuda.synchronize()
-    assert want["wgmma"] == 10  # three of the shapes take the tensor cores for dx too
+    assert want["wgmma"] == 14  # every dx takes the tensor cores too, at any width
     assert build.CONV3D_ROUTES == want
     assert build.LAUNCHES["conv3d"] == sum(want.values())
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_cuda_conv3d_odd_widths_on_every_route_match_plain_on_the_card(dtype):
+    """Forward and dx against ``conv3d_plain`` at widths off the 8 grid: Cin
+    28 and 36 (a channel-padded x; 36 with a 16-channel tail step), 84, the
+    stems at Cin 1 and 3, Cout 28, 36, 12 and 1 (tiles wider than Cout, 8-
+    and 2-byte stores), ragged volumes (one with bricks enough for the
+    16 x 16 brick) and two images; each launch on the route the rule
+    names (bf16: tensor cores or stem; float32: CUDA cores or stem)."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(11)
+    tol = 1e-2 if dtype == torch.bfloat16 else 1e-4  # one bf16 ulp; float32 sum orders
+    build.reset_launches()
+    want = {"wgmma": 0, "stem": 0, "fma": 0}
+    pads = 0
+    for shape, cout in (((2, 5, 7, 9, 28), 36), ((2, 3, 11, 6, 36), 28), ((1, 4, 9, 17, 84), 12),
+                        ((2, 24, 30, 35, 28), 28), ((2, 24, 30, 35, 36), 36),
+                        ((2, 5, 7, 9, 28), 1), ((2, 5, 9, 33, 1), 28), ((1, 3, 5, 6, 1), 1),
+                        ((2, 4, 11, 13, 3), 36), ((1, 6, 7, 40, 3), 12)):
+        cin = shape[-1]
+        x = torch.randn(shape, generator=g).to(dev, dtype)
+        w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev, dtype)
+        gy = torch.randn(shape[:4] + (cout,), generator=g).to(dev, dtype)
+        y, dx = conv3d_fwd(x, w), conv3d_dx(gy, w)
+        for a, b in ((cin, cout), (cout, cin)):
+            want[conv3d_route(dtype, a, b)] += 1
+            pads += conv3d_route(dtype, a, b) == "wgmma" and a % 8 != 0
+        for got, ref in ((y, conv3d_plain(x, w)),
+                         (dx, conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous()))):
+            assert got.dtype == dtype and got.shape == ref.shape
+            err = (got.float() - ref.float()).abs().max().item()
+            assert err <= tol * max(1.0, ref.float().abs().max().item()), (shape, cout, err)
+    torch.cuda.synchronize()
+    # the dx of a conv to one channel is a stem too
+    assert want["stem"] == 6 and want["fma" if dtype == torch.float32 else "wgmma"] == 14
+    assert build.CONV3D_ROUTES == want
+    # each tensor-core launch whose x has channels off the 8 grid pads them
+    assert pads == (14 if dtype == torch.bfloat16 else 0)
+    assert build.LAUNCHES["pad_channels"] == pads
+
+
+def test_cuda_pad_channels_matches_f_pad_with_zero_lanes_on_the_card():
+    """The channel pad against ``F.pad``, bit-equal: the pad lanes zero even
+    where the output's block held NaN before (a freed block of that size is
+    handed back), on the 8-byte and the one-element path (an x whose start
+    is 2-byte aligned only); one launch a padded x, none for an x on the 8
+    grid; other dtypes on the card are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(12)
+    build.reset_launches()
+    launched = 0
+    for shape in ((2, 3, 5, 7, 1), (1, 4, 5, 6, 3), (2, 3, 4, 5, 12), (2, 5, 7, 9, 28),
+                  (1, 6, 11, 13, 36), (1, 4, 9, 17, 84), (1, 2, 3, 4, 16)):
+        c = shape[-1]
+        cp = -(-c // 8) * 8
+        for offset in (0, 1):
+            flat = torch.randn(torch.Size(shape).numel() + offset, generator=g)
+            x = flat.to(dev, torch.bfloat16)[offset:].view(shape)
+            assert x.is_contiguous() and (x.data_ptr() % 8 == 0) == (offset == 0)
+            poison = torch.full(shape[:4] + (cp,), float("nan"), dtype=x.dtype, device=dev)
+            del poison
+            got = pad_channels(x)
+            assert torch.equal(got, F.pad(x, (0, cp - c)))
+            if c % 8 == 0:
+                assert got is x
+            else:
+                launched += 1
+            assert build.LAUNCHES["pad_channels"] == launched
+    assert launched == 12
+    with pytest.raises(TypeError):
+        pad_channels(torch.zeros((1, 2, 2, 2, 3), device=dev))
 
 
 def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
@@ -339,14 +419,14 @@ def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
     wb = (torch.randn((3, 3, 3, 32, 16), generator=g) * 0.05).to(dev, torch.bfloat16)
     conv3d_fwd(xb, wb)                  # bf16, 32 -> 16: tensor cores
     conv3d_fwd(xb.float(), wb.float())  # float32: CUDA cores
-    conv3d_fwd(xb[..., :1].contiguous(), wb[:, :, :, :1].contiguous())  # Cin = 1: CUDA cores
-    assert build.CONV3D_ROUTES == {"wgmma": 1, "fma": 2}
+    conv3d_fwd(xb[..., :1].contiguous(), wb[:, :, :, :1].contiguous())  # Cin = 1: the stem kernel
+    assert build.CONV3D_ROUTES == {"wgmma": 1, "stem": 1, "fma": 1}
     # dx through its own entry is the forward entry on the flipped, swapped weights
     gy = torch.randn((1, 4, 8, 16, 16), generator=g).to(dev, torch.bfloat16)
     a = conv3d_dx(gy, wb)
     b = conv3d_fwd(gy, wb.flip(0, 1, 2).transpose(3, 4).contiguous())
     assert torch.equal(a, b)
-    assert build.CONV3D_ROUTES == {"wgmma": 3, "fma": 2}
+    assert build.CONV3D_ROUTES == {"wgmma": 3, "stem": 1, "fma": 1}
     assert build.LAUNCHES["conv3d"] == 5
 
 
