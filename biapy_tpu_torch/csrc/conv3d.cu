@@ -88,21 +88,48 @@
 //    (the weights' reads then feed twice the FMAs) and than four lanes a
 //    voxel with stores coalesced across the warp.
 //
-// 3. conv3d_k3_kernel, the CUDA-core route (float32 at Cin >= the stem cut,
-//    which must stay full float32: the tensor cores would round its
-//    products to TF32): an implicit GEMM with M = N*D*H*W output voxels,
-//    N = Cout, K = 27*Cin, k = tap*Cin + ci, so the DHWIO weight tensor
-//    already is the (K, Cout) row-major B matrix. Each block owns a BM x BN
-//    output tile and walks K in chunks of BK: it stages the BK reduction
-//    entries of its BM voxels (zero where a tap falls outside the volume)
-//    and the matching BK x BN weight slice in shared memory, then every
-//    thread accumulates a TM x TN register tile with FMAs. Each chunk of BK
-//    products is summed into its own register tile first and that tile
-//    added to the total, two levels in place of one chain of 27*Cin
-//    additions: the rounding grows with BK + K/BK, not K (a chain of K left
-//    the instance template's float32 gradients 6.5e-5 of scale from
-//    float64, against 5e-6 for the plain version's tap-by-tap sums). Its
-//    ceiling is the CUDA cores' 67 TFLOP/s.
+// 3. conv3d_k3_tf32x3_kernel, the 3xTF32 route (float32 at Cin >= the stem
+//    cut, any Cout): float32 on the tensor cores at float32's accuracy. One
+//    TF32 product keeps 11 bits of each operand (about 1e-3 of relative
+//    error), so each operand a is split into hi = tf32(a) and lo =
+//    tf32(a - hi) (cvt.rna.tf32.f32: nearest, ties away from zero; a - hi
+//    is exact), and each product is taken as a_hi*b_hi + a_lo*b_hi +
+//    a_hi*b_lo (a_lo*b_lo, 2^-22 of it, is dropped): three m64nNk8 tf32
+//    wgmmas where one bf16 wgmma does the same work, so its ceiling is a
+//    third of the card's 495 TFLOP/s of TF32, 2.5x the CUDA cores' 67 of
+//    float32. What bounds it besides is the L2 -> shared traffic: float32
+//    rows twice bf16's bytes a channel, and each operand twice over.
+//      - The layout is the bf16 kernel's: a brick of 1 x 8 x 16 voxels (two
+//        consumer warpgroups), K walked as
+//        (dz, dx, channel chunk), one y-slab a step serving the three dy
+//        taps, TMA boxes whose zero fill is the SAME padding and the
+//        channel tail, chunks of KC = 16 or 32 float32 channels (64- or
+//        128-byte rows) and 8-channel tail steps (32-byte rows) in a loop
+//        of their own, tiles of at most 96 output channels (three float32
+//        sums of BN / 2 registers a thread, below).
+//      - Both operands arrive split: tf32_split_kernel writes x_hi and x_lo
+//        (channels padded to 4, TMA's 16-byte rows), the wrapper packs
+//        w_hi and w_lo, each (27, Cout_p, Cin_p); a stage holds the slabs of
+//        x_hi and x_lo and the taps of w_hi and w_lo, and every wgmma reads
+//        both operands from shared memory. Splitting x in the consumers'
+//        registers instead (one slab, A from registers) was measured slower
+//        at nearly every shape, even against this kernel plus the split's
+//        pass, and left no registers for the sums below (it spilled at a
+//        tile of 128).
+//      - Accumulation: the tensor cores align a wgmma's products to the
+//        largest exponent among them and the accumulator and truncate, so a
+//        long chain of wgmmas into one accumulator drifts. Each ring step's
+//        a_hi*b_hi products go into a fresh accumulator (scale-d 0 on its
+//        first wgmma), added once retired to a float32 total in registers;
+//        the small terms go into an accumulator of their own over the
+//        whole K, where the truncations are 2^-11 of the large terms'. One
+//        accumulator for all three terms of a step (36 wgmmas at KC = 32)
+//        left the instance template's float32 step 4.3e-5 from float64
+//        (tools/torch_instance_step_witness.py), farther than the JAX
+//        package's own 3.2e-5.
+//      - Epilogue: the float32 totals through (padded) shared memory, then
+//        16-, 8- or 4-byte stores by Cout's alignment, the real channels
+//        and voxels only.
 
 #include <cuda.h>  // CUtensorMap and its enums; the encoder is looked up in libcuda at run time
 #include <cuda_bf16.h>
@@ -139,126 +166,6 @@ __device__ __forceinline__ void store_vec(T* dst, const float* v) {
 #pragma unroll
   for (int i = 0; i < V; ++i) u.e[i] = out_bits(v[i], static_cast<T*>(nullptr));
   *reinterpret_cast<Vec*>(dst) = u.vec;
-}
-
-// ---------------------------------------------------------------------------
-// The CUDA-core route: float32 implicit GEMM, chunk sums.
-// ---------------------------------------------------------------------------
-
-constexpr int kThreads = 256;
-constexpr int kBK = 16;
-
-template <int BM, int BN, int TM, int TN>
-__global__ void __launch_bounds__(kThreads)
-conv3d_k3_kernel(const float* __restrict__ x, const float* __restrict__ w, float* __restrict__ y,
-                 int n_img, int D, int H, int W, int Cin, int Cout) {
-  static_assert((BM / TM) * (BN / TN) == kThreads, "one TM x TN tile per thread");
-  __shared__ float As[kBK][BM + 4];
-  __shared__ float Bs[kBK][BN];
-  __shared__ int vn[BM], vz[BM], vy[BM], vx[BM];
-
-  const long long M = (long long)n_img * D * H * W;
-  const int K = 27 * Cin;
-  const long long m0 = (long long)blockIdx.x * BM;
-  const int n0 = blockIdx.y * BN;
-  const int tid = threadIdx.x;
-
-  // decode the tile's output voxels once; vn = -1 marks rows past M
-  for (int i = tid; i < BM; i += kThreads) {
-    const long long m = m0 + i;
-    if (m < M) {
-      long long r = m;
-      vx[i] = (int)(r % W); r /= W;
-      vy[i] = (int)(r % H); r /= H;
-      vz[i] = (int)(r % D);
-      vn[i] = (int)(r / D);
-    } else {
-      vn[i] = -1; vz[i] = 0; vy[i] = 0; vx[i] = 0;
-    }
-  }
-  __syncthreads();
-
-  const int tx = tid % (BN / TN);
-  const int ty = tid / (BN / TN);
-  float acc[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) acc[i][j] = 0.f;
-
-  for (int k0 = 0; k0 < K; k0 += kBK) {
-    // A: BM voxels x BK (tap, ci) entries; consecutive threads take
-    // consecutive k, i.e. consecutive input channels of one tap
-    for (int e = tid; e < BM * kBK; e += kThreads) {
-      const int kl = e % kBK, ml = e / kBK;
-      const int k = k0 + kl;
-      const int nn = vn[ml];
-      float v = 0.f;
-      if (k < K && nn >= 0) {
-        const int tap = k / Cin;
-        const int ci = k - tap * Cin;
-        const int iz = vz[ml] + tap / 9 - 1;
-        const int iy = vy[ml] + (tap / 3) % 3 - 1;
-        const int ix = vx[ml] + tap % 3 - 1;
-        if ((unsigned)iz < (unsigned)D && (unsigned)iy < (unsigned)H &&
-            (unsigned)ix < (unsigned)W) {
-          const long long off = ((((long long)nn * D + iz) * H + iy) * W + ix) * Cin + ci;
-          v = x[off];
-        }
-      }
-      As[kl][ml] = v;
-    }
-    // B: BK x BN slice of the (K, Cout) weight matrix
-    for (int e = tid; e < kBK * BN; e += kThreads) {
-      const int nl = e % BN, kl = e / BN;
-      const int k = k0 + kl, co = n0 + nl;
-      Bs[kl][nl] = (k < K && co < Cout) ? w[(long long)k * Cout + co] : 0.f;
-    }
-    __syncthreads();
-    float part[TM][TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) part[i][j] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < kBK; ++kk) {
-      float a[TM], b[TN];
-#pragma unroll
-      for (int i = 0; i < TM; ++i) a[i] = As[kk][ty * TM + i];
-#pragma unroll
-      for (int j = 0; j < TN; ++j) b[j] = Bs[kk][tx * TN + j];
-#pragma unroll
-      for (int i = 0; i < TM; ++i)
-#pragma unroll
-        for (int j = 0; j < TN; ++j) part[i][j] = fmaf(a[i], b[j], part[i][j]);
-    }
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) acc[i][j] += part[i][j];
-    __syncthreads();
-  }
-
-#pragma unroll
-  for (int i = 0; i < TM; ++i) {
-    const long long m = m0 + ty * TM + i;
-    if (m >= M) continue;
-#pragma unroll
-    for (int j = 0; j < TN; ++j) {
-      const int co = n0 + tx * TN + j;
-      if (co < Cout) y[m * Cout + co] = acc[i][j];
-    }
-  }
-}
-
-template <int BM, int BN, int TM, int TN>
-void launch(const void* x, const void* w, void* y, int n_img, int D, int H, int W, int Cin,
-            int Cout, cudaStream_t stream) {
-  const long long M = (long long)n_img * D * H * W;
-  dim3 grid((unsigned)((M + BM - 1) / BM), (unsigned)((Cout + BN - 1) / BN));
-  conv3d_k3_kernel<BM, BN, TM, TN><<<grid, kThreads, 0, stream>>>(
-      static_cast<const float*>(x), static_cast<const float*>(w), static_cast<float*>(y), n_img,
-      D, H, W, Cin, Cout);
 }
 
 // ---------------------------------------------------------------------------
@@ -481,7 +388,9 @@ template <int ROW_BYTES> __device__ __forceinline__ uint64_t smem_desc(uint32_t 
 
 // d (64 x N, float32, in the warpgroup's registers) += A (64 x 16, bf16,
 // shared memory, K-major) * B (N x 16, bf16, shared memory, K-major)^T.
-// The operand after the descriptors is scale-d (1: accumulate).
+// The operand after the descriptors is scale-d (1: accumulate). Tf32Ss<N>:
+// the same from 64 x 8 and N x 8 tiles of TF32 values (32-byte rows, as
+// bf16's 16); scale-d 0 starts a fresh sum.
 #define BIAPY_WGMMA(N, REGS, ACCS, A_OP, B_OP, S_OP)                                       \
   template <> struct Wgmma<N> {                                                            \
     __device__ __forceinline__ static void mma(float (&d)[N / 2], uint64_t a, uint64_t b) { \
@@ -492,9 +401,21 @@ template <int ROW_BYTES> __device__ __forceinline__ uint64_t smem_desc(uint32_t 
           : ACCS                                                                           \
           : "l"(a), "l"(b), "r"(1));                                                       \
     }                                                                                      \
+  };                                                                                       \
+  template <> struct Tf32Ss<N> {                                                           \
+    __device__ __forceinline__ static void mma(float (&d)[N / 2], uint64_t a, uint64_t b,   \
+                                               int scale_d) {                              \
+      asm volatile(                                                                        \
+          "{\n.reg .pred p;\nsetp.ne.b32 p, " S_OP ", 0;\n"                               \
+          "wgmma.mma_async.sync.aligned.m64n" #N "k8.f32.tf32.tf32 {" REGS "}, " A_OP      \
+          ", " B_OP ", p, 1, 1;\n}\n"                                                      \
+          : ACCS                                                                           \
+          : "l"(a), "l"(b), "r"(scale_d));                                                 \
+    }                                                                                      \
   }
 
 template <int N> struct Wgmma;
+template <int N> struct Tf32Ss;
 BIAPY_WGMMA(8, BIAPY_P4_0, BIAPY_ACC4(d, 0), "%4", "%5", "%6");
 BIAPY_WGMMA(16, BIAPY_P8_0, BIAPY_ACC8(d, 0), "%8", "%9", "%10");
 BIAPY_WGMMA(32, BIAPY_P16_0, BIAPY_ACC16(d, 0), "%16", "%17", "%18");
@@ -542,13 +463,13 @@ template <int BN, int KC, int MINB, int NWG> struct TcTile {
   static_assert(kStages * kStageBytes >= 64 * NWG * kOutPitch * 2, "the epilogue reuses the ring");
 };
 
-// the staged output rows of one warpgroup (64 x BN bf16 at pitch PITCH) to
-// y, V channels a store; rows past the volume and channels past Cout unwritten
-template <int V, int BN, int PITCH>
-__device__ __forceinline__ void tc_store(const __nv_bfloat16* out, __nv_bfloat16* y, int t, int wg,
-                                         long long plane, int x0, int y0, int n0, int H, int W,
-                                         int Cout) {
-  using Vec = typename VecOf<V * 2>::type;
+// the staged output rows of one warpgroup (64 x BN elements E at pitch PITCH)
+// to y, V channels a store; rows past the volume and channels past Cout
+// unwritten
+template <typename E, int V, int BN, int PITCH>
+__device__ __forceinline__ void tc_store(const E* out, E* y, int t, int wg, long long plane,
+                                         int x0, int y0, int n0, int H, int W, int Cout) {
+  using Vec = typename VecOf<V * sizeof(E)>::type;
   constexpr int kVecs = BN / V;  // stores per output row
   for (int i = t; i < 64 * kVecs; i += 128) {
     const int row = i / kVecs, v = i - row * kVecs;
@@ -694,13 +615,13 @@ conv3d_k3_wgmma_kernel(const __grid_constant__ CUtensorMap map_x,
   // the widest store that keeps every row start aligned: Cout's largest
   // power-of-two factor, up to 8 channels (16 bytes)
   if (Cout % 8 == 0)
-    tc_store<8, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+    tc_store<__nv_bfloat16, 8, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
   else if (Cout % 4 == 0)
-    tc_store<4, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+    tc_store<__nv_bfloat16, 4, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
   else if (Cout % 2 == 0)
-    tc_store<2, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+    tc_store<__nv_bfloat16, 2, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
   else
-    tc_store<1, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+    tc_store<__nv_bfloat16, 1, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
 }
 
 typedef CUresult (*EncodeTiledFn)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
@@ -728,37 +649,46 @@ CUtensorMapSwizzle swizzle_of(int row_bytes) {
                            : CU_TENSOR_MAP_SWIZZLE_32B;
 }
 
-// the map of x (N, D, H, W, Cin), Cin % 8 == 0, for steps of kc channels: a
-// box is the y-slab of one brick; returns 0 or the launcher's error code
-int encode_x(EncodeTiledFn encode, CUtensorMap* map, const void* x, int n_img, int D, int H,
-             int W, int Cin, int kc, int slab_y) {
+// the element type and size of a tensor map: bf16 (2 bytes) or float32 (4)
+struct MapElem {
+  CUtensorMapDataType type;
+  int bytes;
+};
+constexpr MapElem kBf16{CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2};
+constexpr MapElem kF32{CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4};
+
+// the map of x (N, D, H, W, Cin), Cin a whole number of 16-byte rows, for
+// steps of kc channels: a box is the y-slab of one brick; returns 0 or the
+// launcher's error code
+int encode_x(EncodeTiledFn encode, CUtensorMap* map, MapElem el, const void* x, int n_img, int D,
+             int H, int W, int Cin, int kc, int slab_y) {
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const cuuint64_t e = 2;  // bytes per element
+  const cuuint64_t e = el.bytes;
   // innermost first: (Cin, W, H, D, N)
   const cuuint64_t xd[5] = {(cuuint64_t)Cin, (cuuint64_t)W, (cuuint64_t)H, (cuuint64_t)D,
                             (cuuint64_t)n_img};
   const cuuint64_t xs[4] = {e * Cin, e * Cin * W, e * Cin * W * H, e * Cin * W * H * D};
   const cuuint32_t xb[5] = {(cuuint32_t)kc, kBrickX, (cuuint32_t)slab_y, 1, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(x), xd,
-                             xs, xb, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * 2),
+  const CUresult rc = encode(map, el.type, 5, const_cast<void*>(x), xd, xs, xb, ones,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * el.bytes),
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase - (int)rc;
 }
 
-// the map of the packed weights (27, Cout_p, Cin_p), Cin_p % 8 == 0, for steps of kc
-// channels: a box is the three dy taps of one (dz, dx)
-int encode_w(EncodeTiledFn encode, CUtensorMap* map, const void* wp, int Cin_p, int Cout_p,
-             int kc, int bn) {
+// the map of packed weights (27, Cout_p, Cin_p), Cin_p % 8 == 0, for steps
+// of kc channels: a box is the three dy taps of one (dz, dx)
+int encode_w(EncodeTiledFn encode, CUtensorMap* map, MapElem el, const void* wp, int Cin_p,
+             int Cout_p, int kc, int bn) {
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
-  const cuuint64_t e = 2;
+  const cuuint64_t e = el.bytes;
   // innermost first: (Cin_p, Cout_p, dx, dy, dz)
   const cuuint64_t wd[5] = {(cuuint64_t)Cin_p, (cuuint64_t)Cout_p, 3, 3, 3};
   const cuuint64_t ws[4] = {e * Cin_p, e * Cin_p * Cout_p, 3 * e * Cin_p * Cout_p,
                             9 * e * Cin_p * Cout_p};
   const cuuint32_t wb[5] = {(cuuint32_t)kc, (cuuint32_t)bn, 1, 3, 1};
-  const CUresult rc = encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 5, const_cast<void*>(wp), wd,
-                             ws, wb, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * 2),
+  const CUresult rc = encode(map, el.type, 5, const_cast<void*>(wp), wd, ws, wb, ones,
+                             CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle_of(kc * el.bytes),
                              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return rc == CUDA_SUCCESS ? 0 : kErrEncodeBase - (int)rc;
@@ -777,10 +707,11 @@ int launch_tc(const void* x, const void* wp, void* y, int n_img, int D, int H, i
   const int full = cin16 / KC, tail = (cin16 % KC) / kTailKC;
   if (tail > 1) return (int)cudaErrorInvalidValue;  // KC = 64 takes Cin % 64 == 0 only
   CUtensorMap map_x, map_w, map_xt, map_wt;
-  int rc = encode_x(encode, &map_x, x, n_img, D, H, W, Cin, KC, T::kSlabY);
-  if (!rc) rc = encode_w(encode, &map_w, wp, Cin, cout_p, KC, BN);
-  if (!rc && tail) rc = encode_x(encode, &map_xt, x, n_img, D, H, W, Cin, kTailKC, T::kSlabY);
-  if (!rc && tail) rc = encode_w(encode, &map_wt, wp, Cin, cout_p, kTailKC, BN);
+  int rc = encode_x(encode, &map_x, kBf16, x, n_img, D, H, W, Cin, KC, T::kSlabY);
+  if (!rc) rc = encode_w(encode, &map_w, kBf16, wp, Cin, cout_p, KC, BN);
+  if (!rc && tail)
+    rc = encode_x(encode, &map_xt, kBf16, x, n_img, D, H, W, Cin, kTailKC, T::kSlabY);
+  if (!rc && tail) rc = encode_w(encode, &map_wt, kBf16, wp, Cin, cout_p, kTailKC, BN);
   if (rc) return rc;
   if (!tail) {  // never read: copies of the maps a launch does read
     map_xt = map_x;
@@ -796,6 +727,286 @@ int launch_tc(const void* x, const void* wp, void* y, int n_img, int D, int H, i
   dim3 grid((unsigned)((long long)n_img * D * tiles_y * tiles_x), (unsigned)((Cout + BN - 1) / BN));
   kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(map_x, map_w, map_xt, map_wt,
                                                        static_cast<__nv_bfloat16*>(y), D, H, W,
+                                                       full, tail, Cout, tiles_x, tiles_y);
+  return (int)cudaGetLastError();
+}
+
+// ---------------------------------------------------------------------------
+// The 3xTF32 route: float32 split into TF32 pairs, three products a k8 step
+// on the tensor cores, the bf16 kernel's TMA ring and brick.
+// ---------------------------------------------------------------------------
+
+constexpr int kTf32TailKC = 8;  // channels of a tail step: one k8 wgmma deep, 32-byte rows
+
+// a rounded to TF32 as bits: 10 mantissa bits, to nearest, ties away from
+// zero (the wrapper's tf32_round reproduces it on the weights)
+__device__ __forceinline__ uint32_t tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return r;
+}
+
+// x (M, C) float32 to its TF32 pair, hi = tf32(x) and lo = tf32(x - hi)
+// (x - hi is exact), each (M, Cp) with Cp = C rounded up to 4 (TMA's
+// 16-byte rows) and zeros past C: a thread writes one 16-byte vector of
+// each from one 16-byte load of x (V = 4, where 4 divides C and x is 16-byte
+// aligned) or four 4-byte ones. Bound by bytes: x read once, 8 bytes
+// written for each of its 4.
+template <int V>
+__global__ void __launch_bounds__(256)
+tf32_split_kernel(const float* __restrict__ x, float4* __restrict__ hi, float4* __restrict__ lo,
+                  long long M, int C, int Cp) {
+  const int groups = Cp / 4;
+  const long long v = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  if (v >= M * groups) return;
+  const long long m = v / groups;
+  const int c0 = (int)(v - m * groups) * 4;
+  const float* src = x + m * C + c0;
+  float a[4];
+  if constexpr (V == 4) {
+    const float4 q = *reinterpret_cast<const float4*>(src);
+    a[0] = q.x; a[1] = q.y; a[2] = q.z; a[3] = q.w;
+  } else {
+#pragma unroll
+    for (int c = 0; c < 4; ++c) a[c] = c0 + c < C ? src[c] : 0.f;
+  }
+  uint32_t h[4], l[4];
+#pragma unroll
+  for (int c = 0; c < 4; ++c) {
+    h[c] = tf32_rna(a[c]);
+    l[c] = tf32_rna(a[c] - __uint_as_float(h[c]));
+  }
+  hi[v] = make_float4(__uint_as_float(h[0]), __uint_as_float(h[1]), __uint_as_float(h[2]),
+                      __uint_as_float(h[3]));
+  lo[v] = make_float4(__uint_as_float(l[0]), __uint_as_float(l[1]), __uint_as_float(l[2]),
+                      __uint_as_float(l[3]));
+}
+
+template <int BN, int KC, int MINB, int NWG> struct Tf32Tile {
+  static constexpr int kBrickY = kWgY * NWG;
+  static constexpr int kSlabY = kBrickY + 2;
+  static constexpr int kSlabRows = kSlabY * kBrickX;
+  static constexpr int kConsumers = 128 * NWG;
+  static constexpr int kThreads = kConsumers + 32;
+  static constexpr int kRowBytes = KC * 4;
+  static constexpr int kTailRowBytes = kTf32TailKC * 4;
+  // a stage: x_hi's slab, x_lo's (from kABytes), w_hi's three dy taps of
+  // (BN, KC) (from kBOff), w_lo's (kBLo after them)
+  static constexpr int kABytes = kSlabRows * kRowBytes;
+  static constexpr int kBOff = 2 * kABytes;
+  static constexpr int kBTapBytes = BN * kRowBytes;
+  static constexpr int kBLo = (3 * kBTapBytes + 1023) / 1024 * 1024;
+  static constexpr int kTxBytes = 2 * kABytes + 6 * kBTapBytes;
+  // a tail step: the same boxes at 8 channels (32-byte rows), at the same
+  // offsets but w_lo's
+  static constexpr int kTailBTapBytes = BN * kTailRowBytes;
+  static constexpr int kTailBLo = (3 * kTailBTapBytes + 1023) / 1024 * 1024;
+  static constexpr int kTailTxBytes = 2 * kSlabRows * kTailRowBytes + 6 * kTailBTapBytes;
+  static constexpr int kStageBytes = (kBOff + kBLo + 3 * kBTapBytes + 1023) / 1024 * 1024;
+  static constexpr int kOutPitch = BN + 8;  // floats per staged output row
+  static constexpr int kFit = (smem_budget(MINB) - 1024 - 256) / kStageBytes;
+  static constexpr int kStages = kFit < kMaxStages ? kFit : kMaxStages;
+  static constexpr int kSmemBytes = kStages * kStageBytes + 1024;
+  static_assert(kABytes % 1024 == 0 && BN % 8 == 0, "tiles start on swizzle atoms");
+  static_assert(kStages >= 2, "a ring of one stage would not overlap the copies");
+  static_assert(kStages * kStageBytes >= 64 * NWG * kOutPitch * 4, "the epilogue reuses the ring");
+};
+
+// One ring step of one consumer warpgroup: the step's three dy taps and
+// KCS / 8 k8 steps each, issued as one group and retired. a_hi b_hi goes
+// into `big`, a fresh sum (scale-d 0 on its first wgmma), which the caller
+// adds to a float32 total; a_lo b_hi and a_hi b_lo into `small`, which
+// runs over every step (its terms are 2^-11 of big's, and so are the
+// roundings of its additions). `a` is the ring offset of the warpgroup's
+// first x_hi row at dy = 0 (x_lo's lies a_lo further on), `b` that of
+// w_hi's tile (w_lo's lies b_lo further on).
+template <int BN, int KCS>
+__device__ __forceinline__ void tf32x3_step(float (&big)[BN / 2], float (&small)[BN / 2],
+                                            uint32_t ring, uint32_t a, uint32_t a_lo, uint32_t b,
+                                            uint32_t b_lo) {
+  constexpr int kRow = KCS * 4;
+  wgmma_fence();  // `big` and `small` are written before the wgmmas read them
+#pragma unroll
+  for (int dy = 0; dy < 3; ++dy) {
+    const uint64_t dah = smem_desc<kRow>(ring + a + dy * kBrickX * kRow);
+    const uint64_t dal = smem_desc<kRow>(ring + a + a_lo + dy * kBrickX * kRow);
+    const uint64_t dbh = smem_desc<kRow>(ring + b + dy * BN * kRow);
+    const uint64_t dbl = smem_desc<kRow>(ring + b + b_lo + dy * BN * kRow);
+#pragma unroll
+    for (int kk = 0; kk < KCS / 8; ++kk) {  // 8 channels = 32 bytes = 2 address units
+      Tf32Ss<BN>::mma(big, dah + 2 * kk, dbh + 2 * kk, dy + kk > 0);
+      Tf32Ss<BN>::mma(small, dal + 2 * kk, dbh + 2 * kk, 1);
+      Tf32Ss<BN>::mma(small, dah + 2 * kk, dbl + 2 * kk, 1);
+    }
+  }
+  wgmma_commit();
+  wgmma_wait<0>();
+}
+
+template <int BN, int KC, int MINB, int NWG>
+__global__ void __launch_bounds__(128 * NWG + 32, MINB)
+conv3d_k3_tf32x3_kernel(const __grid_constant__ CUtensorMap map_xh,
+                        const __grid_constant__ CUtensorMap map_xl,
+                        const __grid_constant__ CUtensorMap map_wh,
+                        const __grid_constant__ CUtensorMap map_wl,
+                        const __grid_constant__ CUtensorMap map_xht,
+                        const __grid_constant__ CUtensorMap map_xlt,
+                        const __grid_constant__ CUtensorMap map_wht,
+                        const __grid_constant__ CUtensorMap map_wlt, float* __restrict__ y,
+                        int D, int H, int W, int full, int tail, int Cout, int tiles_x,
+                        int tiles_y) {
+  using T = Tf32Tile<BN, KC, MINB, NWG>;
+  constexpr int stages = T::kStages;
+  extern __shared__ uint8_t smem_raw[];
+  __shared__ uint64_t full_bar[stages], empty_bar[stages];
+  const uint32_t ring = (smem_u32(smem_raw) + 1023u) & ~1023u;
+  uint8_t* ring_ptr = smem_raw + (ring - smem_u32(smem_raw));
+
+  const int tid = threadIdx.x;
+  const int warp = tid >> 5, lane = tid & 31;
+  int blk = blockIdx.x;
+  const int x0 = (blk % tiles_x) * kBrickX; blk /= tiles_x;
+  const int y0 = (blk % tiles_y) * T::kBrickY; blk /= tiles_y;
+  const int z = blk % D;
+  const int n = blk / D;
+  const int n0 = blockIdx.y * BN;
+  // the steps: `full` chunks of KC channels for each (dz, dx), then `tail`
+  // 8-channel ones for each; the three dy taps share a step
+
+  if (tid == 0) {
+    for (int i = 0; i < stages; ++i) {
+      mbar_init(smem_u32(&full_bar[i]), 1);
+      mbar_init(smem_u32(&empty_bar[i]), 4 * NWG);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * NWG) {
+    if (lane == 0) {
+      int s = 0;
+      uint32_t phase = 0;
+      // one step's four loads into the next stage: x_hi's and x_lo's
+      // slabs, w_hi's and w_lo's taps
+      auto load = [&](const CUtensorMap* mxh, const CUtensorMap* mxl, const CUtensorMap* mwh,
+                      const CUtensorMap* mwl, uint32_t bytes, uint32_t lo, int tap2, int c0) {
+        const int dz = tap2 / 3, dx = tap2 - dz * 3;
+        const uint32_t full_b = smem_u32(&full_bar[s]);
+        mbar_wait(smem_u32(&empty_bar[s]), phase ^ 1u);
+        const uint32_t dst = ring + s * T::kStageBytes;
+        mbar_expect_tx(full_b, bytes);
+        tma_load_5d(dst, mxh, full_b, c0, x0 + dx - 1, y0 - 1, z + dz - 1, n);
+        tma_load_5d(dst + T::kABytes, mxl, full_b, c0, x0 + dx - 1, y0 - 1, z + dz - 1, n);
+        tma_load_5d(dst + T::kBOff, mwh, full_b, c0, n0, dx, 0, dz);
+        tma_load_5d(dst + T::kBOff + lo, mwl, full_b, c0, n0, dx, 0, dz);
+        if (++s == stages) { s = 0; phase ^= 1u; }
+      };
+      for (int tap2 = 0; tap2 < 9; ++tap2)  // dz * 3 + dx
+        for (int ch = 0; ch < full; ++ch)
+          load(&map_xh, &map_xl, &map_wh, &map_wl, T::kTxBytes, T::kBLo, tap2, ch * KC);
+      for (int j = 0; j < tail; ++j)
+        for (int tap2 = 0; tap2 < 9; ++tap2)
+          load(&map_xht, &map_xlt, &map_wht, &map_wlt, T::kTailTxBytes, T::kTailBLo, tap2,
+               full * KC + j * kTf32TailKC);
+    }
+    return;
+  }
+
+  // consumers: warpgroup wg owns output rows [64 * wg, 64 * wg + 64) of the brick
+  const int wg = warp >> 2;
+  float total[BN / 2], big[BN / 2], small[BN / 2];
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) total[i] = big[i] = small[i] = 0.f;
+  int s = 0;
+  uint32_t phase = 0;
+  // once a step has retired its stage is free and its fresh sum joins the
+  // total (a loop for each step kind: a wgmma under a branch is serialized
+  // by ptxas, C7520)
+  auto finish = [&]() {
+    if (lane == 0) mbar_arrive(smem_u32(&empty_bar[s]));
+    if (++s == stages) { s = 0; phase ^= 1u; }
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) total[i] += big[i];
+  };
+  for (int i = 0; i < 9 * full; ++i) {
+    mbar_wait(smem_u32(&full_bar[s]), phase);
+    const uint32_t so = s * T::kStageBytes;
+    tf32x3_step<BN, KC>(big, small, ring, so + wg * 64 * T::kRowBytes, T::kABytes,
+                        so + T::kBOff, T::kBLo);
+    finish();
+  }
+  for (int i = 0; i < 9 * tail; ++i) {
+    mbar_wait(smem_u32(&full_bar[s]), phase);
+    const uint32_t so = s * T::kStageBytes;
+    tf32x3_step<BN, kTf32TailKC>(big, small, ring, so + wg * 64 * T::kTailRowBytes, T::kABytes,
+                                 so + T::kBOff, T::kTailBLo);
+    finish();
+  }
+#pragma unroll
+  for (int i = 0; i < BN / 2; ++i) total[i] += small[i];
+
+  // epilogue: the ring, every load of which has been waited for, becomes
+  // the staging area
+  asm volatile("bar.sync 1, %0;\n" ::"n"(T::kConsumers) : "memory");
+  float* out = reinterpret_cast<float*>(ring_ptr) + wg * 64 * T::kOutPitch;
+  {
+    // accumulator layout of m64nN: thread (warp w, lane l) holds rows
+    // 16w + l/4 and + 8, columns 8j + 2*(l%4) and + 1
+    const int r0 = (warp & 3) * 16 + (lane >> 2);
+    const int cb = (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      *reinterpret_cast<float2*>(out + r0 * T::kOutPitch + 8 * j + cb) =
+          make_float2(total[4 * j], total[4 * j + 1]);
+      *reinterpret_cast<float2*>(out + (r0 + 8) * T::kOutPitch + 8 * j + cb) =
+          make_float2(total[4 * j + 2], total[4 * j + 3]);
+    }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + wg) : "memory");
+  const int t = tid & 127;
+  const long long plane = ((long long)n * D + z) * H;
+  if (Cout % 4 == 0)
+    tc_store<float, 4, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+  else if (Cout % 2 == 0)
+    tc_store<float, 2, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+  else
+    tc_store<float, 1, BN, T::kOutPitch>(out, y, t, wg, plane, x0, y0, n0, H, W, Cout);
+}
+
+// x_hi and x_lo (N, D, H, W, Cin) float32 with Cin % 4 == 0, w_hi and w_lo
+// (27, Cout_p, Cin_p) float32 (Cin_p: Cin rounded up to 8), y (N, D, H, W,
+// Cout)
+template <int BN, int KC, int MINB, int NWG>
+int launch_tf32x3(const void* xh, const void* xl, const void* wh, const void* wl, void* y,
+                  int n_img, int D, int H, int W, int Cin, int Cout, cudaStream_t stream) {
+  using T = Tf32Tile<BN, KC, MINB, NWG>;
+  EncodeTiledFn encode = encode_tiled();
+  if (!encode) return kErrNoEncoder;
+  const int cout_p = (Cout + 7) / 8 * 8, cin_p = (Cin + 7) / 8 * 8;
+  // the channel steps of a tap: whole chunks of KC, then 8-channel tails
+  const int full = cin_p / KC, tail = (cin_p % KC) / kTf32TailKC;
+  // x_hi, x_lo, w_hi, w_lo; then the same four for the tail steps
+  CUtensorMap m[8];
+  int rc = 0;
+  for (int t = 0; t < 1 + (tail > 0); ++t) {
+    const int kc = t ? kTf32TailKC : KC;
+    if (!rc) rc = encode_x(encode, &m[4 * t], kF32, xh, n_img, D, H, W, Cin, kc, T::kSlabY);
+    if (!rc) rc = encode_x(encode, &m[4 * t + 1], kF32, xl, n_img, D, H, W, Cin, kc, T::kSlabY);
+    if (!rc) rc = encode_w(encode, &m[4 * t + 2], kF32, wh, cin_p, cout_p, kc, BN);
+    if (!rc) rc = encode_w(encode, &m[4 * t + 3], kF32, wl, cin_p, cout_p, kc, BN);
+  }
+  if (rc) return rc;
+  if (!tail)  // never read: copies of the maps a launch does read
+    for (int i = 0; i < 4; ++i) m[4 + i] = m[i];
+
+  auto kernel = conv3d_k3_tf32x3_kernel<BN, KC, MINB, NWG>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         T::kSmemBytes);
+  if (err != cudaSuccess) return (int)err;
+  const int tiles_x = (W + kBrickX - 1) / kBrickX, tiles_y = (H + T::kBrickY - 1) / T::kBrickY;
+  dim3 grid((unsigned)((long long)n_img * D * tiles_y * tiles_x), (unsigned)((Cout + BN - 1) / BN));
+  kernel<<<grid, T::kThreads, T::kSmemBytes, stream>>>(m[0], m[1], m[2], m[3], m[4], m[5], m[6],
+                                                       m[7], static_cast<float*>(y), D, H, W,
                                                        full, tail, Cout, tiles_x, tiles_y);
   return (int)cudaGetLastError();
 }
@@ -848,6 +1059,68 @@ extern "C" int biapy_pad_channels(const void* x, void* y, long long M, int C, vo
     pad_channels_kernel<1><<<blocks, 256, 0, s>>>(static_cast<const uint16_t*>(x),
                                                    static_cast<uint4*>(y), M, C, cp);
   return (int)cudaGetLastError();
+}
+
+// The 3xTF32 route's split of x: x (M, C) float32, hi and lo (M, Cp) float32
+// with Cp = C rounded up to 4, 16-byte aligned. Returns 0 or a cudaError.
+extern "C" int biapy_tf32_split(const void* x, void* hi, void* lo, long long M, int C,
+                                void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (M <= 0 || C <= 0) return (int)cudaErrorInvalidValue;
+  const int cp = (C + 3) / 4 * 4;
+  const unsigned blocks = (unsigned)((M * (cp / 4) + 255) / 256);
+  const float* xf = static_cast<const float*>(x);
+  float4 *h = static_cast<float4*>(hi), *l = static_cast<float4*>(lo);
+  if (C % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0)
+    tf32_split_kernel<4><<<blocks, 256, 0, s>>>(xf, h, l, M, C, cp);
+  else
+    tf32_split_kernel<1><<<blocks, 256, 0, s>>>(xf, h, l, M, C, cp);
+  return (int)cudaGetLastError();
+}
+
+// The 3xTF32 route: xh and xl (N, D, H, W, Cin) the TF32 pair of a float32
+// x (biapy_tf32_split: Cin % 4 == 0), wh and wl the packed weights split
+// into TF32 pairs, each (27, Cout_p, Cin_p) float32 (Cin_p and Cout_p
+// rounded up to 8, zeros past the real widths), y (N, D, H, W, Cout)
+// float32 for any Cout >= 1; all five pointers 16-byte aligned. Returns 0,
+// a cudaError, or the tensor-core launcher's negative codes (below).
+extern "C" int biapy_conv3d_k3_tf32x3(const void* xh, const void* xl, const void* wh,
+                                      const void* wl, void* y, int n_img, int D, int H, int W,
+                                      int Cin, int Cout, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (Cin <= 0 || Cin % 4 != 0 || Cout <= 0) return (int)cudaErrorInvalidValue;
+  // BN: the narrowest tile that holds Cout_p up to 64; past it 96 or 64,
+  // whichever pads Cout_p less (the grid's second dimension walks the
+  // tiles). A tile of 128 would want 192 accumulator registers a thread,
+  // and ptxas gives a block of three warpgroups' worth 168: it spilled, and
+  // ran slower than two tiles of 64. KC: 32 channels a step (128-byte rows)
+  // up to a tile of 64, unless Cin_p leaves 16 over (48, 112: 16-channel
+  // chunks then need no tail), else 16 (at 96 a 32-channel stage would not
+  // fit twice); 8-channel tail steps for what KC leaves. Two consumer
+  // warpgroups: four (a 16 x 16 brick) spilled the three sums at 64 and
+  // lost everywhere. Measured at the main path's and the 3D templates'
+  // shapes (tools/torch_conv3d_tiles.py --dtype float32), each choice the
+  // faster of its alternatives at most of them.
+#define BIAPY_TF(BN, KC) \
+  return launch_tf32x3<BN, KC, 1, 2>(xh, xl, wh, wl, y, n_img, D, H, W, Cin, Cout, s)
+  const int cout_p = (Cout + 7) / 8 * 8, cin_p = (Cin + 7) / 8 * 8;
+  const bool kc32 = cin_p % 32 != 16;
+  if (cout_p > 64 && (cout_p + 95) / 96 * 96 <= (cout_p + 63) / 64 * 64) BIAPY_TF(96, 16);
+  if (kc32) {
+    if (cout_p <= 8) BIAPY_TF(8, 32);
+    if (cout_p <= 16) BIAPY_TF(16, 32);
+    if (cout_p <= 32) BIAPY_TF(32, 32);
+    if (cout_p <= 40) BIAPY_TF(40, 32);
+    if (cout_p <= 48) BIAPY_TF(48, 32);
+    BIAPY_TF(64, 32);
+  }
+  if (cout_p <= 8) BIAPY_TF(8, 16);
+  if (cout_p <= 16) BIAPY_TF(16, 16);
+  if (cout_p <= 32) BIAPY_TF(32, 16);
+  if (cout_p <= 40) BIAPY_TF(40, 16);
+  if (cout_p <= 48) BIAPY_TF(48, 16);
+  BIAPY_TF(64, 16);
+#undef BIAPY_TF
 }
 
 // The tensor-core route: x (N, D, H, W, Cin) bf16 with Cin % 8 == 0 (the
@@ -923,18 +1196,4 @@ extern "C" int biapy_conv3d_k3_stem(const void* x, const void* w, void* y, int d
   if (dtype == 0) return launch_stem<float>(x, w, y, n_img, D, H, W, Cin, Cout, s);
   if (dtype == 1) return launch_stem<__nv_bfloat16>(x, w, y, n_img, D, H, W, Cin, Cout, s);
   return (int)cudaErrorInvalidValue;
-}
-
-// The CUDA-core route, float32 only (dtype 0; any other is refused). Returns
-// cudaGetLastError() after the launch.
-extern "C" int biapy_conv3d_k3(const void* x, const void* w, void* y, int dtype, int n_img,
-                               int D, int H, int W, int Cin, int Cout, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype != 0) return (int)cudaErrorInvalidValue;
-  // narrow outputs take a narrow tile so no thread idles on masked columns
-  if (Cout <= 32)
-    launch<128, 32, 4, 4>(x, w, y, n_img, D, H, W, Cin, Cout, s);
-  else
-    launch<128, 64, 8, 4>(x, w, y, n_img, D, H, W, Cin, Cout, s);
-  return (int)cudaGetLastError();
 }

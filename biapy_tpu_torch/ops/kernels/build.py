@@ -35,16 +35,17 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 # kernel name -> launches since the last reset
-# (pad_channels: the channel-padded copy of x that conv3d's tensor-core
-# route takes where 8 does not divide Cin, a kernel of its own)
-LAUNCHES: Dict[str, int] = {"conv3d": 0, "pad_channels": 0, "pool_max_folded": 0,
-                            "pool_max_folded_bwd": 0, "zd2s": 0, "zs2d": 0, "zcat": 0,
-                            "zcat_bwd": 0}
+# (pad_channels: the channel-padded copy of x that conv3d's bf16
+# tensor-core route takes where 8 does not divide Cin; tf32_split: the TF32
+# pair of x that its 3xTF32 route takes; kernels of their own)
+LAUNCHES: Dict[str, int] = {"conv3d": 0, "pad_channels": 0, "tf32_split": 0,
+                            "pool_max_folded": 0, "pool_max_folded_bwd": 0, "zd2s": 0,
+                            "zs2d": 0, "zcat": 0, "zcat_bwd": 0}
 
-# conv3d's launches by route (``conv3d.conv3d_route``): "wgmma" (tensor
-# cores), "stem" (Cin below the stem cut, CUDA cores) or "fma" (float32,
-# CUDA cores); the three add up to LAUNCHES["conv3d"]
-CONV3D_ROUTES: Dict[str, int] = {"wgmma": 0, "stem": 0, "fma": 0}
+# conv3d's launches by route (``conv3d.conv3d_route``): "wgmma" (bf16,
+# tensor cores), "stem" (Cin below the stem cut, CUDA cores) or "tf32x3"
+# (float32, tensor cores); the three add up to LAUNCHES["conv3d"]
+CONV3D_ROUTES: Dict[str, int] = {"wgmma": 0, "stem": 0, "tf32x3": 0}
 
 # the pool's, its backward's and zcat's launches by route
 # (``shuffle.pool_route``, ``shuffle.zcat_route``): "channels16" and "rows16"
@@ -139,18 +140,20 @@ def lib() -> ctypes.CDLL:
     if _lib is None:
         handle = ctypes.CDLL(str(build()))
         p, i = ctypes.c_void_p, ctypes.c_int
-        handle.biapy_conv3d_k3.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
+        handle.biapy_conv3d_k3_tf32x3.argtypes = [p, p, p, p, p, i, i, i, i, i, i, p]
         handle.biapy_conv3d_k3_wgmma.argtypes = [p, p, p, i, i, i, i, i, i, p]
         handle.biapy_conv3d_k3_stem.argtypes = [p, p, p, i, i, i, i, i, i, i, p]
         handle.biapy_pad_channels.argtypes = [p, p, ctypes.c_longlong, i, p]
+        handle.biapy_tf32_split.argtypes = [p, p, p, ctypes.c_longlong, i, p]
         handle.biapy_pool_max_folded.argtypes = [p, p, i, i, i, i, i, i, i, i, i, p]
         handle.biapy_pool_max_folded_bwd.argtypes = [p, p, p, p, i, i, i, i, i, i, i, i, i, p]
         handle.biapy_zd2s.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zs2d.argtypes = [p, p, i, i, i, i, i, i, p]
         handle.biapy_zcat.argtypes = [p, p, i, i, i, i, i, i, i, i, p]
         handle.biapy_zcat_bwd.argtypes = [p, p, i, i, i, i, i, i, i, p]
-        for fn in (handle.biapy_conv3d_k3, handle.biapy_conv3d_k3_wgmma,
+        for fn in (handle.biapy_conv3d_k3_tf32x3, handle.biapy_conv3d_k3_wgmma,
                    handle.biapy_conv3d_k3_stem, handle.biapy_pad_channels,
+                   handle.biapy_tf32_split,
                    handle.biapy_pool_max_folded,
                    handle.biapy_pool_max_folded_bwd, handle.biapy_zd2s, handle.biapy_zs2d,
                    handle.biapy_zcat, handle.biapy_zcat_bwd):

@@ -30,10 +30,26 @@ Which one a CUDA launch takes is a rule on dtype, Cin and Cout alone
   launch: no cache to go stale). The tile is Cout_p wide, channels are
   walked 32 (or 64) at a time with a 16-channel tail step, and only the
   real output channels are written.
-- ``"fma"``, the CUDA-core kernel: float32 at ``Cin >= STEM_CIN``, which
-  must stay full float32 (the tensor cores would round to TF32). An
-  implicit GEMM with masked edges on float32 FMAs, each 16-product chunk
-  summed apart. Any other dtype takes this route and is refused there.
+- ``"tf32x3"``, the 3xTF32 kernel: float32 at ``Cin >= STEM_CIN`` and
+  any Cout, on the tensor cores at float32's accuracy. One TF32 product
+  keeps 11 bits of each operand (about 1e-3 of relative error), so each
+  operand is split into ``hi = tf32(a)`` and ``lo = tf32(a - hi)`` and
+  each product taken as ``a_lo b_hi + a_hi b_lo + a_hi b_hi`` (``lo b_lo``,
+  2^-22 of it, dropped): three TF32 products where bf16 takes one, so the
+  bound is a third of the card's TF32 rate, 2.5x its float32 FMA rate.
+  The bf16 kernel's TMA ring and brick with float32 tiles of both halves
+  of each pair: x is split by a kernel of its own (``split_x``, counted
+  apart, channel-padded to 4: one read of x and two writes, bound by
+  those bytes), the weights are packed as for bf16 and split here
+  (``tf32_split``, on the bit pattern exactly as the card's
+  ``cvt.rna.tf32.f32`` rounds). The tensor cores add with truncation, so
+  their sums are kept short: each ring step's ``a_hi b_hi`` products go
+  into a fresh accumulator that is then added to a float32 total, and the
+  two small terms into an accumulator of their own, whose roundings are
+  2^-11 of the others' (one accumulator for all three over a ring step left
+  the instance template's float32 step 4.3e-5 from float64, farther than
+  the JAX package's 3.2e-5). Any other dtype takes this route and is
+  refused there.
 
 The backward, as in the JAX package: dx is the same kernel on the spatially
 flipped, IO-swapped weights, whose packed form is ``w.flip(0, 1, 2)`` in
@@ -98,16 +114,34 @@ STEM_CIN = 4
 def conv3d_route(dtype: torch.dtype, cin: int, cout: int) -> str:
     """The kernel a CUDA launch takes: ``"stem"`` for float32 or bfloat16
     with ``0 < cin < STEM_CIN``, ``"wgmma"`` for any other bfloat16 conv,
-    else ``"fma"``."""
+    else ``"tf32x3"``."""
     if dtype in (torch.float32, torch.bfloat16) and 0 < cin < STEM_CIN and cout > 0:
         return "stem"
     if dtype == torch.bfloat16 and cin > 0 and cout > 0:
         return "wgmma"
-    return "fma"
+    return "tf32x3"
 
 
 def _round8(n: int) -> int:
     return -(-n // 8) * 8
+
+
+def tf32_round(t: torch.Tensor) -> torch.Tensor:
+    """float32 ``t`` rounded to TF32 (10 mantissa bits, the low 13 bits
+    zero) as the card's ``cvt.rna.tf32.f32`` rounds: to nearest, ties away
+    from zero. On the bit pattern, whose low 31 bits are the magnitude:
+    add half of the 13 dropped bits' unit, then clear them. NaN stays NaN."""
+    bits = t.contiguous().view(torch.int32)
+    r = ((bits + 0x1000) & -0x2000).view(torch.float32)
+    return torch.where(t.isnan(), t, r)
+
+
+def tf32_split(t: torch.Tensor):
+    """``(hi, lo)``: ``hi = tf32_round(t)``, ``lo = tf32_round(t - hi)``
+    (``t - hi`` is exact in float32), so ``hi + lo`` lies within 2^-22 of
+    ``t``'s magnitude: the operands of the 3xTF32 kernel."""
+    hi = tf32_round(t)
+    return hi, tf32_round(t - hi)
 
 
 def pack_weights(w: torch.Tensor) -> torch.Tensor:
@@ -159,6 +193,30 @@ def pad_channels(x: torch.Tensor) -> torch.Tensor:
     return y
 
 
+def split_x(x: torch.Tensor):
+    """``(x_hi, x_lo)``: float32 x split into TF32 pairs (``tf32_split``)
+    with its channels zero-padded to a multiple of 4 (TMA's 16-byte rows),
+    the 3xTF32 kernel's A operands. A CPU x takes ``tf32_split`` and
+    ``F.pad``; a CUDA x is split by the ``biapy_tf32_split`` kernel (one read
+    of x, two writes), counted in ``build.LAUNCHES["tf32_split"]``."""
+    c = x.shape[-1]
+    cp = -(-c // 4) * 4
+    if x.device.type == "cpu":
+        return tuple(F.pad(t, (0, cp - c)) for t in tf32_split(x))
+    build.check_cuda(x, "tf32_split")
+    if x.dtype != torch.float32:
+        raise TypeError(f"tf32_split: the kernel takes float32, got {x.dtype}")
+    hi, lo = (torch.empty(x.shape[:-1] + (cp,), dtype=x.dtype, device=x.device)
+              for _ in range(2))
+    if hi.numel():
+        with torch.cuda.device(x.device):
+            rc = build.lib().biapy_tf32_split(x.data_ptr(), hi.data_ptr(), lo.data_ptr(),
+                                              x.numel() // c, c, build.stream_ptr(x))
+        build.check_rc(rc, "tf32_split")
+        build.LAUNCHES["tf32_split"] += 1
+    return hi, lo
+
+
 def _check_operands(x: torch.Tensor, w: torch.Tensor, cin_axis: int, name: str) -> None:
     build.check_cuda(x, name)
     build.check_cuda(w, name)
@@ -182,21 +240,23 @@ def _launch(x: torch.Tensor, w: torch.Tensor, dx: bool) -> torch.Tensor:
     if y.numel() == 0:
         return y
     with torch.cuda.device(x.device):
-        if route == "wgmma":
-            if x.dtype != torch.bfloat16:
-                raise TypeError(f"{name}: the tensor-core kernel takes bfloat16, got {x.dtype}")
-            xk = pad_channels(x)
-            wp = pack_weights_dx(w) if dx else pack_weights(w)
-            if xk.data_ptr() % 16 or wp.data_ptr() % 16 or y.data_ptr() % 16:
-                raise ValueError(f"{name}: the tensor-core kernel needs 16-byte aligned tensors")
-            rc = build.lib().biapy_conv3d_k3_wgmma(xk.data_ptr(), wp.data_ptr(), y.data_ptr(),
-                                                   n, d, h, wd, xk.shape[-1], cout,
-                                                   build.stream_ptr(x))
-        else:
+        if route == "stem":
             wk = w.flip(0, 1, 2).transpose(3, 4).contiguous() if dx else w
-            fn = build.lib().biapy_conv3d_k3_stem if route == "stem" else build.lib().biapy_conv3d_k3
-            rc = fn(x.data_ptr(), wk.data_ptr(), y.data_ptr(), build.dtype_code(x), n, d, h, wd,
-                    cin, cout, build.stream_ptr(x))
+            rc = build.lib().biapy_conv3d_k3_stem(x.data_ptr(), wk.data_ptr(), y.data_ptr(),
+                                                  build.dtype_code(x), n, d, h, wd, cin, cout,
+                                                  build.stream_ptr(x))
+        else:
+            want = torch.bfloat16 if route == "wgmma" else torch.float32
+            if x.dtype != want:
+                raise TypeError(f"{name}: the {route} kernel takes {want}, got {x.dtype}")
+            wp = pack_weights_dx(w) if dx else pack_weights(w)
+            # bf16: x (channel-padded) and the pack; float32: their TF32 pairs
+            ops = [pad_channels(x), wp] if route == "wgmma" else [*split_x(x), *tf32_split(wp)]
+            if any(t.data_ptr() % 16 for t in ops + [y]):
+                raise ValueError(f"{name}: the tensor-core kernels need 16-byte aligned tensors")
+            fn = getattr(build.lib(), "biapy_conv3d_k3_" + route)
+            rc = fn(*[t.data_ptr() for t in ops], y.data_ptr(), n, d, h, wd, ops[0].shape[-1],
+                    cout, build.stream_ptr(x))
     build.check_rc(rc, f"{name} ({route})")
     build.LAUNCHES[name] += 1
     build.CONV3D_ROUTES[route] += 1

@@ -27,8 +27,13 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    (``device_ms``: CUDA events around ten back-to-back calls queued behind a
    spin kernel, divided by ten), the kernel's and the library call's call
    times (``time_ms``: events around one call, host work included), the
-   bound and, for conv3d, the route; fails unless a main-path bf16 conv3d
-   row runs above the CUDA cores' 67 TFLOP/s;
+   bound (for the 3xTF32 route, three TF32 products a float32 one) and, for
+   conv3d, the route; the same convs in float32, with the 3D templates' and
+   the super-resolution template's forward and input gradients, and their
+   sums and rows slower than ``F.conv3d`` (float32, TF32 off), and the
+   3xTF32 route's split of x bit-equal to its plain version; fails unless
+   a main-path conv3d row runs above the CUDA cores' 67 TFLOP/s in bf16 and
+   in float32;
 4. serving path: ``BiaPy(cfg).predict`` at the bench's full width (resunet
    32/64/128, BatchNorm, ELU, 128^3 patches, halo 10, bf16, uint8 drain) on
    a seeded 216^3 uint8 volume, three calls, with the launch counters
@@ -36,7 +41,8 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    route), 2 pool and 2 zd2s per patch;
 5. whole path vs plain path: the same model at reduced width on the card
    and on the CPU (plain versions), probabilities compared, in float32
-   (CUDA-core conv) and in bf16 (the stem kernel and the tensor-core conv);
+   (the stem kernel and the 3xTF32 conv) and in bf16 (the stem kernel and
+   the tensor-core conv), each with its routes checked;
 6. training path: ``prepare_model()`` and ``make_train_step`` on the same
    model at 128^3 under bf16 mixed precision, batch 1 then 2 (two steps to
    settle, at least six timed), with the launch counters checked per step
@@ -417,17 +423,17 @@ ZCAT_BWD_MAIN = LARGER_IO_ZCATS[1]
 # launches per training step at batch 1 (the LARGER_IO model adds two kz = 5
 # zcat forwards and one zcat backward)
 TRAIN_LAUNCHES = {"conv3d": 19, "zcat": 10, "pool_max_folded": 2, "pool_max_folded_bwd": 2,
-                  "zd2s": 2, "zs2d": 2, "zcat_bwd": 0, "pad_channels": 0}
+                  "zd2s": 2, "zs2d": 2, "zcat_bwd": 0, "pad_channels": 0, "tf32_split": 0}
 LARGER_IO_LAUNCHES = dict(TRAIN_LAUNCHES, conv3d=20, zcat=12, zcat_bwd=1)
 # conv3d's routes (biapy_tpu_torch/ops/kernels/conv3d.py::conv3d_route) and
 # its launches by route: in bf16 the 1-channel stem's forward takes the stem
-# kernel and every other conv the tensor cores; the CUDA-core route runs
+# kernel and every other conv the tensor cores; the 3xTF32 route runs
 # float32 alone; with LARGER_IO the stem is a 5x5x5 conv (cat2d path), so
 # every 3x3x3 conv has Cin = 32 or more
-CONV3D_ROUTE_NAMES = ("wgmma", "stem", "fma")
-SERVE_ROUTES = {"wgmma": 9, "stem": 1, "fma": 0}
-TRAIN_ROUTES = {"wgmma": 18, "stem": 1, "fma": 0}
-LARGER_IO_ROUTES = {"wgmma": 20, "stem": 0, "fma": 0}
+CONV3D_ROUTE_NAMES = ("wgmma", "stem", "tf32x3")
+SERVE_ROUTES = {"wgmma": 9, "stem": 1, "tf32x3": 0}
+TRAIN_ROUTES = {"wgmma": 18, "stem": 1, "tf32x3": 0}
+LARGER_IO_ROUTES = {"wgmma": 20, "stem": 0, "tf32x3": 0}
 # the 1-channel stems, ((N, D, H, W), Cin, Cout): the main path's, the 3D
 # templates' and the classification template's
 STEM_CONVS = [((1, 128, 128, 128), 1, 32), ((TEMPLATE_BATCH, TEMPLATE_DEPTH, 128, 128), 1, 28),
@@ -435,9 +441,10 @@ STEM_CONVS = [((1, 128, 128, 128), 1, 32), ((TEMPLATE_BATCH, TEMPLATE_DEPTH, 128
 _SHUFFLE = "biapy_tpu_torch/csrc/shuffle.cu"
 KERNEL_META = {
     "conv3d": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
-    # conv3d's channel pad (tensor-core route, Cin off the 8 grid): a part of
-    # the same kernel's port
+    # conv3d's channel pad (tensor-core route, Cin off the 8 grid) and the
+    # 3xTF32 route's split of x: parts of the same kernel's port
     "pad_channels": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
+    "tf32_split": ("biapy_tpu_torch/csrc/conv3d.cu", "biapy_tpu/ops/pallas/conv3d.py:213"),
     "pool_max_folded": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:232"),
     "zd2s": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:294"),
     "zcat": (_SHUFFLE, "biapy_tpu/ops/pallas/shuffle.py:109"),
@@ -448,16 +455,26 @@ KERNEL_META = {
 
 
 def peaks(card_name: str):
-    """Dense peak rates of the card (NVIDIA data sheets): FLOP/s by dtype,
-    bytes/s of device memory."""
+    """Dense peak rates of the card (NVIDIA data sheets): FLOP/s by dtype
+    (``float32``: the CUDA cores; ``tf32``: the tensor cores on TF32
+    operands), bytes/s of device memory."""
     if "PCIe" in card_name or "PCIE" in card_name:
-        return {"bfloat16": 756e12, "float32": 51e12}, 2.0e12
-    return {"bfloat16": 989e12, "float32": 67e12}, 3.35e12
+        return {"bfloat16": 756e12, "float32": 51e12, "tf32": 378e12}, 2.0e12
+    return {"bfloat16": 989e12, "float32": 67e12, "tf32": 495e12}, 3.35e12
 
 
-def bound(flops, nbytes, dtype_name, card):
+# conv3d's routes that do more than one product a multiply-add, and how
+# many: the 3xTF32 route takes three TF32 products for each float32 one
+ROUTE_PASSES = {"tf32x3": ("tf32", 3)}
+
+
+def bound(flops, nbytes, dtype_name, card, route=None):
+    """The least time of a call (ms) and what sets it: its ``flops`` at the
+    card's peak for ``dtype_name`` (for a route in ``ROUTE_PASSES``, that
+    many products a flop at its rate), or its ``nbytes`` at the memory's."""
     rates, bw = peaks(card)
-    t_ops = flops / rates[dtype_name] * 1e3
+    rate, passes = ROUTE_PASSES.get(route, (dtype_name, 1))
+    t_ops = passes * flops / rates[rate] * 1e3
     t_bytes = nbytes / bw * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes else "bytes")
 
@@ -629,7 +646,7 @@ class _Rows:
         if lib_fn is not None:
             lib_ms, lib_hidden = device_ms(lib_fn)
             lib_call_ms = time_ms(lib_fn)
-        b_ms, b_by = bound(flops, nbytes, _dt_name(dt), self.card)
+        b_ms, b_by = bound(flops, nbytes, _dt_name(dt), self.card, extra.get("route"))
         row = dict(kernel=kernel, dtype=_dt_name(dt), shape=list(shape), max_abs_err=err,
                    max_rel_err=rel, tol=tol, ok=ok, ms=ms, call_ms=call_ms, plain_ms=plain_ms,
                    library_ms=lib_ms, library_call_ms=lib_call_ms, bound_ms=b_ms, bound_by=b_by,
@@ -658,14 +675,18 @@ class _Rows:
 # stores), a loop over output tiles (264), and ragged volumes with bricks
 # enough for the kernel's taller (16 x 16) brick (Cin 48, 28 and 36); the
 # stem kernel takes Cin 3 and 1 (Cout 28, 36: two channel chunks, 1) in both
-# dtypes; float32 at Cin >= 4 takes the CUDA cores
+# dtypes; float32 at Cin >= 4 takes the 3xTF32 kernel (32-channel chunks
+# at Cin 28 and 32, 16-channel ones elsewhere, an 8-channel tail step at
+# Cin 24, 36 and 84 and alone at Cin 5, whose x it pads to 8 channels; a
+# loop over 128-wide output tiles at Cout 264; 16- and 4-byte stores)
 ODD_CONVS = [((2, 13, 7, 9), 24, 40), ((2, 13, 7, 9), 32, 40), ((2, 13, 7, 9), 48, 32),
              ((2, 13, 7, 9), 64, 264), ((2, 3, 19, 35), 16, 8), ((2, 40, 30, 35), 48, 40),
              ((2, 13, 7, 9), 28, 36), ((2, 13, 7, 9), 36, 28), ((2, 5, 21, 19), 84, 12),
              ((2, 13, 7, 9), 28, 1), ((2, 6, 11, 13), 5, 12), ((2, 40, 30, 35), 28, 28),
              ((2, 40, 30, 35), 36, 36), ((2, 9, 11, 13), 3, 28), ((2, 7, 10, 33), 1, 36),
              ((1, 4, 5, 6), 1, 1)]
-# the CUDA cores' float32 peak: no FMA kernel can pass it
+# the CUDA cores' float32 peak: no FMA kernel can pass it, in bf16 or (the
+# 3xTF32 route's effective rate, a float32 conv's flops) in float32
 TENSOR_CORE_PROOF_TFLOPS = 67.0
 
 
@@ -677,11 +698,29 @@ def _template_conv_rows():
     return vol, [(v, cout, cin) for v, cin, cout in vol[1:]]
 
 
+# the Cout of the restoration templates' unet 16/32/64 3x3x3 convs, in
+# UNET_CONVS' order
+UNET_COUTS = [16, 16, 32, 32, 64, 64, 32, 32, 16, 16]
+
+
+def _sr_conv_rows():
+    """The 3D super-resolution template's 10 forward convs and 9 input
+    gradients (unet 16/32/64, Z_DOWN 2, 8 x 128 x 128 LR patches at batch
+    4), as ((N, D, H, W), Cin, Cout) in network order: a template that
+    trains and predicts in float32 (TEST.REDUCE_MEMORY off)."""
+    b, d, h, w = 4, 8, 128, 128
+    fwd = [((b, d >> lv, h >> lv, w >> lv), cin, cout)
+           for (lv, cin), cout in zip(UNET_CONVS, UNET_COUTS)]
+    return fwd, [(v, cout, cin) for v, cin, cout in fwd[1:]]
+
+
 def _template_conv_sums(rows):
     """Prints the templates' bf16 forward sum and forward-plus-dx sum
     against ``F.conv3d``'s and the bound, which of their rows and of the
-    stems' (``STEM_CONVS``) took longer than ``F.conv3d``, and the sums of
-    each route's rows; returns the sums."""
+    stems' (``STEM_CONVS``) took longer than ``F.conv3d``, the sums of
+    each route's rows, and which float32 rows of the main path, the
+    templates and the super-resolution template took longer than
+    ``F.conv3d``; returns the sums."""
     def pick(shapes):
         return [next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
                      and r["shape"] == list(v) + [cin] and r["cout"] == cout)
@@ -703,24 +742,40 @@ def _template_conv_sums(rows):
     # conv3d by route: the tensor cores at widths on the 8 grid (the main
     # path's 9 forward convs after the stem, a 128^3 serving patch), off it
     # (the templates' forward and dx convs with Cin or Cout that 8 does not
-    # divide), the stems, and the CUDA cores (the same 9 in float32)
+    # divide), the stems, and the 3xTF32 kernel in float32 (the same 9, their
+    # 9 input gradients, the templates' 13 forward convs after the stem and
+    # 13 input gradients, and the super-resolution template's 9 and 9)
     main9 = [((1, s, s, s), cin, cout) for s, cin, cout in MAIN_CONVS[1:]]
+    main_dx = [((1, s, s, s), cin, cout) for s, cin, cout in DX_CONVS]
+    sr_fwd, sr_dx = _sr_conv_rows()
     groups = (("wgmma on the grid, bf16", "bfloat16", main9),
               ("wgmma off the grid, bf16", "bfloat16",
                [r for r in fwd[1:] + dx if r[1] % 8 or r[2] % 8]),
               ("stem, bf16", "bfloat16", STEM_CONVS),
-              ("fma, float32", "float32", main9))
+              ("tf32x3, float32", "float32", main9),
+              ("tf32x3 main dx, float32", "float32", main_dx),
+              ("tf32x3 templates, float32", "float32", fwd[1:] + dx),
+              ("tf32x3 super-resolution, float32", "float32", sr_fwd[1:] + sr_dx))
     for what, dt, shapes in groups:
         picked = [next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == dt
                        and r["shape"] == list(v) + [cin] and r["cout"] == cout)
                   for v, cin, cout in shapes]
         tot = {k: sum(r.get(k, 0.0) for r in picked)
-               for k in ("ms", "pad_ms", "plain_ms", "library_ms", "bound_ms")}
+               for k in ("ms", "pad_ms", "split_ms", "plain_ms", "library_ms", "bound_ms")}
         sums[what] = tot
         print(f"[kernels] conv3d route {what}: {len(picked)} rows, {tot['ms']:.3f} ms (the "
-              f"channel pads {tot['pad_ms']:.3f} of it), plain "
+              f"channel pads {tot['pad_ms']:.3f} and the TF32 splits {tot['split_ms']:.3f} of "
+              f"it), plain "
               f"{tot['plain_ms']:.3f} ms, F.conv3d {tot['library_ms']:.3f} ms, bound "
               f"{tot['bound_ms']:.3f} ms ({', '.join(sorted({r['route'] for r in picked}))})")
+    # float32: the same rows against F.conv3d in float32 with TF32 off
+    f32 = [next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == "float32"
+                and r["shape"] == list(v) + [cin] and r["cout"] == cout)
+           for v, cin, cout in dict.fromkeys(main9 + main_dx + fwd + dx + sr_fwd + sr_dx)]
+    slower = sorted({(tuple(r["shape"]), r["cout"], round(r["ms"], 4), round(r["library_ms"], 4))
+                     for r in f32 if r["ms"] > r["library_ms"]})
+    print(f"[kernels] conv3d float32 rows of the main path, the templates and super-resolution "
+          f"slower than F.conv3d (shape, Cout, ms, F.conv3d ms): {slower if slower else 'none'}")
     return sums
 
 
@@ -747,12 +802,37 @@ def _pad_row(out, x):
     return out.rows[-1]["ms"]
 
 
+def _split_row(out, x):
+    """The 3xTF32 route's split of float32 ``x`` (``split_x``) against
+    ``tf32_split`` and ``F.pad``, bit-equal with the zero lanes, over
+    NaN-filled memory as for the pad. Bound by its bytes: x read once, the
+    pair written once; no PyTorch call computes TF32's rounding. Returns its
+    ms."""
+    import torch
+    import torch.nn.functional as F
+
+    from biapy_tpu_torch.ops.kernels.conv3d import split_x, tf32_split
+
+    c = x.shape[-1]
+    cp = -(-c // 4) * 4
+    poison = torch.full((2,) + x.shape[:-1] + (cp,), float("nan"), device=x.device)
+    del poison
+    got = torch.stack(split_x(x))
+
+    def plain():
+        return torch.stack([F.pad(t, (0, cp - c)) for t in tf32_split(x)])
+    out.add("tf32_split", x.dtype, tuple(x.shape), got, plain(), 0.0, lambda: split_x(x), plain,
+            None, None, nbytes=(x.numel() + got.numel()) * 4, cp=cp)
+    return out.rows[-1]["ms"]
+
+
 def conv_rows(out, rand, g, dev, classification_only=False):
     """conv3d against its plain version: every main-path forward and dx shape
-    and the odd shapes, and the classification template's, in both dtypes,
-    and the U-Net variants' and the 3D templates' forward and dx convs
-    (their runs train and serve in bf16) in bf16; each row with the route it
-    took. ``classification_only``: the classification template's and the
+    and the odd shapes, the classification template's and the 3D templates'
+    forward and dx convs, in both dtypes, the U-Net variants' (whose runs
+    train and serve in bf16) in bf16 and the super-resolution template's
+    (which runs in float32) in float32; each row with the route it took.
+    ``classification_only``: the classification template's and the
     variants' rows alone."""
     import torch
     import torch.nn.functional as F
@@ -770,11 +850,15 @@ def conv_rows(out, rand, g, dev, classification_only=False):
     tpl_fwd, tpl_dx = _template_conv_rows()
     tpl_shapes = [r for r in dict.fromkeys(tpl_fwd + tpl_dx)
                   if r not in cls_shapes and r not in variant_shapes]
-    pad_ms = {}  # x's shape -> its channel pad's ms
+    tpl32_shapes = [r for r in dict.fromkeys(tpl_fwd + tpl_dx) if r not in cls_shapes]
+    sr_shapes = list(dict.fromkeys(sum(_sr_conv_rows(), [])))
+    pad_ms, split_ms = {}, {}  # x's shape -> its channel pad's, its TF32 split's ms
     for dt in (torch.bfloat16, torch.float32):
         todo = ([] if classification_only else shapes + ODD_CONVS) + cls_shapes
         if dt == torch.bfloat16:
             todo = todo + variant_shapes + ([] if classification_only else tpl_shapes)
+        elif not classification_only:
+            todo = todo + tpl32_shapes + sr_shapes
         for vol, cin, cout in todo:
             shape = vol + (cin,)
             x = rand(shape, dt)
@@ -788,6 +872,11 @@ def conv_rows(out, rand, g, dev, classification_only=False):
                 if shape not in pad_ms:
                     pad_ms[shape] = _pad_row(out, x)
                 extra["pad_ms"] = pad_ms[shape]
+            if extra["route"] == "tf32x3":
+                # x's TF32 pair, a part of the row's time
+                if shape not in split_ms:
+                    split_ms[shape] = _split_row(out, x)
+                extra["split_ms"] = split_ms[shape]
             out.add("conv3d", dt, shape, conv3d_fwd(x, w), conv3d_plain(x, w), tols[dt],
                     lambda: conv3d_fwd(x, w), lambda: conv3d_plain(x, w),
                     lambda: F.conv3d(xc, wc, padding=1), "F.conv3d",
@@ -806,6 +895,16 @@ def conv_rows(out, rand, g, dev, classification_only=False):
     if not best["tflops"] > TENSOR_CORE_PROOF_TFLOPS or best["route"] != "wgmma":
         raise AssertionError(f"no main-path bf16 conv3d row above {TENSOR_CORE_PROOF_TFLOPS} "
                              f"TFLOP/s: best {best}")
+    # float32 (effective: the float32 conv's flops, not the three passes')
+    main32 = sorted((r for r in out.rows if r["kernel"] == "conv3d" and r["dtype"] == "float32"
+                     and r["shape"][0] == 1 and r["route"] == "tf32x3"),
+                    key=lambda r: -r["tflops"])
+    print(f"[kernels] conv3d main-path float32 rows, TFLOP/s (proof line "
+          f"{TENSOR_CORE_PROOF_TFLOPS}): "
+          + ", ".join(f"{tuple(r['shape'])}->{r['cout']} {r['tflops']:.1f}" for r in main32))
+    if not main32[0]["tflops"] > TENSOR_CORE_PROOF_TFLOPS:
+        raise AssertionError(f"no main-path float32 conv3d row above {TENSOR_CORE_PROOF_TFLOPS} "
+                             f"TFLOP/s: best {main32[0]}")
 
 
 def phase_kernels(card, conv3d_only=False, classification_only=False, twod_only=False):
@@ -1479,6 +1578,7 @@ def phase_whole_vs_plain():
     import torch
 
     from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.ops.kernels import build
 
     cfg = _main_cfg()
     cfg["MODEL"]["FEATURE_MAPS"] = [8, 16, 32]
@@ -1487,6 +1587,7 @@ def phase_whole_vs_plain():
     cfg["TEST"] = {"ENABLE": True, "REDUCE_MEMORY": False, "OUTPUT_QUANT_UINT8": False}
     vol = np.random.default_rng(1).integers(0, 256, (40, 37, 45), dtype=np.uint8)
     preds = []
+    build.reset_launches()
     for dev in ("cuda:0", "cpu"):
         job = BiaPy(cfg, result_dir=str(OUT_DIR), name=f"chip_smoke_small_{dev[:3]}",
                     silent=True, check_data_paths=False, device=dev)
@@ -1494,6 +1595,10 @@ def phase_whole_vs_plain():
         job.workflow.prepare_model()  # seeded init: the same weights on both devices
         _random_bn_stats(job.workflow.model, seed=1)
         preds.append(job.predict(vol)[0]["pred"])
+    routes = dict(build.CONV3D_ROUTES)
+    if routes["stem"] * 9 != routes["tf32x3"] or not routes["tf32x3"] or routes["wgmma"]:
+        raise AssertionError(f"float32 small path: conv3d routes {routes}, want 9 tf32x3 per "
+                             "stem and no wgmma")
     diff = float(np.abs(preds[0] - preds[1]).max())
     tol = 1e-4  # float32 sums in other orders on the two devices
     print(f"[whole-vs-plain] fm 8/16/32, patch 32^3, volume (40, 37, 45), f32: "
@@ -1530,9 +1635,9 @@ def phase_whole_vs_plain_bf16():
         _random_bn_stats(job.workflow.model, seed=1)
         preds.append(np.asarray(job.predict(vol)[0]["pred"], dtype=np.float32))
     routes = dict(build.CONV3D_ROUTES)
-    if routes["stem"] * 9 != routes["wgmma"] or not routes["wgmma"] or routes["fma"]:
+    if routes["stem"] * 9 != routes["wgmma"] or not routes["wgmma"] or routes["tf32x3"]:
         raise AssertionError(f"bf16 small path: conv3d routes {routes}, want 9 wgmma per stem "
-                             "and no fma")
+                             "and no tf32x3")
     diff = np.abs(preds[0] - preds[1])
     worst, mean = float(diff.max()), float(diff.mean())
     # every layer rounds its activations to bf16 (2^-8 relative) and the two
@@ -1555,7 +1660,8 @@ def phase_whole_vs_plain_bf16():
 JOB_TRAIN_SHAPE, JOB_TEST_SHAPE, JOB_EPOCHS, JOB_BATCH = (256, 256, 256), (216, 216, 216), 2, 2
 # launches of one forward batch of the serving path (phase 4's per patch at
 # batch 1: the kernels take the whole batch in one launch)
-SERVE_LAUNCHES = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2, "pad_channels": 0}
+SERVE_LAUNCHES = {"conv3d": 10, "pool_max_folded": 2, "zd2s": 2, "pad_channels": 0,
+                  "tf32_split": 0}
 
 
 def _job_volume(g, shape, dev):
@@ -1652,6 +1758,8 @@ def phase_job(serve, train):
         # a rate at which twelve SGD updates move the loss
         cfg["TRAIN"].update(EPOCHS=JOB_EPOCHS, BATCH_SIZE=JOB_BATCH, LR=[0.01])
         job = BiaPy(cfg, result_dir=str(root / "results"), name="chip_job", silent=True)
+        job._build_workflow()
+        calls = _count_forwards(job.workflow)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
@@ -1670,6 +1778,9 @@ def phase_job(serve, train):
                     for k, v in train["by_batch"][1]["launches"].items()}
         per_fwd = {k: serve["launches"].get(k, 0) // 24 for k in per_step}  # 3 calls x 8 patches
         want = {k: per_step[k] * n_steps + per_fwd[k] * (n_val + n_test) for k in per_step}
+        # the tables are bf16's; the validation forwards run in float32, so
+        # their 3xTF32 launches split x: the rule's count over the forwards
+        want["tf32_split"] = _expected_launches(wf.model, calls)[0]["tf32_split"]
         if launches != want:
             raise AssertionError(f"job: launches {launches}, want {want} ({n_steps} train steps "
                                  f"x {per_step} + {n_val + n_test} forward batches x {per_fwd})")
@@ -2072,6 +2183,8 @@ def phase_augmented(serve, train):
         cfg["AUGMENTOR"] = dict(AUG_SET)
         cfg["TEST"].update(AUGMENTATION=True, AUGMENTATION_MODE="mean", AUGMENTATION_GROUP="full")
         job = BiaPy(cfg, result_dir=str(root / "results"), name="chip_aug", silent=True)
+        job._build_workflow()
+        calls = _count_forwards(job.workflow)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         build.reset_launches()
@@ -2091,6 +2204,8 @@ def phase_augmented(serve, train):
                     for k, v in train["by_batch"][1]["launches"].items()}
         per_fwd = {k: serve["launches"].get(k, 0) // 24 for k in per_step}  # 3 calls x 8 patches
         want = {k: per_step[k] * n_steps + per_fwd[k] * (n_val + n_tta) for k in per_step}
+        # as in phase 9: the float32 validation forwards' splits by the rule
+        want["tf32_split"] = _expected_launches(wf.model, calls)[0]["tf32_split"]
         if launches != want:
             raise AssertionError(f"augmented job: launches {launches}, want {want} ({n_steps} "
                                  f"steps x {per_step} + {n_val} + {n_tta} forward batches x "
@@ -2318,7 +2433,7 @@ def phase_template():
               f"test IoU {wf.stats['iou']:.4f})")
         print(f"[template] launches {launches}; conv3d routes {routes} (as the rule names them "
               f"for the {len(calls)} forwards: bf16 on the tensor cores and the stem kernel, "
-              f"float32 on the CUDA cores); pool and zcat routes {shuffle_routes}")
+              f"float32 on the 3xTF32 kernel); pool and zcat routes {shuffle_routes}")
         return dict(seconds=secs, epoch_seconds=[h["time"] for h in hist], launches=launches,
                     conv3d_routes=routes, shuffle_routes=shuffle_routes, iou=wf.stats["iou"])
     finally:
@@ -3558,7 +3673,8 @@ def _model_launches(model, dtype, training):
         routes[conv3d_route(dtype, cin, cout)] += 1
     out = {"conv3d": len(k3), "pool_max_folded": pools, "zd2s": z_ups, "zcat": 0,
            "zcat_bwd": 0, "pool_max_folded_bwd": 0, "zs2d": 0,
-           "pad_channels": _channel_pads(dtype, launched)}
+           "pad_channels": _channel_pads(dtype, launched),
+           "tf32_split": routes["tf32x3"]}
     if training:
         out.update(conv3d=2 * len(k3) - 1, zcat=len(k3), pool_max_folded_bwd=pools, zs2d=z_ups)
     return out, routes
@@ -4091,7 +4207,7 @@ def _classifier_launches(model, dtype, training):
     for cin, cout in launched:
         routes[conv3d_route(dtype, cin, cout)] += 1
     out.update(conv3d=len(k3), zcat=len(k5), pool_max_folded=len(k5),
-               pad_channels=_channel_pads(dtype, launched))
+               pad_channels=_channel_pads(dtype, launched), tf32_split=routes["tf32x3"])
     if training:
         out.update(conv3d=2 * len(k3) - 1, zcat=len(k3) + len(k5), zcat_bwd=len(k5),
                    pool_max_folded_bwd=len(k5))
@@ -4901,7 +5017,8 @@ CLASS_N = 3
 # seeded weights the card lay farther than the reference (5.4e-5 against
 # 3.2e-5) until conv3d's float32 weight gradient went by groups of planes
 # and its float32 CUDA-core kernel summed each chunk of products apart
-# (``ops/kernels/conv3d.py``): 2.8e-6 since
+# (``ops/kernels/conv3d.py``): 2.8e-6 since; the 3xTF32 kernel that took
+# its place sums each ring step apart
 CLASS_STEP_TOLS = {"loss": 1e-6, "grad": 1.3e-4, "weight": 1e-6}
 # by chunks: the test volume's first 72 x 192 x 192 voxels, whole 12 x 96 x 96
 # cores of the detection template (patch 20 x 128 x 128, padding 4 x 16 x 16):
@@ -5739,7 +5856,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     channel pad (pad_channels), which no main path launches (their widths
     are on the 8 grid), one training step of the 3D templates at batch 2 and
     depth 40 (their forward and dx convs whose x has 28, 36 or 84
-    channels).
+    channels), and for the 3xTF32 route's split of x (tf32_split), which
+    only float32 runs launch, one 128^3 serving patch in float32.
     ``launches`` adds
     up the runs of the paths (serving, training, LARGER_IO, the job, the
     by-chunks runs, the augmented job with its TTA passes, the template),
@@ -5757,7 +5875,10 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     zcat_bwd entries ``classification_*`` sums: the classification
     template's (simple_cnn, batch 8, 32 x 64 x 64) four 3x3x3 convs (one
     forward batch), its two pools and pool backwards, its six zcats of a
-    training step (two at kz 5, four at kz 3) and its two zcat_bwds.
+    training step (two at kz 5, four at kz 3) and its two zcat_bwds; the
+    conv3d entry ``float32_*`` and ``float32_train_step_*`` sums: the same
+    serving patch and training step in float32 (the stem kernel and the
+    3xTF32 route).
     ``launches`` also counts phase 15's runs (the classification template
     with simple_cnn and vit, and the U-Net variants) and phase 16's (the 2D
     templates and the TEST.FULL_IMG predict: pool and pool backward only),
@@ -5769,11 +5890,11 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     phase 18's (StarDist, Cellpose and Omnipose: ``rays_flows``)."""
     import torch
 
-    def pick(name, wants):
+    def pick(name, wants, dtype="bfloat16"):
         picked = []
         for want in wants:
             for r in rows:
-                if (r["kernel"] == name and r["dtype"] == "bfloat16"
+                if (r["kernel"] == name and r["dtype"] == dtype
                         and all(r.get(k) == v for k, v in want.items())):
                     picked.append(r)
                     break
@@ -5807,6 +5928,8 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
         "pad_channels": [dict(shape=list(vol) + [cin]) for vol, cin, cout in
                          sum(_template_conv_rows(), [])
                          if _channel_pads(torch.bfloat16, [(cin, cout)])],
+        # the 3xTF32 route's split of x: one 128^3 serving patch in float32
+        "tf32_split": [dict(shape=[1, s, s, s, cin]) for s, cin, _ in MAIN_CONVS[1:]],
     }
     def per_template(depth, pools):
         return {
@@ -5852,9 +5975,14 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
         entry = dict(name=name, route="cuda", source=src, replaces=replaces,
                      launches=sum(by_path.values()), launches_by_path=by_path,
                      max_abs_err=max(r["max_abs_err"] for r in rows if r["kernel"] == name),
-                     **sums(pick(name, wants)))
+                     **sums(pick(name, wants,
+                                 "float32" if name == "tf32_split" else "bfloat16")))
         if name == "conv3d":
             entry.update(sums(pick(name, conv(MAIN_CONVS + DX_CONVS)), "train_step_"))
+            # float32 (the stem and the 3xTF32 route): a serving patch, a step
+            entry.update(sums(pick(name, conv(MAIN_CONVS), "float32"), "float32_"))
+            entry.update(sums(pick(name, conv(MAIN_CONVS + DX_CONVS), "float32"),
+                              "float32_train_step_"))
         for prefix, depth, pools in (("template_", TEMPLATE_DEPTH, TEMPLATE_POOLS),
                                      ("detection_", DETECTION_DEPTH, DETECTION_POOLS)):
             rows_at = per_template(depth, pools).get(name)

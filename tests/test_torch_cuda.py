@@ -14,7 +14,7 @@ import torch
 
 from biapy_tpu_torch.ops.kernels import build
 from biapy_tpu_torch.ops.kernels.conv3d import (conv3d, conv3d_dx, conv3d_fwd, conv3d_plain,
-                                                conv3d_route, pad_channels)
+                                                conv3d_route, pad_channels, split_x, tf32_split)
 from biapy_tpu_torch.ops.kernels.shuffle import (_launch_pool_bwd, pool_max_folded,
                                                  pool_max_folded_bwd,
                                                  pool_max_folded_bwd_plain, pool_max_folded_fwd,
@@ -61,7 +61,8 @@ def test_cuda_wrappers_count_launches_and_raise_on_bad_input():
     conv3d(x, w)
     pool_max_folded(x.view(4, 4, 4, 8), (2, 2, 2))
     zd2s(x.view(4, 4, 4, 8), 2)
-    assert build.LAUNCHES == {"conv3d": 1, "pad_channels": 0, "pool_max_folded": 1,
+    # float32: the conv's x split into its TF32 pair first
+    assert build.LAUNCHES == {"conv3d": 1, "pad_channels": 0, "tf32_split": 1, "pool_max_folded": 1,
                               "pool_max_folded_bwd": 0, "zd2s": 1, "zs2d": 0, "zcat": 0,
                               "zcat_bwd": 0}
     with pytest.raises(TypeError):
@@ -287,8 +288,10 @@ def test_cuda_functions_backward_match_plain_on_the_card():
     both(lambda x: pool_max_folded(x, (2, 2, 1)), (4, 6, 3, 5))
     both(lambda x: zd2s(x, 2), (3, 4, 5, 6))
     both(lambda x: zcat(x, 5, 3), (6, 3, 5, 2))
-    # conv3d: forward + dx; zcat: the conv's dw operand + zcat's own forward
-    assert build.LAUNCHES == {"conv3d": 2, "pad_channels": 0, "pool_max_folded": 1,
+    # conv3d: forward + dx, each splitting its float32 input; zcat: the conv's
+    # dw operand + zcat's own forward
+    assert build.LAUNCHES == {"conv3d": 2, "pad_channels": 0, "tf32_split": 2,
+                              "pool_max_folded": 1,
                               "pool_max_folded_bwd": 1, "zd2s": 1, "zs2d": 1, "zcat": 2,
                               "zcat_bwd": 1}
 
@@ -305,7 +308,7 @@ def test_cuda_conv3d_tensor_core_route_matches_plain_on_the_card():
     g = torch.Generator(device="cpu").manual_seed(4)
     dt = torch.bfloat16
     build.reset_launches()
-    want = {"wgmma": 0, "stem": 0, "fma": 0}
+    want = {"wgmma": 0, "stem": 0, "tf32x3": 0}
     for shape, cout in (((2, 5, 7, 9, 16), 8), ((2, 3, 19, 35, 48), 40), ((1, 4, 9, 17, 64), 264),
                         ((2, 13, 7, 9, 48), 32), ((1, 3, 10, 20, 64), 272),
                         ((2, 24, 30, 35, 16), 8), ((2, 24, 30, 35, 48), 32)):
@@ -338,14 +341,14 @@ def test_cuda_conv3d_odd_widths_on_every_route_match_plain_on_the_card(dtype):
     stems at Cin 1 and 3, Cout 28, 36, 12 and 1 (tiles wider than Cout, 8-
     and 2-byte stores), ragged volumes (one with bricks enough for the
     16 x 16 brick) and two images; each launch on the route the rule
-    names (bf16: tensor cores or stem; float32: CUDA cores or stem)."""
+    names (bf16: tensor cores or stem; float32: 3xTF32 or stem)."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     dev = torch.device("cuda:0")
     g = torch.Generator(device="cpu").manual_seed(11)
     tol = 1e-2 if dtype == torch.bfloat16 else 1e-4  # one bf16 ulp; float32 sum orders
     build.reset_launches()
-    want = {"wgmma": 0, "stem": 0, "fma": 0}
+    want = {"wgmma": 0, "stem": 0, "tf32x3": 0}
     pads = 0
     for shape, cout in (((2, 5, 7, 9, 28), 36), ((2, 3, 11, 6, 36), 28), ((1, 4, 9, 17, 84), 12),
                         ((2, 24, 30, 35, 28), 28), ((2, 24, 30, 35, 36), 36),
@@ -366,10 +369,12 @@ def test_cuda_conv3d_odd_widths_on_every_route_match_plain_on_the_card(dtype):
             assert err <= tol * max(1.0, ref.float().abs().max().item()), (shape, cout, err)
     torch.cuda.synchronize()
     # the dx of a conv to one channel is a stem too
-    assert want["stem"] == 6 and want["fma" if dtype == torch.float32 else "wgmma"] == 14
+    assert want["stem"] == 6 and want["tf32x3" if dtype == torch.float32 else "wgmma"] == 14
     assert build.CONV3D_ROUTES == want
-    # each tensor-core launch whose x has channels off the 8 grid pads them
+    # each tensor-core launch whose x has channels off the 8 grid pads them;
+    # each 3xTF32 launch splits its x
     assert pads == (14 if dtype == torch.bfloat16 else 0)
+    assert build.LAUNCHES["tf32_split"] == want["tf32x3"]
     assert build.LAUNCHES["pad_channels"] == pads
 
 
@@ -409,6 +414,68 @@ def test_cuda_pad_channels_matches_f_pad_with_zero_lanes_on_the_card():
         pad_channels(torch.zeros((1, 2, 2, 2, 3), device=dev))
 
 
+def test_cuda_tf32_split_matches_plain_with_zero_lanes_on_the_card():
+    """The 3xTF32 route's split of x against ``tf32_split`` and ``F.pad``,
+    bit-equal: the pad lanes of both halves zero even where their blocks
+    held NaN before, on the 16-byte and the one-element path (C off the 4
+    grid, or an x whose start is not 16-byte aligned); one launch a call;
+    other dtypes on the card are refused."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(14)
+    build.reset_launches()
+    launched = 0
+    for shape in ((2, 3, 5, 7, 1), (1, 4, 5, 6, 5), (2, 3, 4, 5, 12), (2, 5, 7, 9, 28),
+                  (1, 6, 11, 13, 36), (1, 4, 9, 17, 84), (1, 2, 3, 4, 6)):
+        c = shape[-1]
+        cp = -(-c // 4) * 4
+        for offset in (0, 1):
+            flat = torch.randn(torch.Size(shape).numel() + offset, generator=g) * 1e3
+            x = flat.to(dev)[offset:].view(shape)
+            assert x.is_contiguous() and (x.data_ptr() % 16 == 0) == (offset == 0)
+            poison = torch.full((2,) + shape[:4] + (cp,), float("nan"), device=dev)
+            del poison
+            hi, lo = split_x(x)
+            launched += 1
+            for got, want in zip((hi, lo), tf32_split(x)):
+                assert torch.equal(got, F.pad(want, (0, cp - c)))
+            assert build.LAUNCHES["tf32_split"] == launched
+    with pytest.raises(TypeError):
+        split_x(torch.zeros((1, 2, 2, 2, 4), device=dev, dtype=torch.float16))
+
+
+def test_cuda_conv3d_float32_pad_and_one_channel_on_the_card():
+    """The 3xTF32 route where x's channels need a pad (Cin 5: its TF32 pair
+    written at 8 channels, an 8-channel tail step alone) and at Cout 1 (a
+    tile of 8, one channel written with 4-byte stores), forward and dx,
+    against ``conv3d_plain`` at 1e-4 of scale; the routes and the splits
+    counted."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    dev = torch.device("cuda:0")
+    g = torch.Generator(device="cpu").manual_seed(13)
+    build.reset_launches()
+    for shape, cout in (((2, 6, 11, 13, 5), 12), ((2, 5, 7, 9, 28), 1), ((1, 4, 9, 17, 5), 1)):
+        cin = shape[-1]
+        x = torch.randn(shape, generator=g).to(dev)
+        w = (torch.randn((3, 3, 3, cin, cout), generator=g) / (27 * cin) ** 0.5).to(dev)
+        gy = torch.randn(shape[:4] + (cout,), generator=g).to(dev)
+        assert conv3d_route(torch.float32, cin, cout) == "tf32x3"
+        for got, ref in ((conv3d_fwd(x, w), conv3d_plain(x, w)),
+                         (conv3d_dx(gy, w),
+                          conv3d_plain(gy, w.flip(0, 1, 2).transpose(3, 4).contiguous()))):
+            assert got.dtype == torch.float32 and got.shape == ref.shape
+            err = (got - ref).abs().max().item()
+            assert err <= 1e-4 * max(1.0, ref.abs().max().item()), (shape, cout, err)
+    torch.cuda.synchronize()
+    # dx: 12 -> 5 on the 3xTF32 kernel, 1 -> 28 and 1 -> 5 on the stem kernel
+    assert build.CONV3D_ROUTES == {"wgmma": 0, "stem": 2, "tf32x3": 4}
+    assert build.LAUNCHES["tf32_split"] == 4 and build.LAUNCHES["pad_channels"] == 0
+
+
 def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
@@ -418,15 +485,15 @@ def test_cuda_conv3d_routes_are_counted_and_the_forward_and_dx_entries_agree():
     xb = torch.randn((1, 4, 8, 16, 32), generator=g).to(dev, torch.bfloat16)
     wb = (torch.randn((3, 3, 3, 32, 16), generator=g) * 0.05).to(dev, torch.bfloat16)
     conv3d_fwd(xb, wb)                  # bf16, 32 -> 16: tensor cores
-    conv3d_fwd(xb.float(), wb.float())  # float32: CUDA cores
+    conv3d_fwd(xb.float(), wb.float())  # float32: tensor cores, 3xTF32
     conv3d_fwd(xb[..., :1].contiguous(), wb[:, :, :, :1].contiguous())  # Cin = 1: the stem kernel
-    assert build.CONV3D_ROUTES == {"wgmma": 1, "stem": 1, "fma": 1}
+    assert build.CONV3D_ROUTES == {"wgmma": 1, "stem": 1, "tf32x3": 1}
     # dx through its own entry is the forward entry on the flipped, swapped weights
     gy = torch.randn((1, 4, 8, 16, 16), generator=g).to(dev, torch.bfloat16)
     a = conv3d_dx(gy, wb)
     b = conv3d_fwd(gy, wb.flip(0, 1, 2).transpose(3, 4).contiguous())
     assert torch.equal(a, b)
-    assert build.CONV3D_ROUTES == {"wgmma": 3, "stem": 1, "fma": 1}
+    assert build.CONV3D_ROUTES == {"wgmma": 3, "stem": 1, "tf32x3": 1}
     assert build.LAUNCHES["conv3d"] == 5
 
 
@@ -523,10 +590,10 @@ def test_float32_weight_gradient_in_groups_of_planes_on_the_card():
 
 
 def test_float32_conv_sums_chunks_apart_on_the_card():
-    """The CUDA-core conv3d in float32 (forward and input gradient) at Cin
-    112 (K = 3024 products a voxel) no farther from float64 than its plain
-    version's tap-by-tap sums, times 2.5: one chain of K additions lies about
-    an order of magnitude farther."""
+    """The 3xTF32 conv3d in float32 at Cin 112 (K = 3024 products a voxel)
+    no farther from float64 than its plain version's tap-by-tap sums, times
+    2.5: one chain of K additions lies about an order of magnitude farther,
+    and so would the tensor cores' own additions over all of K."""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA device")
     g = torch.Generator(device="cpu").manual_seed(7)
@@ -536,7 +603,7 @@ def test_float32_conv_sums_chunks_apart_on_the_card():
                                      w.double().permute(4, 3, 0, 1, 2), padding=1).movedim(1, -1)
     plain = conv3d_plain(x, w)
     dev = torch.device("cuda:0")
-    assert conv3d_route(torch.float32, 112, 24) == "fma"
+    assert conv3d_route(torch.float32, 112, 24) == "tf32x3"
     card = conv3d_fwd(x.to(dev), w.to(dev)).cpu()
     err_plain = (plain.double() - ref).abs().max().item()
     err_card = (card.double() - ref).abs().max().item()

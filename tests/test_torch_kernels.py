@@ -199,7 +199,7 @@ def test_cpu_tensors_take_plain_path_and_count_no_launch():
     assert torch.equal(zs2d(zd2s(x6, 3), 3), x6)  # inverse of each other
     assert torch.equal(zcat(x6, 3), zcat_plain(x6, 3))
     assert torch.equal(zcat_bwd(x6, 3), zcat_bwd_plain(x6, 3))
-    assert set(build.LAUNCHES) == {"conv3d", "pad_channels", "pool_max_folded",
+    assert set(build.LAUNCHES) == {"conv3d", "pad_channels", "tf32_split", "pool_max_folded",
                                    "pool_max_folded_bwd", "zd2s", "zs2d", "zcat", "zcat_bwd"}
     assert all(n == 0 for n in build.LAUNCHES.values())
     assert build.SHUFFLE_ROUTES == {k: {"channels16": 0, "rows16": 0, "scalar": 0}

@@ -3,17 +3,22 @@ convs of the 3D instance template's resunet (28/36/48/64, patch 40 x 128 x
 128, batch 2; the semantic, detection and self-supervised templates share
 its widths).
 
-``--dtype float32`` (the default): the CUDA-core kernel's forward at every
-conv, the weight gradient at the same shapes, and one float32 forward and
-backward of the whole model. ``--dtype bfloat16``: the forward at every
+``--dtype float32`` (the default): the forward at every conv, the weight
+gradient at the same shapes, the input gradient of every conv but the
+stem's, the main path's other 9 forward convs and their input gradients,
+the 3D super-resolution template's 10 forward convs and 9 input gradients
+(unet 16/32/64 at its 8 x 128 x 128 patch, batch 4:
+``chip_smoke._sr_conv_rows``), and one float32 forward and backward of the
+whole model. ``--dtype bfloat16``: the forward at every
 conv, the input gradient of every conv but the stem's, the stems of
 the main path (1 -> 32 at 1 x 128^3), the templates (1 -> 28 at 2 x 40 x
 128^2) and the classification template (1 -> 32 at 8 x 32 x 64 x 64), and
 the main path's other 9 forward convs and their input gradients (a 128^3
 patch through resunet 32/64/128, ``chip_smoke.MAIN_CONVS``);
 each row with the route it took, ``F.conv3d``'s time on the same inputs
-(for dx: on the flipped, IO-swapped weights) and the bound as
-``chip_smoke.py::bound`` computes it. ``--cut`` (bfloat16, trees with a stem
+(for dx: on the flipped, IO-swapped weights; float32 with TF32 off) and
+the bound as ``chip_smoke.py::bound`` computes it for the route (the
+3xTF32 route: three TF32 products a float32 one). ``--cut`` (bfloat16, trees with a stem
 route) also times the stem kernel and the tensor-core kernel, each through
 its C entry, side by side at Cin 1-8 at 1 x 128^3 -> 32: where the stem route
 should end. Run it on two trees in one call to compare them on the same
@@ -60,7 +65,7 @@ def _one_tree(tree: Path, reps: int, dtype_name: str, cut: bool) -> dict:
 
     sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
     # chip_smoke imports only the standard library at import
-    from chip_smoke import DX_CONVS, MAIN_CONVS, bound, device_ms
+    from chip_smoke import DX_CONVS, MAIN_CONVS, _sr_conv_rows, bound, device_ms
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -105,26 +110,43 @@ def _one_tree(tree: Path, reps: int, dtype_name: str, cut: bool) -> dict:
     def conv_row(kind, xi, wi, run):
         """``run`` computes the row's conv of ``xi``: the forward with ``wi``,
         or (dx) the conv with ``wi`` flipped and IO-swapped."""
-        wl = wi.flip(0, 1, 2).transpose(3, 4) if kind == "dx" else wi
+        wl = wi.flip(0, 1, 2).transpose(3, 4) if kind.endswith("dx") else wi
         cin, cout = wl.shape[3], wl.shape[4]
         xc = xi.permute(0, 4, 1, 2, 3)  # NCDHW view in channels_last_3d strides
         wc = wl.permute(4, 3, 0, 1, 2).contiguous(memory_format=torch.channels_last_3d)
         m = xi.numel() // cin
+        route = kconv.conv3d_route(dt, cin, cout)
         b_ms, b_by = bound(2 * 27 * cin * cout * m,
                            (xi.numel() + wi.numel() + m * cout) * xi.element_size(), dtype_name,
-                           card)
-        rows.append(dict(kind=kind, x=list(xi.shape), cout=cout,
-                         route=kconv.conv3d_route(dt, cin, cout), ms=dev_ms(run),
+                           card, route)
+        rows.append(dict(kind=kind, x=list(xi.shape), cout=cout, route=route, ms=dev_ms(run),
                          library_ms=dev_ms(lambda: F.conv3d(xc, wc, padding=1)),
                          bound_ms=b_ms, bound_by=b_by))
         return rows[-1]
 
+    def fwd_dx_rows(kind, vol, cin, cout, dx=True):
+        """The forward row of one conv and (``dx``) its input gradient's."""
+        xi, wi = operands(vol, cin, cout)
+        conv_row(kind, xi, wi, lambda: kconv.conv3d_fwd(xi, wi))
+        if dx:
+            gy = torch.randn(vol + (cout,), generator=g).to("cuda:0", dt)
+            conv_row(kind + "_dx", gy, wi, lambda: kconv.conv3d_dx(gy, wi))
+
     if dtype_name == "float32":
-        for xs, ws in shapes:
+        for i, (xs, ws) in enumerate(shapes):
             xi, wi = operands(xs[:4], ws[3], ws[4])
             gy = torch.randn(xs[:4] + (ws[4],), generator=g).to("cuda:0")
             conv_row("fwd", xi, wi, lambda: kconv.conv3d_fwd(xi, wi))["wgrad_ms"] = \
                 dev_ms(lambda: kconv.conv3d_wgrad(xi, gy))
+            if i:  # the stem's input needs no gradient
+                conv_row("dx", gy, wi, lambda: kconv.conv3d_dx(gy, wi))
+            del xi, wi, gy
+        for s, cin, cout in MAIN_CONVS[1:]:
+            fwd_dx_rows("main", (1, s, s, s), cin, cout)
+        sr_fwd, _ = _sr_conv_rows()
+        for i, (vol, cin, cout) in enumerate(sr_fwd):
+            fwd_dx_rows("sr", vol, cin, cout, dx=i > 0)
+        torch.cuda.empty_cache()
 
         def step():
             out = model(x)
@@ -140,11 +162,12 @@ def _one_tree(tree: Path, reps: int, dtype_name: str, cut: bool) -> dict:
             b.synchronize()
             if i >= 2:
                 times.append(a.elapsed_time(b))
+        sums = {f"{pre}{kind}_ms": sum(r[key] for r in rows if r["kind"] == kind)
+                for kind in ("fwd", "dx", "main", "main_dx", "sr", "sr_dx")
+                for pre, key in (("", "ms"), ("library_", "library_ms"), ("bound_", "bound_ms"))}
         return dict(tree=str(tree), dtype=dtype_name, card=card, patch=patch,
-                    convs=len(rows), fwd_ms=sum(r["ms"] for r in rows),
-                    wgrad_ms=sum(r["wgrad_ms"] for r in rows),
-                    library_fwd_ms=sum(r["library_ms"] for r in rows),
-                    step_ms=statistics.median(times), rows=rows)
+                    wgrad_ms=sum(r["wgrad_ms"] for r in rows if r["kind"] == "fwd"),
+                    step_ms=statistics.median(times), rows=rows, **sums)
 
     for i, (xs, ws) in enumerate(shapes):
         xi, wi = operands(xs[:4], ws[3], ws[4])
@@ -237,18 +260,27 @@ def main():
     if args.out:
         args.out.write_text("\n".join([json.dumps({"card": smi})]
                                       + [json.dumps(r) for r in lines]) + "\n")
-    if args.dtype == "float32":
-        print(f"{'tree':40s} {'fwd ms':>9s} {'wgrad ms':>9s} {'step ms':>9s}  ({smi})")
-        for r in lines:
-            print(f"{r['tree'][-40:]:40s} {r['fwd_ms']:9.3f} {r['wgrad_ms']:9.3f} "
-                  f"{r['step_ms']:9.3f}")
-        return
     for r in lines:
         print(f"== {r['tree']} ({smi}; ms, F.conv3d ms, bound ms)")
         for row in r["rows"]:
-            print(f"  {row['kind']:4s} {str(tuple(row['x'])):24s} -> {row['cout']:3d} "
-                  f"{row['route']:5s} {row['ms']:8.4f} {row['library_ms']:8.4f} "
+            print(f"  {row['kind']:7s} {str(tuple(row['x'])):24s} -> {row['cout']:3d} "
+                  f"{row['route']:6s} {row['ms']:8.4f} {row['library_ms']:8.4f} "
                   f"{row['bound_ms']:8.4f} ({row['bound_by']})")
+    if args.dtype == "float32":
+        kinds = ("fwd", "dx", "main", "main_dx", "sr", "sr_dx")
+        print(f"sums of the rows by kind (ms; fwd / dx: the instance template's 14 forward "
+              f"convs and 13 input gradients; main: the main path's 9 after the stem; sr: the "
+              f"super-resolution template's; {smi})")
+        print(f"{'tree':40s} " + " ".join(f"{k:>9s}" for k in kinds)
+              + f" {'wgrad':>9s} {'step':>9s}")
+        for r in lines:
+            print(f"{r['tree'][-40:]:40s} " + " ".join(f"{r[k + '_ms']:9.3f}" for k in kinds)
+                  + f" {r['wgrad_ms']:9.3f} {r['step_ms']:9.3f}")
+        for r in lines:  # F.conv3d's and the bound by the tree's routes
+            for pre in ("library_", "bound_"):
+                print(f"{pre[:-1] + ' ' + r['tree'][-32:]:40s} "
+                      + " ".join(f"{r[pre + k + '_ms']:9.3f}" for k in kinds))
+        return
         for row in r["cut"]:
             print(f"  cut Cin {row['cin']} (rule: {row['rule']}): stem {row['stem_ms']:.4f} ms, "
                   f"wgmma {row['wgmma_ms']:.4f} ms")
