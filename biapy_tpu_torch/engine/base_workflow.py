@@ -97,9 +97,11 @@ def flat_outputs(out) -> torch.Tensor:
     """A model's outputs as one channels-last tensor: a class head's
     channels (``{"pred": ..., "class": ...}``) travel after the others, so
     that the stitch, test-time augmentation and the by-chunks store see one
-    array (the JAX package's ``_predict_fn``)."""
+    array (the JAX package's ``_predict_fn``); a classifier's
+    ``{"class": logits}`` is its logits."""
     if isinstance(out, dict):
-        return torch.cat([out["pred"], out["class"]], dim=-1) if "class" in out else out["pred"]
+        parts = [out[k] for k in ("pred", "class") if k in out]
+        return parts[0] if len(parts) == 1 else torch.cat(parts, dim=-1)
     return out
 
 

@@ -9,8 +9,10 @@ stopping; ``val_stats``), and a test pass of one image per call with
 per-image normalisation, ``predictions.csv`` (``filename,class``), the
 accuracy and, in verbose mode, the confusion matrix. Test-time outputs are
 the softmax probabilities. The port runs the classifiers ``simple_cnn``
-and ``vit`` in 3D and 2D; the other classifiers raise naming the ROADMAP
-item.
+and ``vit`` in 3D and 2D and ``efficientnet_b0``-``b7`` in 2D (whose head
+returns ``{"class": logits}``: the loss, the metrics and inference read
+the logits from either form); the other classifiers raise naming the
+ROADMAP item.
 
 With DATA.VAL.CROSS_VAL the fold is the contiguous slice of the shuffled
 indices (``data_manipulation.py::split_train_val``), as in the JAX
@@ -36,6 +38,7 @@ from biapy_tpu_torch.engine import metrics as M
 from biapy_tpu_torch.engine.base_workflow import Base_Workflow, _not_ported
 from biapy_tpu_torch.engine.train_engine import (make_eval_step, make_train_step,
                                                   resolve_mixed_precision)
+from biapy_tpu_torch.models import EFFICIENTNETS
 from biapy_tpu_torch.utils.callbacks import EarlyStopping
 from biapy_tpu_torch.utils.misc import JsonLogger
 
@@ -102,10 +105,17 @@ class _ClassifDataset(PairDataset):
                 "y": np.asarray([f.class_num], dtype=np.float32)}
 
 
+def _logits(out):
+    """The logits of a classifier that returns them (simple_cnn, vit) or a
+    ``{"class": logits}`` dict (EfficientNet), as the JAX workflow reads
+    either."""
+    return out["class"] if isinstance(out, dict) else out
+
+
 class Classification_Workflow(Base_Workflow):
     def define_activations_and_channels(self):
         arch = str(self.cfg.MODEL.ARCHITECTURE).lower()
-        if arch not in ("simple_cnn", "vit"):
+        if arch not in ("simple_cnn", "vit") + EFFICIENTNETS:
             raise _not_ported(f"the classifier '{arch}'", "queue 1 item 10, rest of the zoo")
         self.n_classes = max(int(self.cfg.DATA.N_CLASSES), 2)
         self.output_channels = [self.n_classes]
@@ -115,11 +125,11 @@ class Classification_Workflow(Base_Workflow):
         self.output_channel_info = ["class"]
 
     def define_metrics(self):
-        self.loss = M.softmax_ce_with_logits
-        self.train_metrics = {"accuracy": M.accuracy_metric}
+        self.loss = lambda out, y: M.softmax_ce_with_logits(_logits(out), y)
+        self.train_metrics = {"accuracy": lambda out, y: M.accuracy_metric(_logits(out), y)}
         if self.n_classes > 5:
             self.train_metrics["top_5_accuracy"] = lambda out, y: M.top_k_accuracy(
-                out, y.to(torch.int64), 5)
+                _logits(out), y.to(torch.int64), 5)
 
     # -- data -----------------------------------------------------------------
     def _build_loaders(self):

@@ -3,10 +3,13 @@
 Counterpart of ``biapy_tpu/models/__init__.py::build_model`` for the U-Net
 family in 3D and 2D (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
 ``attention_unet``), with the separated decoders of IMAGE_TO_IMAGE,
-INSTANCE_SEG and DETECTION and the super-resolution upsampling, and for the
-classifiers ``simple_cnn`` and ``vit`` in 3D and 2D. Other architectures
-are not ported yet and raise ``NotImplementedError`` naming the ROADMAP
-item.
+INSTANCE_SEG and DETECTION and the super-resolution upsampling, for the
+super-resolution family (``edsr``, ``rcan``, ``wdsr``, ``dfcan``; the
+configuration check allows ``rcan`` and ``dfcan`` in 3D), for the
+classifiers ``simple_cnn`` and ``vit`` in 3D and 2D and for
+``efficientnet_b0``-``b7`` (2D). Other architectures, ``efficientnet_v2*``
+among them, are not ported yet and raise ``NotImplementedError`` naming the
+ROADMAP item.
 
 Returns ``(module, model_build_kwargs)`` like the JAX factory.
 """
@@ -19,6 +22,8 @@ import torch
 
 UNET_FAMILY = ("unet", "resunet", "resunet++", "seunet", "resunet_se", "attention_unet")
 CLASSIFIERS = ("simple_cnn", "vit")
+SR_FAMILY = ("edsr", "rcan", "wdsr", "dfcan")
+EFFICIENTNETS = tuple(f"efficientnet_b{i}" for i in range(8))
 
 # ViT presets selectable by MODEL.VIT_MODEL ("custom" takes the MODEL.VIT_*
 # values); the JAX package's table but for the 2D-only sam3_vit
@@ -72,10 +77,40 @@ def build_model(cfg, output_channels: List[int], output_channel_info: List[str],
         kwargs["n_classes"] = int(output_channels[0]) if output_channels else int(
             cfg.DATA.N_CLASSES)
         return ViT(**kwargs, gen=gen), {"class": "ViT", **kwargs}
+    if arch in SR_FAMILY:
+        from biapy_tpu_torch.models import sr_models
+
+        # the JAX factory's rule: the last axis' factor, x2 on every axis when
+        # PROBLEM.SUPER_RESOLUTION.UPSCALING is empty (any workflow but SR)
+        upscaling = tuple(cfg.PROBLEM.SUPER_RESOLUTION.UPSCALING) or (2,) * ndim
+        kwargs = dict(ndim=ndim, scale=int(upscaling[-1]),
+                      num_channels=int(cfg.DATA.PATCH_SIZE[-1]),
+                      out_channels=(int(output_channels[0]) if output_channels
+                                    else int(cfg.DATA.PATCH_SIZE[-1])))
+        cls = {"edsr": sr_models.EDSR, "rcan": sr_models.RCAN,
+               "wdsr": sr_models.WDSR, "dfcan": sr_models.DFCAN}[arch]
+        if arch == "rcan":
+            kwargs.update(filters=int(cfg.MODEL.RCAN_CONV_FILTERS),
+                          num_rg=int(cfg.MODEL.RCAN_RG_BLOCK_NUM),
+                          num_rcab=int(cfg.MODEL.RCAN_RCAB_BLOCK_NUM),
+                          reduction=int(cfg.MODEL.RCAN_REDUCTION_RATIO),
+                          upscaling_layer=bool(cfg.MODEL.RCAN_UPSCALING_LAYER))
+        return cls(**kwargs, gen=gen), {"class": cls.__name__, **kwargs}
+    if arch.startswith("efficientnet_v2"):
+        # dispatched ahead of the b0-b7 family, as in the JAX factory
+        raise NotImplementedError(
+            f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 10, rest of the zoo)")
+    if arch in EFFICIENTNETS:
+        from biapy_tpu_torch.models.efficientnet import EfficientNet
+
+        kwargs = dict(variant=arch, n_classes=int(output_channels[0]))
+        return (EfficientNet(**kwargs, in_channels=int(cfg.DATA.PATCH_SIZE[-1]), gen=gen),
+                {"class": "EfficientNet", **kwargs})
     if arch not in UNET_FAMILY or arch == "resunet++":
         raise NotImplementedError(
             f"architecture '{arch}' is not ported yet (ROADMAP queue 1 item 10, rest of the zoo); "
-            "the port builds the U-Net family, simple_cnn and vit")
+            "the port builds the U-Net family, the super-resolution family (edsr, rcan, wdsr, "
+            "dfcan), simple_cnn, vit and efficientnet_b0-b7")
     separated_decoders = False
     divide = False
     for wf, node in (("IMAGE_TO_IMAGE", cfg.PROBLEM.IMAGE_TO_IMAGE),

@@ -1,9 +1,12 @@
-"""Building blocks of the U-Net family.
+"""Building blocks of the U-Net family and of the models beside it.
 
 Counterpart of ``biapy_tpu/models/blocks.py`` (Conv, ConvTranspose, Dense,
 get_activation, Norm, SqExBlock, ConvBlock, ResConvBlock, AttentionGate,
-UpLayer, UpBlock, max_pool), with the options the five U-Net variants use
-(``unet``, ``resunet``, ``seunet``, ``resunet_se``, ``attention_unet``).
+UpLayer, UpBlock, max_pool, DropPath), with the options the five U-Net
+variants use (``unet``, ``resunet``, ``seunet``, ``resunet_se``,
+``attention_unet``); ``StridedConv`` (EfficientNet's strided, depthwise and
+bias-free 2D convs) and ``WeightNorm`` (Flax's ``nn.WeightNorm`` around a
+``Conv``, WDSR) serve the super-resolution family and EfficientNet.
 ``nn.Module.train()`` / ``eval()`` select what Flax's ``train`` flag
 selects: batch statistics and their running update in BatchNorm, and
 dropout. Every op is differentiable (the kernels through their
@@ -93,6 +96,90 @@ class Conv(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         return conv_same(x, self.kernel.to(x.dtype)) + self.bias.to(x.dtype)
+
+
+def same_pads(n: int, k: int, s: int) -> Tuple[int, int]:
+    """XLA's SAME padding of one axis of size ``n`` for a ``k``-wide window
+    at stride ``s``: ``max((ceil(n / s) - 1) * s + k - n, 0)`` in all, the
+    odd voxel after (at stride 2 on an even size: (0, 1) for k 3, (1, 2) for
+    k 5, where ``padding=k // 2`` would pad (1, 1) and (2, 2))."""
+    total = max((-(-n // s) - 1) * s + k - n, 0)
+    return total // 2, total - total // 2
+
+
+class StridedConv(nn.Module):
+    """Flax ``Conv`` counterpart in 2D with SAME padding and the options
+    the U-Net family's ``Conv`` leaves out: ``strides``, ``feature_group_count``
+    (``groups``, depthwise at ``groups`` = Cin = Cout) and ``use_bias``.
+    ``kernel`` ``ks + (Cin // groups, Cout)``. A 1x1 conv at stride 1 and
+    one group is a ``torch.matmul``, as in ``ops/conv3d.py``; any other is
+    a PyTorch convolution (cuDNN, float32 without TF32) after XLA's SAME
+    padding (``same_pads``), as the JAX package leaves such a conv to XLA."""
+
+    def __init__(self, in_features: int, features: int, kernel_size: Sequence[int],
+                 strides: IntOrTuple = 1, groups: int = 1, use_bias: bool = True,
+                 gen: Optional[torch.Generator] = None):
+        super().__init__()
+        self.ks = tuple(kernel_size)
+        if len(self.ks) != 2:
+            raise ValueError(f"StridedConv: want a 2D kernel, got {self.ks}")
+        self.strides = _expand(strides, 2)
+        self.groups = int(groups)
+        self.kernel = nn.Parameter(xavier_uniform_(
+            torch.empty(self.ks + (in_features // self.groups, features)), gen))
+        if use_bias:
+            self.bias = nn.Parameter(torch.zeros(features))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w = self.kernel.to(x.dtype)
+        if all(k == 1 for k in self.ks) and all(s == 1 for s in self.strides) \
+                and self.groups == 1:
+            y = torch.matmul(x, w.reshape(w.shape[-2], w.shape[-1]))
+        else:
+            pads = [same_pads(int(n), k, s)
+                    for n, k, s in zip(x.shape[1:3], self.ks, self.strides)]
+            flat = [p for lo_hi in reversed(pads) for p in lo_hi]
+            xc = F.pad(x.movedim(-1, 1), flat)
+            wc = w.permute(3, 2, 0, 1)  # (ky, kx, I, O) -> (O, I, ky, kx)
+            with torch.backends.cudnn.flags(enabled=True, allow_tf32=False):
+                y = F.conv2d(xc, wc, stride=self.strides, groups=self.groups)
+            y = y.movedim(1, -1).contiguous()
+        return y if self.bias is None else y + self.bias.to(y.dtype)
+
+
+class WeightNorm(nn.Module):
+    """Flax ``nn.WeightNorm`` around a ``Conv`` (default ``feature_axes=-1``,
+    epsilon 1e-12): the conv runs with the kernel
+    ``w * rsqrt(sum(w^2 over every axis but the last) + 1e-12) * scale``
+    (Flax's ``_l2_normalize``, in float32, then cast to the input's dtype),
+    one learnable scale a feature; the bias is not normalised.
+
+    As in Flax, the conv stays its parent's child (``Conv_<i>``, with its
+    ``kernel`` and ``bias``) and this module holds the scale alone, under
+    Flax's leaf name ``"Conv_<i>/kernel/scale"``: one key with slashes in
+    it, which ``flax_import`` and the checkpoint writer carry whole, since
+    the port's dotted parameter name ``WeightNorm_<i>.Conv_<i>/kernel/scale``
+    reads as the Flax path ``WeightNorm_<i>/Conv_<i>/kernel/scale``."""
+
+    EPS = 1e-12
+
+    def __init__(self, conv: Conv, conv_name: str, scale_init: float = 1.0):
+        super().__init__()
+        self.conv = [conv]  # a reference, kept out of the registry
+        self.key = f"{conv_name}/kernel/scale"
+        self.register_parameter(self.key, nn.Parameter(
+            torch.full((conv.kernel.shape[-1],), float(scale_init))))
+
+    def normalized_kernel(self) -> torch.Tensor:
+        w = self.conv[0].kernel
+        ss = (w * w).sum(dim=tuple(range(w.dim() - 1)), keepdim=True)
+        return w * torch.rsqrt(ss + self.EPS) * self._parameters[self.key]
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        conv = self.conv[0]
+        return conv_same(x, self.normalized_kernel().to(x.dtype)) + conv.bias.to(x.dtype)
 
 
 class Dense(nn.Module):
@@ -215,6 +302,25 @@ class Dropout(nn.Module):
             return torch.zeros_like(x)
         keep = 1.0 - self.rate
         mask = torch.rand(x.shape, device=x.device, generator=_dropout_generator) < keep
+        return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+class DropPath(nn.Module):
+    """Stochastic depth (``biapy_tpu/models/blocks.py::DropPath``): in
+    training each sample's branch is kept with probability ``1 - rate`` and
+    scaled by ``1 / (1 - rate)``, its draw from the ``dropout_generator``;
+    the identity in eval or at rate 0."""
+
+    def __init__(self, rate: float = 0.0):
+        super().__init__()
+        self.rate = float(rate)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training or self.rate == 0.0:
+            return x
+        keep = 1.0 - self.rate
+        shape = (x.shape[0],) + (1,) * (x.dim() - 1)
+        mask = torch.rand(shape, device=x.device, generator=_dropout_generator) < keep
         return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype, device=x.device))
 
 

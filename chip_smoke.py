@@ -30,7 +30,11 @@ Phases, in order; any failure ends the run with a nonzero exit code:
    bound (for the 3xTF32 route, three TF32 products a float32 one) and, for
    conv3d, the route; the same convs in float32, with the 3D templates' and
    the super-resolution template's forward and input gradients, and their
-   sums and rows slower than ``F.conv3d`` (float32, TF32 off), and the
+   sums and rows slower than ``F.conv3d`` (float32, TF32 off), phase 14
+   c's rcan and dfcan convs (stems 1 -> 16 and 1 -> 64, bodies, up-sampling
+   16 -> 128 and 64 -> 512, output convs 16 -> 1 and 64 -> 1 on the HR grid,
+   their input gradients) and zcats in both dtypes, each conv row against
+   ``F.conv3d`` and its bound, and the
    3xTF32 route's split of x bit-equal to its plain version; fails unless
    a main-path conv3d row runs above the CUDA cores' 67 TFLOP/s in bf16 and
    in float32;
@@ -155,7 +159,19 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     best checkpoint on a crop of its test volume, card against CPU (float32
     within 1e-4; bf16 under the template's REDUCE_MEMORY no farther from
     float32 than the CPU's), and one float32 training step card against CPU
-    (phase 8's rule);
+    (phase 8's rule); (c) the super-resolution template with its comment's
+    ``rcan`` and ``dfcan`` at full width and depth and UPSCALING (2, 2, 2)
+    (its own (1, 2, 2) fails at the first step's loss in both packages:
+    ROADMAP section 3), RANDOM_ROT off, on seeded LR volumes of 16 x 256 x
+    256 with HR targets twice them on every axis, through ``run_job``:
+    seconds, PSNR and SSIM, launches by conv3d and zcat route against the
+    counts read off the model (DFCAN's spectrum makes float32 of all after
+    it), the best checkpoint card against CPU on an 8 x 128 x 128 crop
+    (float32 within 1e-4 of the output's scale: rcan's outputs lie far
+    above 1) and one float32 training step card against CPU (dfcan from
+    the best checkpoint at phase 8's rule; rcan from its seeded weights at
+    twice the JAX package's own float32 distance from float64,
+    ``RCAN_STEP_TOLS``);
 15. 3D classification and the U-Net variants: (a)
     ``templates/classification/3d_classification.yaml`` as it is but for its
     data (seeded uint8 TIFFs in three class folders that differ in texture
@@ -182,19 +198,26 @@ Phases, in order; any failure ends the run with a nonzero exit code:
     under ``chiprun_out/chip_smoke_2d/``, deleted at the end: disks on a
     jittered grid with their masks or labels, Gaussian blobs with CSV
     points, smooth structures in noise and their inverted blur) and EPOCHS
-    2, then ``2d_super-resolution.yaml`` with ``unet`` (its comment's
-    alternative to rcan, ROADMAP item 10) and RANDOM_ROT off (ROADMAP
-    section 3) and ``2d_classification.yaml`` with ``simple_cnn`` (four
-    classes of 3-channel images in class folders, RESIZE to 224 x 224):
+    2, then ``2d_super-resolution.yaml`` with its ``rcan`` and RANDOM_ROT
+    off (ROADMAP section 3) and ``2d_classification.yaml`` with its
+    ``efficientnet_b0`` (four classes of 3-channel images in class folders,
+    RESIZE to 224 x 224):
     run_job seconds, the loop's patches/s and the device's idle share over
     a profiled epoch, test Mpx/s, peak memory, the template's metric (IoU,
     matching F1, P/R/F1, PSNR/SSIM, accuracy: a record), launches by kernel
     and route against the counts read off the model (pool and pool
     backward only: no conv3d, zcat, zd2s or zs2d, none on ``scalar``); each
-    best checkpoint card against CPU (float32 within 1e-4; bf16 under the
-    template's REDUCE_MEMORY by phase 12 b's rule; the classifier on its
-    logits) and one float32 training step card against CPU (phase 8's rule;
-    simple_cnn at ``CLS_STEP_TOLS``, phase 15's); (b) one ``predict`` with
+    best checkpoint card against CPU (float32 within 1e-4, of scale for
+    rcan; bf16 under the template's REDUCE_MEMORY by phase 12 b's rule; the
+    classifier on its logits) and one float32 training step card against
+    CPU (phase 8's rule; rcan's from its seeded weights at
+    ``RCAN_STEP_TOLS``); the super-resolution template's edsr, wdsr, dfcan
+    and unet and the classification template's simple_cnn (the models this
+    phase ran before rcan and efficientnet_b0 were ported: unet and
+    simple_cnn) from seeded weights: a float32 forward at the template's patch card against
+    CPU within 1e-4 of scale, and for unet and simple_cnn one float32
+    training step card against CPU (phase 8's rule; simple_cnn at
+    ``CLS_STEP_TOLS``, phase 15's); (b) one ``predict`` with
     TEST.FULL_IMG from the semantic template's best checkpoint, card against
     CPU; (c) ``vit`` in 2D at the config's defaults: one float32 forward
     card against CPU and one bf16 step;
@@ -361,7 +384,9 @@ def _cls_rows(b=CLS_BATCH):
 # patch: unet 16-256 at 8 x 256^2 (semantic), resunet / unet 16-128 at 6 x
 # 256^2 (instance, detection), unet 16/32/64 at 16 x 64^2 (denoising), unet
 # 16-128 at 8 x 256^2 (image-to-image) and simple_cnn's two at 32 x 224^2
-# (classification); the super-resolution run's unet [16] pools nothing
+# (the classification template's comment's alternative: its own
+# efficientnet_b0 pools nothing, nor does the super-resolution template's
+# rcan or its unet [16])
 def _twod_pools(b, s, chans):
     return [((b, s >> i, s >> i, c), (1, 2, 2)) for i, c in enumerate(chans)]
 
@@ -714,6 +739,37 @@ def _sr_conv_rows():
     return fwd, [(v, cout, cin) for v, cin, cout in fwd[1:]]
 
 
+# phase 14 (c): the 3D super-resolution template with its comment's
+# alternatives, rcan (MODEL.RCAN_* defaults: 16 filters, 10 groups of 20
+# RCABs) and dfcan (64 filters, 4 groups of 4 FCABs), at UPSCALING (2, 2, 2),
+# full width and depth, at the template's batch and 8 x 128 x 128 LR patch
+SR3D_FILTERS = {"rcan": 16, "dfcan": 64}
+SR3D_BATCH, SR3D_PATCH = 4, (8, 128, 128)
+
+
+def _sr3d_rows(arch):
+    """``arch``'s 3x3x3 convs at phase 14 (c)'s batch and patch, each shape
+    once, as ((N, D, H, W), Cin, Cout): the stem, the body, the up-sampling
+    conv (to 8 x the filters) on the LR grid and the output conv on the HR
+    grid (twice the LR on every axis); their input gradients (all but the
+    stem's: the same kernel with Cin and Cout swapped); and the weight
+    gradients' zcats (kz 3) of each conv's input, (N x D, H, W, Cin)."""
+    f, b = SR3D_FILTERS[arch], SR3D_BATCH
+    lr, hr = (b,) + SR3D_PATCH, (b,) + tuple(2 * n for n in SR3D_PATCH)
+    fwd = [(lr, 1, f), (lr, f, f), (lr, f, 8 * f), (hr, f, 1)]
+    dx = [(v, cout, cin) for v, cin, cout in fwd[1:]]
+    zcats = [((v[0] * v[1],) + v[2:] + (cin,), 3, v[1]) for v, cin, _ in fwd]
+    return fwd, dx, zcats
+
+
+def _sr3d_step_counts(arch):
+    """How many of each of ``_sr3d_rows``' forward convs a forward runs:
+    one stem, up-sampling and output conv, and the body's ``10 x (20 x 2 +
+    1) + 1`` (rcan) or ``4 x 4 x 3`` (dfcan) convs."""
+    body = 10 * (20 * 2 + 1) + 1 if arch == "rcan" else 4 * 4 * 3
+    return [1, body, 1, 1]
+
+
 def _template_conv_sums(rows):
     """Prints the templates' bf16 forward sum and forward-plus-dx sum
     against ``F.conv3d``'s and the bound, which of their rows and of the
@@ -777,6 +833,33 @@ def _template_conv_sums(rows):
     print(f"[kernels] conv3d float32 rows of the main path, the templates and super-resolution "
           f"slower than F.conv3d (shape, Cout, ms, F.conv3d ms): {slower if slower else 'none'}")
     return sums
+
+
+def _sr3d_conv_report(rows):
+    """Prints phase 14 (c)'s conv3d rows (rcan's and dfcan's forward convs
+    and input gradients at the 3D super-resolution template's batch and
+    patch) by dtype: each row's ms against ``F.conv3d``'s and its bound, the
+    rows slower than ``F.conv3d`` or below half their bound, and the sums
+    over one forward batch (each shape as many times as the model runs it)."""
+    for arch in SR3D_FILTERS:
+        fwd, dx, _ = _sr3d_rows(arch)
+        for dt in ("bfloat16", "float32"):
+            picked = [(next(r for r in rows if r["kernel"] == "conv3d" and r["dtype"] == dt
+                            and r["shape"] == list(v) + [cin] and r["cout"] == cout), v, cin, cout)
+                      for v, cin, cout in fwd + dx]
+            print(f"[kernels] conv3d {arch} 3D x2 {dt} (shape, Cin -> Cout: ms, F.conv3d ms, "
+                  "bound ms, route): " + "; ".join(
+                      f"{tuple(v)} {cin}->{cout}: {r['ms']:.3f}, {r['library_ms']:.3f}, "
+                      f"{r['bound_ms']:.3f}, {r['route']}" for r, v, cin, cout in picked))
+            slow = [(tuple(v), cin, cout) for r, v, cin, cout in picked
+                    if r["ms"] > r["library_ms"] or r["ms"] > 2 * r["bound_ms"]]
+            counts = _sr3d_step_counts(arch)
+            tot = {k: sum(n * r[k] for n, (r, *_) in zip(counts, picked[:len(fwd)]))
+                   for k in ("ms", "library_ms", "bound_ms")}
+            print(f"[kernels] conv3d {arch} 3D x2 {dt}: one forward batch ({sum(counts)} convs) "
+                  f"{tot['ms']:.3f} ms, F.conv3d {tot['library_ms']:.3f} ms, bound "
+                  f"{tot['bound_ms']:.3f} ms; rows slower than F.conv3d or below half their "
+                  f"bound: {slow if slow else 'none'}")
 
 
 def _pad_row(out, x):
@@ -852,6 +935,9 @@ def conv_rows(out, rand, g, dev, classification_only=False):
                   if r not in cls_shapes and r not in variant_shapes]
     tpl32_shapes = [r for r in dict.fromkeys(tpl_fwd + tpl_dx) if r not in cls_shapes]
     sr_shapes = list(dict.fromkeys(sum(_sr_conv_rows(), [])))
+    # phase 14 (c)'s rcan and dfcan: new widths in both dtypes
+    sr3d_shapes = list(dict.fromkeys(row for arch in SR3D_FILTERS
+                                     for row in sum(_sr3d_rows(arch)[:2], [])))
     pad_ms, split_ms = {}, {}  # x's shape -> its channel pad's, its TF32 split's ms
     for dt in (torch.bfloat16, torch.float32):
         todo = ([] if classification_only else shapes + ODD_CONVS) + cls_shapes
@@ -859,6 +945,8 @@ def conv_rows(out, rand, g, dev, classification_only=False):
             todo = todo + variant_shapes + ([] if classification_only else tpl_shapes)
         elif not classification_only:
             todo = todo + tpl32_shapes + sr_shapes
+        if not classification_only:
+            todo = todo + [r for r in sr3d_shapes if r not in todo]
         for vol, cin, cout in todo:
             shape = vol + (cin,)
             x = rand(shape, dt)
@@ -886,6 +974,7 @@ def conv_rows(out, rand, g, dev, classification_only=False):
     if out.failures or classification_only:
         return
     _template_conv_sums(out.rows)
+    _sr3d_conv_report(out.rows)
     main = [r for r in out.rows if r["kernel"] == "conv3d" and r["dtype"] == "bfloat16"
             and r["shape"][0] == 1]
     best = max(main, key=lambda r: r["tflops"])
@@ -1036,6 +1125,11 @@ def phase_kernels(card, conv3d_only=False, classification_only=False, twod_only=
                           for s, cin, _ in TEMPLATE_CONVS}
         zcats += cls_zcat5 + cls_zcat3 + [r for r in _variant_rows()[1]
                                           if r not in template_zcats]
+        if not classification_only:
+            # phase 14 (c)'s weight-gradient zcats: rcan's and dfcan's convs
+            zcats += [r for r in dict.fromkeys(row for arch in SR3D_FILTERS
+                                               for row in _sr3d_rows(arch)[2])
+                      if r not in zcats]
         for shape, kz, depth in zcats:
             x = rand(shape, dt)
             hz = kz // 2
@@ -1204,17 +1298,26 @@ def _cpu_ckpt(c):
 
 def _finish_cpu_sides():
     """Finish every check whose CPU side ran in the child, in the order they
-    were submitted, then stop the child. Returns the seconds spent here (the
-    wait for the child included)."""
+    were submitted, then stop the child; a check that fails is printed and
+    the others still run, and the call then raises naming every failure.
+    Returns the seconds spent here (the wait for the child included)."""
     import shutil
 
     t0 = time.perf_counter()
+    failed = []
     try:
         while _CPU_SIDE["pending"]:
-            _CPU_SIDE["pending"].pop(0)()
+            try:
+                _CPU_SIDE["pending"].pop(0)()
+            except Exception as e:  # noqa: BLE001 -- raised below, with the others
+                print(f"[cpu-sides] FAIL: {type(e).__name__}: {e}")
+                failed.append(e)
     finally:
         _stop_cpu_side()
         shutil.rmtree(OUT_DIR / "chip_smoke_cpu_side", ignore_errors=True)
+    if failed:
+        raise AssertionError(f"{len(failed)} card-vs-CPU checks failed: "
+                             + "; ".join(f"{type(e).__name__}: {e}" for e in failed))
     return time.perf_counter() - t0
 
 
@@ -3584,6 +3687,22 @@ RESTORATION_SHAPES = {"denoising": (64, 256, 256), "super_resolution": (64, 256,
 RESTORATION_CROPS = {"denoising": (16, 96, 96), "super_resolution": (8, 128, 128),
                      "self_supervised": (12, 96, 96), "image_to_image": (20, 128, 128)}
 RESTORATION_STEP_YX = 64
+# (c): the LR training and test volumes (two and one; the HR twice them on
+# every axis): 2 x 2 x 2 patches of the template's 8 x 128 x 128 each
+SR3D_SHAPE = (16, 256, 256)
+# rcan's float32 training step card against CPU, from the seeded initial
+# weights (the same on both devices). Phase 8's 1e-4 is beyond any float32
+# implementation there: rcan at its defaults adds 200 RCABs' residuals
+# unscaled, its outputs reach about 8e4 and 6e4 at init, and the JAX
+# package's own float32 step lies from a float64 one, in the gradients and
+# in the weights after SGD at 0.05, 1.29e-2 and 6.81e-3 in 3D (8 x 64 x 64
+# LR) and 8.16e-2 and 7.81e-2 in 2D (64 x 64), most of it in the channel
+# attentions' 1x1 convs; the port's CPU step 1.29e-2 and 7.95e-3, 1.09e-1
+# and 4.63e-2 (``tools/torch_sr_step_witness.py``). The limits are twice
+# the reference's, as phase 17's are; the loss keeps 1e-4. dfcan's step
+# lies 2.7e-7 from float64 (the same witness) and keeps phase 8's rule
+RCAN_STEP_TOLS = {3: {"loss": 1e-4, "grad": 2.6e-2, "weight": 1.4e-2},
+                  2: {"loss": 1e-4, "grad": 1.7e-1, "weight": 1.6e-1}}
 
 
 def _smooth_volume(g, shape, noise):
@@ -3680,6 +3799,45 @@ def _model_launches(model, dtype, training):
     return out, routes
 
 
+def _sr_launches(model, dtype, training):
+    """Kernel launches of one forward (``training``: one training step,
+    forward and backward) of a 3D super-resolution model (rcan, dfcan), read
+    off it: a conv3d per 3x3x3 conv and in training its input gradient (but
+    the stem's, whose input needs none) and one zcat for its weight
+    gradient; the 1x1x1 convs are matmuls and ``pixel_shuffle`` a reshape,
+    which launch nothing of the port. Each conv runs in the input's dtype,
+    but in DFCAN every conv from the first FCAB's spectrum conv on runs in
+    float32: the FFT takes complex64, and the block's output ``x + h * s``
+    is float32 from there (the JAX package's promotion); conv3d's routes
+    follow."""
+    import torch
+
+    from biapy_tpu_torch.models.blocks import Conv
+    from biapy_tpu_torch.ops.kernels.conv3d import conv3d_route
+
+    launched, n3, dt = [], 0, dtype
+    for name, m in model.named_modules():
+        if not (isinstance(m, Conv) and tuple(m.kernel.shape[:3]) == (3, 3, 3)):
+            continue
+        parts = name.split(".")
+        if len(parts) > 1 and parts[-2].startswith("_FCAB") and parts[-1] == "Conv_2":
+            dt = torch.float32
+        cin, cout = (int(c) for c in m.kernel.shape[3:])
+        launched.append((dt, cin, cout))
+        if training and n3:
+            launched.append((dt, cout, cin))
+        n3 += 1
+    routes = dict.fromkeys(CONV3D_ROUTE_NAMES, 0)
+    for d, cin, cout in launched:
+        routes[conv3d_route(d, cin, cout)] += 1
+    out = dict.fromkeys(KERNEL_META, 0)
+    out.update(conv3d=len(launched), zcat=n3 if training else 0,
+               pad_channels=sum(1 for d, cin, cout in launched
+                                if conv3d_route(d, cin, cout) == "wgmma" and cin % 8),
+               tf32_split=routes["tf32x3"])
+    return out, routes
+
+
 def _count_forwards(wf, outputs=None):
     """Record (training, input dtype) of every forward of ``wf``'s model from
     the moment ``prepare_model`` builds it (the bf16 test copy keeps the
@@ -3721,7 +3879,7 @@ def _expected_launches(model, calls, count=None):
 
 def _step_on(c, batch, result_dir, name, dev):
     """One side of ``_restoration_step_vs_plain``: one float32 SGD step of the
-    job ``c`` on ``batch`` on ``dev``, Dropout held off. Returns the loss,
+    job ``c`` on ``batch`` on ``dev``, Dropout and DropPath held off. Returns the loss,
     the gradients the step applied (read as it hands them to the optimizer:
     one forward and backward), the updated weights and the floating-point
     buffers, as CPU tensors."""
@@ -3729,7 +3887,7 @@ def _step_on(c, batch, result_dir, name, dev):
 
     from biapy_tpu_torch import BiaPy
     from biapy_tpu_torch.engine.train_engine import make_train_step
-    from biapy_tpu_torch.models.blocks import Dropout
+    from biapy_tpu_torch.models.blocks import DropPath, Dropout
 
     job = BiaPy(c, result_dir=result_dir, name=name, silent=True, check_data_paths=False,
                 device=dev)
@@ -3737,7 +3895,7 @@ def _step_on(c, batch, result_dir, name, dev):
     wf = job.workflow
     wf.prepare_model()
     for m in wf.model.modules():
-        if isinstance(m, Dropout):
+        if isinstance(m, (Dropout, DropPath)):
             m.rate = 0.0
     x, y = (torch.from_numpy(batch[k]).to(dev) for k in ("x", "y"))
     grads, update = {}, wf.state.optimizer.update
@@ -3761,8 +3919,8 @@ def _restoration_step_vs_plain(cfg, ckpt, batch, root, name, tols=None, lr=0.05,
     loss, every gradient and every updated weight within 1e-4 of its scale,
     phase 8's rule, or within ``tols`` ({"loss", "grad", "weight"} and, if
     given, "stats": every BatchNorm running statistic after the step).
-    Dropout is held off on both sides (its masks come from each device's
-    generator); BatchNorm trains. The CPU side runs in the CPU-side child;
+    Dropout and DropPath are held off on both sides (their masks come from
+    each device's generator); BatchNorm trains. The CPU side runs in the CPU-side child;
     the comparison, after the last phase, fills the returned dict and then
     calls ``done`` with it."""
     import copy
@@ -3822,18 +3980,21 @@ def _predict_side(c, inputs, classifier, result_dir, name, dev):
     t0 = time.perf_counter()
     preds = np.stack([np.asarray(next(p["pred"] for p in job.predict(v) if "pred" in p),
                                  np.float32) for v in inputs])
+    logits = [lg["class"] if isinstance(lg, dict) else lg for lg in logits]
     return preds, np.concatenate(logits) if classifier else None, time.perf_counter() - t0
 
 
-def _card_vs_cpu(name, cfg, ckpt, inputs, root, classifier=False, done=None):
+def _card_vs_cpu(name, cfg, ckpt, inputs, root, classifier=False, done=None, scaled=False):
     """``predict`` of ``ckpt`` on each of ``inputs`` on the card and on the
     CPU (plain versions), float32 and, under the config's TEST.REDUCE_MEMORY,
-    bf16: float32 within 1e-4; bf16 card no farther from the card's float32
-    output than the CPU's bf16 (1.5x at the worst voxel, 1.2x on the mean:
-    phase 12 b's rule). ``classifier``: the rule holds the model's logits
-    (read by a hook: the trained head saturates the probabilities), float32
-    within 1e-4 of their scale; the float32 probabilities must also lie
-    within 1e-4 and each input's predicted class must agree. The CPU side
+    bf16: float32 within 1e-4 (``scaled``: of the output's scale, for a
+    model whose outputs are far from 1); bf16 card no farther from the
+    card's float32 output than the CPU's bf16 (1.5x at the worst voxel, 1.2x
+    on the mean: phase 12 b's rule). ``classifier``: the rule holds the
+    model's logits (read by a hook: the trained head saturates the
+    probabilities), float32 within 1e-4 of their scale; the float32
+    probabilities must also lie within 1e-4 and each input's predicted
+    class must agree. The CPU side
     runs in the CPU-side child; the comparison, after the last phase, fills
     the returned dict and then calls ``done`` with it."""
     import copy
@@ -3878,8 +4039,8 @@ def _card_vs_cpu(name, cfg, ckpt, inputs, root, classifier=False, done=None):
                 out[dt]["prob_max_abs"] = float(np.abs(probs[dt, "card"]
                                                        - probs[dt, "cpu"]).max())
         f = out["float32"]
-        scale = max(1.0, float(np.abs(ref).max())) if classifier else 1.0
-        if classifier:
+        scale = max(1.0, float(np.abs(ref).max())) if classifier or scaled else 1.0
+        if classifier or scaled:
             f["scale"] = scale
         ok = f["max_abs"] <= 1e-4 * scale and (not classifier
                                                or (f["prob_max_abs"] <= 1e-4
@@ -3907,6 +4068,140 @@ def _print_restoration_vs(kind, vs):
               f"{v['to_f32']['cpu']['max_abs']:.3g} mean "
               f"{v['to_f32']['cpu']['mean_abs']:.3g}; card {v['card_s']:.2f} s, CPU "
               f"{v['cpu_s']:.2f} s (the CPU-side child)")
+
+
+def _write_sr3d_data(root):
+    """Phase 14 (c)'s data: two training volumes and one test volume of
+    SR3D_SHAPE under x/ and their HR targets (twice the LR on every axis;
+    the LR the 2 x 2 x 2 block mean) under y/. Returns the test LR volume."""
+    import numpy as np
+    import torch
+
+    from biapy_tpu_torch.data.tiff import write_tiff
+
+    g = torch.Generator(device=DEVICE).manual_seed(19)
+    d, h, w = SR3D_SHAPE
+    for split, n in (("train", 2), ("test", 1)):
+        for i in range(n):
+            hr = _smooth_volume(g, (2 * d, 2 * h, 2 * w), 6)
+            img = np.round(hr.reshape(d, 2, h, 2, w, 2).mean(axis=(1, 3, 5))).astype(np.uint8)
+            for sub, vol in (("x", img), ("y", hr)):
+                (root / split / sub).mkdir(parents=True, exist_ok=True)
+                write_tiff(str(root / split / sub / f"{split}_{i:03d}.tif"), vol)
+    return img
+
+
+def _sr3d_job(arch, root, smi, total):
+    """Phase 14 (c): the 3D super-resolution template with ``arch`` (rcan or
+    dfcan at full width and depth) and UPSCALING (2, 2, 2), RANDOM_ROT off
+    (ROADMAP section 3), on seeded LR / HR volumes, through ``run_job`` at
+    EPOCHS 2: seconds, the test prediction's shape, PSNR and SSIM, peak
+    memory, launches by kernel and route against the counts read off the
+    model (``_sr_launches``) for every forward it ran, no zcat on the
+    ``scalar`` route; then the best checkpoint on a crop of the test volume
+    card against CPU (float32 within 1e-4 of the output's scale) and one
+    float32 training step card against CPU (dfcan's from the best
+    checkpoint at phase 8's rule, rcan's from its seeded weights at
+    ``RCAN_STEP_TOLS``). The template's own (1, 2, 2) does not
+    run with these models in either package (ROADMAP section 3)."""
+    import numpy as np
+    import torch
+    import yaml
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.data.tiff import read_tiff
+    from biapy_tpu_torch.ops.kernels import build
+
+    tpl = RESTORATION_TEMPLATES["super_resolution"]
+    t0 = time.perf_counter()
+    test = _write_sr3d_data(root)
+    data_s = time.perf_counter() - t0
+    with open(REPO / tpl) as f:
+        cfg = yaml.safe_load(f)
+    cfg["MODEL"]["ARCHITECTURE"] = arch
+    cfg["PROBLEM"]["SUPER_RESOLUTION"]["UPSCALING"] = [2, 2, 2]
+    cfg["AUGMENTOR"]["RANDOM_ROT"] = False
+    for split in ("TRAIN", "TEST"):
+        cfg["DATA"][split]["PATH"] = str(root / split.lower() / "x")
+        cfg["DATA"][split]["GT_PATH"] = str(root / split.lower() / "y")
+    cfg["TRAIN"]["EPOCHS"] = 2
+    job = BiaPy(cfg, result_dir=str(root / "results"), name=f"sr3d_{arch}", silent=True,
+                device=DEVICE)
+    job._build_workflow()
+    wf = job.workflow
+    calls = _count_forwards(wf)
+    loop_s, test_s = [], []
+    wf.train_one_epoch = _timed(wf.train_one_epoch, loop_s)
+    wf.test = _timed(wf.test, test_s)
+    torch.cuda.synchronize()
+    build.reset_launches()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    job.run_job()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    launches = dict(build.LAUNCHES)
+    routes = dict(build.CONV3D_ROUTES)
+    zcat_routes = dict(build.SHUFFLE_ROUTES["zcat"])
+    _launch_totals(total)
+    want, want_routes = _expected_launches(wf.model, calls, _sr_launches)
+    hist = wf.history
+    pred = read_tiff(str(Path(wf.cfg.PATHS.RESULT_DIR.PER_IMAGE) / "test_000.tif"))
+    out_shape = tuple(2 * n for n in SR3D_SHAPE)
+    stats = getattr(wf, "stats", None) or {}
+    if (len(hist) != 2 or not all(np.isfinite(h["loss"]) for h in hist)
+            or pred.shape[:3] != out_shape or not np.all(np.isfinite(pred))
+            or not {"psnr", "ssim"} <= set(stats)):
+        raise AssertionError(f"sr3d {arch}: epochs {hist}, prediction {pred.shape} (want "
+                             f"{out_shape}), stats {stats}")
+    if launches != want or routes != want_routes or zcat_routes.get("scalar"):
+        raise AssertionError(f"sr3d {arch}: launches {launches} (want {want}), conv3d routes "
+                             f"{routes} (want {want_routes}), zcat routes {zcat_routes}, "
+                             f"{len(calls)} forwards")
+    n_par = sum(p.numel() for p in wf.model.parameters())
+    bs = int(wf.cfg.TRAIN.BATCH_SIZE)
+    steps = len(wf.train_loader)
+    r = dict(template=tpl, arch=arch, params=n_par, patch=list(wf.cfg.DATA.PATCH_SIZE),
+             batch=bs, seconds=secs, data_seconds=data_s, loop_seconds=loop_s,
+             loop_patches_per_s=[steps * bs / t for t in loop_s], test_seconds=test_s[0],
+             test_mvox_in_per_s=float(np.prod(SR3D_SHAPE)) / test_s[0] / 1e6,
+             loss=[h["loss"] for h in hist], metrics={k: stats[k] for k in ("psnr", "ssim")},
+             peak_bytes=peak, launches=launches, conv3d_routes=routes, zcat_routes=zcat_routes,
+             forwards=len(calls), steps=steps,
+             change="MODEL.ARCHITECTURE " + arch + ", UPSCALING (2, 2, 2), AUGMENTOR.RANDOM_ROT "
+                    "False")
+    print(f"[restoration] {smi}: {tpl} with {arch} ({n_par:,} parameters), UPSCALING (2, 2, "
+          f"2), patch {r['patch']}, batch {bs}, {len(wf.train_data)} train / "
+          f"{len(wf.val_data)} val patches, 2 epochs: run_job {secs:.2f} s (data written in "
+          f"{data_s:.1f} s); loop s per epoch {[round(t, 3) for t in loop_s]} "
+          f"({[round(v, 2) for v in r['loop_patches_per_s']]} patches/s); test "
+          f"{r['test_mvox_in_per_s']:.3f} Mvox/s in, prediction {pred.shape[:3]}; PSNR "
+          f"{stats['psnr']:.4f} SSIM {stats['ssim']:.4f} (a record: 2 epochs); peak memory "
+          f"{peak / 2**30:.2f} GiB; loss {[round(v, 5) for v in r['loss']]}")
+    print(f"[restoration] sr3d {arch}: launches "
+          f"{ {k: v for k, v in launches.items() if v} } over {len(calls)} forwards = the "
+          f"model's count; conv3d routes {routes}; zcat routes {zcat_routes}")
+    best = str(Path(wf.cfg.PATHS.CHECKPOINT) / f"sr3d_{arch}-checkpoint-best.ckpt")
+    crop = test[tuple(slice(0, n) for n in RESTORATION_CROPS["super_resolution"])]
+    # of the output's scale: rcan at its defaults (no residual scaling over
+    # 200 RCABs) puts out values far above 1, in both packages (ROADMAP
+    # section 3)
+    vs = _card_vs_cpu(f"sr3d_{arch}", cfg, best, [crop], root,
+                      done=lambda v: _print_vs_plain(f"sr3d {arch}", v, "restoration"),
+                      scaled=True)
+    sample = wf.val_data.get(0, np.random.default_rng(0))
+    yx = RESTORATION_STEP_YX
+    batch = {"x": sample["x"][None, :, :yx, :yx], "y": sample["y"][None, :, :2 * yx, :2 * yx]}
+    rcan = arch == "rcan"
+    step_worst = _restoration_step_vs_plain(
+        cfg, None if rcan else best, batch, root, f"sr3d_{arch}",
+        RCAN_STEP_TOLS[3] if rcan else None,
+        done=lambda w, shape=batch["x"].shape: _print_step_vs_plain(
+            f"sr3d {arch}", w, shape, "restoration"))
+    build.reset_launches()
+    r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
+    return r
 
 
 def phase_restoration(smi):
@@ -4091,6 +4386,9 @@ def phase_restoration(smi):
                     kind, w, shape, "restoration"))
             build.reset_launches()
             r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
+        # (c) the super-resolution template with rcan and dfcan in 3D
+        for arch in SR3D_FILTERS:
+            res[f"sr3d_{arch}"] = _sr3d_job(arch, root0 / f"sr3d_{arch}", smi, total)
         res["launches"] = total["launches"]
         res["conv3d_routes"] = total["conv3d_routes"]
         res["shuffle_routes"] = total["shuffle_routes"]
@@ -4364,7 +4662,8 @@ def _print_vs_plain(name, vs, tag="classification"):
     for dt, v in vs.items():
         print(f"[{tag}-vs-plain] {name} {dt}: max |card - CPU| = "
               f"{v['max_abs']:.3g}, mean {v['mean_abs']:.3g}"
-              + (f" (scale {v['scale']:.3g}; probabilities {v['prob_max_abs']:.3g})"
+              + (f" (scale {v['scale']:.3g}" + (f"; probabilities {v['prob_max_abs']:.3g}"
+                                                 if "prob_max_abs" in v else "") + ")"
                  if "scale" in v else "")
               + f"; against the card's float32: card "
               f"max {v['to_f32']['card']['max_abs']:.3g} mean "
@@ -4681,7 +4980,8 @@ def _launches_2d(model, dtype, training):
     2D model, read off it: a pool per encoder level of a U-Net (two in
     simple_cnn) and in training its backward; no conv3d, zcat, zd2s or
     zs2d (2D convs are PyTorch's, the transposed conv has no z phase), no
-    conv3d route. The ViT launches no kernel of the port."""
+    conv3d route. The ViT, the super-resolution family and EfficientNet
+    launch no kernel of the port in 2D."""
     from biapy_tpu_torch.models.simple_cnn import SimpleCNN
     from biapy_tpu_torch.models.unet_family import UNetFamily
 
@@ -4783,10 +5083,8 @@ def _twod_job(kind, cfg, test, root, smi, total):
              launches=launches, conv3d_routes=routes, shuffle_routes=shuffle_routes,
              forwards=len(calls), steps=steps, train_patches=len(wf.train_data),
              val_patches=len(wf.val_data),
-             change=("MODEL.ARCHITECTURE unet, AUGMENTOR.RANDOM_ROT False"
-                     if kind == "super_resolution" else
-                     "MODEL.ARCHITECTURE simple_cnn" if kind == "classification" else None))
-    fm = "" if kind == "classification" else f" {list(wf.cfg.MODEL.FEATURE_MAPS)}"
+             change=("AUGMENTOR.RANDOM_ROT False" if kind == "super_resolution" else None))
+    fm = f" {list(wf.cfg.MODEL.FEATURE_MAPS)}" if r["arch"] in ("unet", "resunet") else ""
     print(f"[2d] {smi}: {tpl}: {r['arch']}{fm}, patch {r['patch']}, "
           f"batch {bs}, {len(wf.train_data)} train / {len(wf.val_data)} val patches, 2 epochs"
           + (f", changed: {r['change']}" if r["change"] else "")
@@ -4814,14 +5112,19 @@ def _twod_job(kind, cfg, test, root, smi, total):
                           done=lambda v: _print_vs_plain(kind, v, "2d"))
     else:
         ch = TWOD_CROP if kind != "super_resolution" else tuple(c // 2 for c in TWOD_CROP)
+        # super-resolution's rcan puts out values far above 1 (no residual
+        # scaling over 200 RCABs, ROADMAP section 3): within 1e-4 of scale
         vs = _card_vs_cpu(kind, cfg, best, [test[0][:ch[0], :ch[1]]], root,
-                          done=lambda v: _print_vs_plain(kind, v, "2d"))
+                          done=lambda v: _print_vs_plain(kind, v, "2d"),
+                          scaled=kind == "super_resolution")
     if kind == "classification":
         samples = [wf.val_data.get(i % len(wf.val_data), np.random.default_rng(0))
                    for i in range(4)]
         batch = {k: np.stack([smp[k] for smp in samples]) for k in ("x", "y")}
+        # simple_cnn's step at its own limits (CLS_STEP_TOLS); EfficientNet's
+        # (SiLU, no max-pool) at phase 8's rule
         step_worst = _restoration_step_vs_plain(
-            cfg, None, batch, root, kind, CLS_STEP_TOLS["simple_cnn"],
+            cfg, None, batch, root, kind, CLS_STEP_TOLS.get(r["arch"]),
             float(wf.cfg.TRAIN.LR[0]),
             done=lambda w, shape=batch["x"].shape: _print_step_vs_plain(kind, w, shape, "2d"))
     else:
@@ -4830,12 +5133,101 @@ def _twod_job(kind, cfg, test, root, smi, total):
         sample = wf.val_data.get(0, np.random.default_rng(0))
         batch = {"x": sample["x"][None, :yx, :yx],
                  "y": sample["y"][None, :yx * up[0], :yx * up[1]]}
+        # rcan's step from the seeded weights at RCAN_STEP_TOLS (2D)
+        rcan = r["arch"] == "rcan"
         step_worst = _restoration_step_vs_plain(
-            cfg, best, batch, root, kind,
+            cfg, None if rcan else best, batch, root, kind, RCAN_STEP_TOLS[2] if rcan else None,
             done=lambda w, shape=batch["x"].shape: _print_step_vs_plain(kind, w, shape, "2d"))
     build.reset_launches()
     r.update(card_vs_cpu=vs, step_vs_plain=step_worst)
-    return r
+    return r, batch
+
+
+def _forward_on(c, x, result_dir, name, dev):
+    """One side of ``_forward_vs_cpu``: the job ``c``'s model from its seeded
+    initial weights (drawn on the CPU from SYSTEM.SEED, so the same on either
+    device) in eval, float32, on ``x``; its output (a classifier's logits)
+    as float32 numpy, and the seconds of the forward."""
+    import torch
+
+    from biapy_tpu_torch import BiaPy
+    from biapy_tpu_torch.engine.base_workflow import flat_outputs
+
+    job = BiaPy(c, result_dir=result_dir, name=name, silent=True, check_data_paths=False,
+                device=dev)
+    job._build_workflow()
+    wf = job.workflow
+    wf.prepare_model()
+    wf.model.eval()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = flat_outputs(wf.model(torch.from_numpy(x).to(dev))).float().cpu().numpy()
+    return out, time.perf_counter() - t0
+
+
+def _forward_vs_cpu(name, c, x, root, done=None):
+    """The job ``c``'s model from its seeded initial weights on ``x``,
+    float32, on the card and on the CPU (plain versions): within 1e-4 of the
+    output's scale. The CPU side runs in the CPU-side child; the comparison,
+    after the last phase, fills the returned dict and then calls ``done``
+    with it."""
+    import numpy as np
+
+    cpu = _cpu_side("_forward_on", c=c, x=x, result_dir=str(CPU_SIDE_RESULTS),
+                    name=f"{name}_fwd_cpu", dev="cpu")
+    card, card_s = _forward_on(c, x, str(root / "vs_plain"), f"{name}_fwd_card", DEVICE)
+    out = {}
+
+    def finish():
+        ref, cpu_s = cpu()
+        scale = max(1.0, float(np.abs(ref).max()))
+        err = float(np.abs(card - ref).max())
+        out.update(shape=list(card.shape), max_abs=err, scale=scale, card_s=card_s, cpu_s=cpu_s)
+        if not (card.shape == ref.shape and err <= 1e-4 * scale):
+            raise AssertionError(f"{name}: float32 forward, card and CPU differ: {out}")
+        if done:
+            done(out)
+    _CPU_SIDE["pending"].append(finish)
+    return out
+
+
+def _print_forward_vs_plain(name, v):
+    print(f"[2d-vs-plain] {name}: float32 forward from seeded weights on "
+          f"{tuple(v['shape'])}: max |card - CPU| = {v['max_abs']:.3g} (scale "
+          f"{v['scale']:.3g}); card {v['card_s']:.3f} s, CPU {v['cpu_s']:.3f} s")
+
+
+def _twod_other_models(kind, cfg, patch, batch, root):
+    """The other models of a 2D template's comment, each from its seeded
+    initial weights, card against CPU: for super-resolution edsr, wdsr and
+    dfcan (a float32 forward at the template's patch) and unet (the model
+    phase 16 ran before the template's rcan: a forward and one float32
+    training step), for classification simple_cnn (likewise, before
+    efficientnet_b0; its step at ``CLS_STEP_TOLS``). ``batch`` is the
+    template's own job's step batch, ``patch`` its DATA.PATCH_SIZE."""
+    import copy
+
+    import numpy as np
+
+    archs = (("edsr", "wdsr", "dfcan", "unet") if kind == "super_resolution"
+             else ("simple_cnn",))
+    x = np.random.default_rng(16).standard_normal((2,) + tuple(patch)).astype(np.float32)
+    res = {}
+    for arch in archs:
+        c = copy.deepcopy(cfg)
+        c["MODEL"]["ARCHITECTURE"] = arch
+        name = f"{kind}_{arch}"
+        res[arch] = {"forward": _forward_vs_cpu(
+            name, c, x, root, done=lambda v, name=name: _print_forward_vs_plain(name, v))}
+        if arch in ("unet", "simple_cnn"):
+            tols = CLS_STEP_TOLS["simple_cnn"] if arch == "simple_cnn" else None
+            lr = cfg["TRAIN"]["LR"]
+            lr = float(lr[0] if isinstance(lr, list) else lr) if arch == "simple_cnn" else 0.05
+            res[arch]["step"] = _restoration_step_vs_plain(
+                c, None, batch, root, name, tols, lr,
+                done=lambda w, name=name, shape=batch["x"].shape: _print_step_vs_plain(
+                    name, w, shape, "2d"))
+    return res
 
 
 def _twod_vit(cfg, root, smi):
@@ -4942,16 +5334,20 @@ def _twod_full_img(cfg, ckpt, root, smi, total):
 
 def phase_2d(smi):
     """(a) The 2D templates (semantic, instance, detection, denoising,
-    image-to-image, super-resolution with ``unet`` and RANDOM_ROT off, and
-    classification with ``simple_cnn``) loaded as they are, with only their
-    data paths (seeded uint8 TIFFs), EPOCHS 2 and those two changes, through
-    ``run_job``: seconds, the loop's patches/s and the device's idle share
-    over a profiled epoch, test Mpx/s, peak memory, the template's metric
-    (a record), launches by kernel and route against the counts read off
-    the model (pool and pool backward only, none on ``scalar``); each best
-    checkpoint card against CPU and one float32 training step card against
-    CPU. (b) One ``predict`` with TEST.FULL_IMG. (c) ``vit`` in 2D: one
-    float32 forward card against CPU and one bf16 step."""
+    image-to-image, super-resolution with its ``rcan`` and RANDOM_ROT off,
+    and classification with its ``efficientnet_b0``) loaded as they are,
+    with only their data paths (seeded uint8 TIFFs), EPOCHS 2 and that one
+    change, through ``run_job``: seconds, the loop's patches/s and the
+    device's idle share over a profiled epoch, test Mpx/s, peak memory, the
+    template's metric (a record), launches by kernel and route against the
+    counts read off the model (pool and pool backward only, none on
+    ``scalar``); each best checkpoint card against CPU and one float32
+    training step card against CPU; the super-resolution template's other
+    models (edsr, wdsr, dfcan, unet) and the classification template's
+    simple_cnn from seeded weights, card against CPU
+    (``_twod_other_models``). (b) One ``predict`` with TEST.FULL_IMG. (c)
+    ``vit`` in 2D: one float32 forward card against CPU and one bf16
+    step."""
     import shutil
 
     import yaml  # the templates are YAML; PyYAML is optional for the port itself
@@ -4971,7 +5367,6 @@ def phase_2d(smi):
             if kind == "classification":
                 cfg["DATA"]["TRAIN"]["PATH"] = str(root / "train")
                 cfg["DATA"]["TEST"]["PATH"] = str(root / "test")
-                cfg["MODEL"]["ARCHITECTURE"] = "simple_cnn"
             else:
                 cfg["DATA"]["TRAIN"]["PATH"] = str(root / "train/x")
                 cfg["DATA"]["TEST"]["PATH"] = str(root / "test/x")
@@ -4980,13 +5375,16 @@ def phase_2d(smi):
                     cfg["DATA"]["TEST"]["GT_PATH"] = str(root / "test/y")
             cfg["TRAIN"]["EPOCHS"] = 2
             if kind == "super_resolution":
-                # the template's rcan is ROADMAP item 10; its comment names unet
-                # among the alternatives. RANDOM_ROT: ROADMAP section 3
-                cfg["MODEL"]["ARCHITECTURE"] = "unet"
+                # RANDOM_ROT: ROADMAP section 3
                 cfg["AUGMENTOR"]["RANDOM_ROT"] = False
-            res[kind] = _twod_job(kind, cfg, test, root, smi, total)
+            res[kind], batch = _twod_job(kind, cfg, test, root, smi, total)
             res[kind].update(data_seconds=data_s, wall_seconds=time.perf_counter() - t0)
             t0 = time.perf_counter()
+            if kind in ("super_resolution", "classification"):
+                res[f"{kind}_others"] = _twod_other_models(kind, cfg, res[kind]["patch"],
+                                                           batch, root)
+                res[f"{kind}_others"]["wall_seconds"] = time.perf_counter() - t0
+                t0 = time.perf_counter()
             if kind == "semantic":
                 res["full_img"] = _twod_full_img(cfg, res[kind]["best"], root, smi, total)
                 res["full_img"]["wall_seconds"] = time.perf_counter() - t0
@@ -5879,6 +6277,11 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
     conv3d entry ``float32_*`` and ``float32_train_step_*`` sums: the same
     serving patch and training step in float32 (the stem kernel and the
     3xTF32 route).
+    The conv3d and zcat entries carry ``sr3d_rcan_*`` and ``sr3d_dfcan_*``
+    sums: phase 14 c's 3D super-resolution template with rcan and dfcan at
+    UPSCALING (2, 2, 2), batch 4, in float32: one forward batch's convs and
+    one training step's zcats, each shape as many times as the model runs
+    it (``_sr3d_step_counts``).
     ``launches`` also counts phase 15's runs (the classification template
     with simple_cnn and vit, and the U-Net variants) and phase 16's (the 2D
     templates and the TEST.FULL_IMG predict: pool and pool backward only),
@@ -5995,6 +6398,17 @@ def summarise(rows, serve, train, larger_io, job, chunks, aug, template, instanc
         rows_at = per_classification.get(name)
         if rows_at:
             entry.update(sums(pick(name, rows_at), "classification_"))
+        if name in ("conv3d", "zcat"):
+            # phase 14 (c): one float32 forward batch (conv3d) or training
+            # step (the weight gradients' zcats), each shape as often as the
+            # model runs it
+            for arch in SR3D_FILTERS:
+                fwd, _, zcats = _sr3d_rows(arch)
+                wants = ([dict(shape=list(v) + [cin], cout=cout) for v, cin, cout in fwd]
+                         if name == "conv3d" else
+                         [dict(shape=list(sh), kz=kz, depth=d) for sh, kz, d in zcats])
+                wants = [w for w, n in zip(wants, _sr3d_step_counts(arch)) for _ in range(n)]
+                entry.update(sums(pick(name, wants, "float32"), f"sr3d_{arch}_"))
         if name in ("pool_max_folded", "pool_max_folded_bwd"):
             for tpl, pools in TWOD_POOLS.items():
                 entry.update(sums(pick(name, [dict(shape=list(s), ndim=2) for s, _ in pools]),
@@ -6178,7 +6592,10 @@ def main():
           "zd2s and zs2d over those templates' two of each and of zcat over their ten, at each "
           "template's batch and patch; the classification_* sums over the classification "
           "template's four conv3d forwards, two pools and pool backwards, six zcats and two "
-          "zcat_bwds at batch 8; the 2d_<template>_* sums of pool_max_folded and "
+          "zcat_bwds at batch 8; the sr3d_rcan_* and sr3d_dfcan_* sums of conv3d and zcat over "
+          "one float32 forward batch's convs and one training step's zcats of the 3D "
+          "super-resolution template with rcan and dfcan at UPSCALING (2, 2, 2), batch 4, each "
+          "shape as often as the model runs it; the 2d_<template>_* sums of pool_max_folded and "
           "pool_max_folded_bwd over each 2D template's pools at its batch and patch; launches add "
           "up the main paths' runs, the job's, the by-chunks runs', the augmented job's with its "
           "TTA passes, the template's, the instance template's (by chunks with the merge "

@@ -371,16 +371,21 @@ def test_chip_smoke_restoration_rows_are_the_templates_shapes(tmp_path, monkeypa
     ({"PROBLEM": {"TYPE": "IMAGE_TO_IMAGE", "NDIM": "2D"}, "DATA": {"PATCH_SIZE": [64, 64, 1]},
       "TEST": {"METRICS": ["psnr", "lpips"], "METRIC_WEIGHTS": {"LPIPS": __file__}}},
      "9.8, the GAN slice"),
-    # 2D runs the U-Net family, simple_cnn and vit: the 2D super-resolution
-    # template's own rcan still raises, as do the torchvision classifiers
-    # and a stratified k-fold asked of the data layer directly (the workflow
-    # splits its own data, unstratified, as the JAX workflow does)
+    # 2D runs the U-Net family, the super-resolution family, simple_cnn, vit
+    # and efficientnet_b0-b7 (the ids "sr-rcan-2d" and
+    # "classification-efficientnet" date from before rcan and
+    # efficientnet_b0 were ported: they now hold a super-resolution model
+    # and an EfficientNet that are not, multiresunet and efficientnet_v2_s);
+    # a stratified k-fold asked of the data layer directly raises too (the
+    # workflow splits its own data, unstratified, as the JAX workflow does)
     ({"PROBLEM": {"TYPE": "SUPER_RESOLUTION", "NDIM": "2D",
                   "SUPER_RESOLUTION": {"UPSCALING": [2, 2]}},
       "DATA": {"PATCH_SIZE": [64, 64, 1], "NORMALIZATION": {"TYPE": "div"}},
-      "MODEL": {"ARCHITECTURE": "rcan"}}, "item 10, rest of the zoo"),
+      "MODEL": {"ARCHITECTURE": "multiresunet"}}, "item 10, rest of the zoo"),
     ({"PROBLEM": {"TYPE": "CLASSIFICATION", "NDIM": "2D"}, "DATA": {"PATCH_SIZE": [64, 64, 3]},
-      "MODEL": {"ARCHITECTURE": "efficientnet_b0"}}, "item 10, rest of the zoo"),
+      "MODEL": {"ARCHITECTURE": "efficientnet_v2_s", "SOURCE": "torchvision",
+                "TORCHVISION_MODEL_NAME": "efficientnet_v2_s", "TORCHVISION_WEIGHTS": __file__}},
+     "item 10, rest of the zoo"),
     ({"PROBLEM": {"TYPE": "CLASSIFICATION", "NDIM": "3D"},
       "DATA": {"VAL": {"FROM_TRAIN": True, "CROSS_VAL": True}},
       "MODEL": {"ARCHITECTURE": "simple_cnn"}}, "classification k-fold is never stratified"),
